@@ -1,0 +1,67 @@
+"""Configuration dataclasses for the NeuRRAM behavioral model (PyTorch port
+of `repro/core/types.py`).
+
+All configs are frozen (hashable). Units follow the paper: conductance in
+microsiemens (uS), voltage in volts.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceConfig:
+    """RRAM device-level parameters (paper Methods). The relaxation and
+    write-verify parameters of the reference arrive with ROADMAP A11."""
+    g_min: float = 1.0      # uS — low conductance state
+    g_max: float = 40.0     # uS — 40 for CNNs, 30 for LSTM/RBM in the paper
+
+
+@dataclasses.dataclass(frozen=True)
+class NonIdealityConfig:
+    """Switches for hardware non-idealities (i)-(vii) of paper Fig. 3a."""
+    ir_drop_alpha: float = 0.0       # (i)+(ii): driver droop per unit total
+                                     # activated conductance (1/uS)
+    wire_r_alpha: float = 0.0        # (iii): crossbar wire IR drop
+    coupling_sigma: float = 0.0      # (vi): capacitive coupling noise
+    adc_offset_sigma: float = 0.0    # (vii): per-neuron ADC offset spread (V)
+
+
+@dataclasses.dataclass(frozen=True)
+class CIMConfig:
+    """One CIM MVM configuration = one NeuRRAM core operating point."""
+    in_bits: int = 4                 # 1..8 (signed: 1 sign + in_bits-1 magnitude)
+    out_bits: int = 8                # 1..8 (signed: 1 sign + out_bits-1 magnitude)
+    v_read: float = 0.5              # V (paper: 0.5V read voltage at 130nm)
+    activation: str = "none"         # none | relu | tanh | sigmoid | stochastic
+    device: DeviceConfig = DeviceConfig()
+    nonideal: NonIdealityConfig = NonIdealityConfig()
+
+    def __post_init__(self):
+        # the serving knob (--cim-bits) sweeps the paper's Fig. 1d range;
+        # out of it the bit-serial folding / ADC count model is meaningless
+        if not 1 <= self.in_bits <= 8:
+            raise ValueError(f"in_bits must be in 1..8, got {self.in_bits}")
+        if not 1 <= self.out_bits <= 8:
+            raise ValueError(f"out_bits must be in 1..8, got {self.out_bits}")
+
+    @property
+    def in_mag_bits(self) -> int:
+        return max(self.in_bits - 1, 1)
+
+    @property
+    def out_mag_levels(self) -> int:
+        # paper: N_max = 128 decrement steps -> at most 1 sign + 7 magnitude bits
+        return (1 << max(self.out_bits - 1, 0)) - 1 if self.out_bits > 1 else 1
+
+    @property
+    def in_max(self) -> int:
+        return (1 << (self.in_bits - 1)) - 1 if self.in_bits > 1 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CoreSpec:
+    """Physical geometry of one CIM core (TNSA)."""
+    rows: int = 256
+    cols: int = 256
+    n_cores: int = 48

@@ -1,0 +1,369 @@
+"""Chip-IR verifier: static passes over every chip-compiler artifact
+(PyTorch port of `repro/core/verify.py`, forward plans).
+
+Every violation raises a structured `ChipVerifyError` naming the pipeline
+stage, layer, tile/slot and invariant, before anything launches.
+
+  schedule  permutation            non-idle slots cover the tiles once
+            pass-shape             order length == n_passes * pass_len
+            core-double-booking    no core fires twice within one pass
+  plan      core-bounds            every tile sits on a real core
+            tile-extent            tiles fit the physical core array
+            ir-drop-cols           columns per core respect
+                                   `mapping.ir_drop_max_cols`
+  pack      geometry / stack-shape index maps and stacked tensor trailing
+                                   dims agree with the plan
+            tile-slot-permutation  the launch reaches every stack entry once
+            index-bounds           row/col/out index maps in range;
+                                   seq_slot is pass-major
+            block-coverage         non-idle slots cover the layer's output
+                                   block grid exactly once
+            fused-runs / run-block the fused run layout is consecutive,
+                                   maximal and agrees with col_block
+            col-offsets            col_start (the kernel's CSR offsets of
+                                   each column block's slots) matches
+                                   col_block
+            shared-memory          one CUDA block of the packed kernel, at
+                                   the tiling it picks for the batch, fits
+                                   Hopper's 232,448 bytes of shared memory
+            exact-dot              gd_tiles lie on the 2^-23 grid and are
+                                   small enough that the kernel's FP64
+                                   tile dot is exact for |x| <= 127
+  chip      schedule-pack          the packed pass structure matches the
+                                   stage-2 schedule
+
+The reference's `vmem-budget` (16 MiB of TPU VMEM per grid step) has no
+meaning on the card; `shared-memory` takes its place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from .mapping import (PackedPlan, Plan, Tile, TileSchedule,
+                      col_block_offsets, ir_drop_max_cols)
+from .types import CIMConfig, CoreSpec
+from ..kernels.cim_mvm.kernel import SMEM_LIMIT, block_rows, shared_bytes
+
+# the largest batch block the serving path launches (prefill of 4 x 64)
+_DEFAULT_BM = 256
+_GD_GRID_INV = 2.0 ** 23     # gd elements are integer multiples of 2^-23
+_IN_MAX_LIMIT = 127          # the largest |x| any CIMConfig allows (8 bits)
+
+
+class ChipVerifyError(ValueError):
+    """A chip-compiler artifact violated a static invariant: `stage`,
+    `invariant`, `layer` and `tile`/slot are kept as attributes and
+    embedded in the message."""
+
+    def __init__(self, stage: str, invariant: str, message: str, *,
+                 layer: Optional[str] = None, tile: Optional[int] = None):
+        self.stage = stage
+        self.invariant = invariant
+        self.layer = layer
+        self.tile = tile
+        where = f" layer={layer!r}" if layer is not None else ""
+        where += f" tile={tile}" if tile is not None else ""
+        super().__init__(
+            f"[stage:{stage}]{where} invariant={invariant}: {message}")
+
+
+# ------------------------------------------------------- stage 2: schedule
+
+def check_schedule(tiles: Sequence[Tile], schedule: TileSchedule, *,
+                   layer: Optional[str] = None) -> None:
+    """Verify a stage-2 TileSchedule against its tile sequence."""
+    tiles = [t for t in tiles if t.replica == 0]
+    if len(schedule.order) != schedule.n_passes * schedule.pass_len:
+        raise ChipVerifyError(
+            "schedule", "pass-shape",
+            f"order has {len(schedule.order)} slots but n_passes="
+            f"{schedule.n_passes} * pass_len={schedule.pass_len} = "
+            f"{schedule.n_passes * schedule.pass_len}", layer=layer)
+    covered = sorted(i for i in schedule.order if i is not None)
+    if covered != list(range(len(tiles))):
+        dup = sorted({i for i in covered if covered.count(i) > 1})
+        miss = sorted(set(range(len(tiles))) - set(covered))
+        raise ChipVerifyError(
+            "schedule", "permutation",
+            f"non-idle slots must cover the {len(tiles)}-tile sequence "
+            f"exactly once (duplicated: {dup}, missing: {miss}, "
+            f"out-of-range: {sorted(set(covered) - set(range(len(tiles))))})",
+            layer=layer)
+    for p in range(schedule.n_passes):
+        seen = {}
+        for s in range(p * schedule.pass_len, (p + 1) * schedule.pass_len):
+            i = schedule.order[s]
+            if i is None:
+                continue
+            core = tiles[i].core
+            if core in seen:
+                raise ChipVerifyError(
+                    "schedule", "core-double-booking",
+                    f"core {core} fires twice in pass {p} (tiles "
+                    f"{seen[core]} and {i})", layer=layer, tile=i)
+            seen[core] = i
+
+
+# ----------------------------------------------------------- stage 1: plan
+
+def check_plan(plan: Plan, cfg: CIMConfig, spec: CoreSpec, *,
+               droop_tol: float = 0.05) -> None:
+    """Verify a stage-1 Plan against the physical core array and the
+    IR-drop planning constraint."""
+    max_cols = ir_drop_max_cols(cfg, spec, droop_tol)
+    row_cap = spec.rows // 2
+    for i, t in enumerate(plan.tiles):
+        if not 0 <= t.core < spec.n_cores:
+            raise ChipVerifyError(
+                "plan", "core-bounds",
+                f"tile on core {t.core} outside the chip's "
+                f"{spec.n_cores} cores", layer=t.layer, tile=i)
+        if t.rows > row_cap or t.cols > spec.cols:
+            raise ChipVerifyError(
+                "plan", "tile-extent",
+                f"tile is {t.rows}x{t.cols} weight cells but a core holds "
+                f"at most {row_cap}x{spec.cols}", layer=t.layer, tile=i)
+        if max_cols is not None and t.cols > max_cols:
+            raise ChipVerifyError(
+                "plan", "ir-drop-cols",
+                f"tile spans {t.cols} columns but ir_drop_alpha="
+                f"{cfg.nonideal.ir_drop_alpha} bounds a core to "
+                f"{max_cols}", layer=t.layer, tile=i)
+
+
+# ----------------------------------------------------------- stage 5: pack
+
+def _trailing(shape, n):
+    return tuple(int(d) for d in shape[-n:])
+
+
+def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
+                 layer: Optional[str] = None) -> None:
+    """Verify a stage-5 forward PackedPlan's static index maps, tensor
+    shapes, kernel offsets and the kernel's shared memory.
+
+    bm: batch rows the shared-memory check assumes; None takes the
+    largest batch block the serving path launches.
+    """
+    name = layer if layer is not None else packed.layer
+    T = packed.n_tiles
+
+    for field in ("col_block", "seq_slot", "tile_slot", "out_slot"):
+        if len(getattr(packed, field)) != T:
+            raise ChipVerifyError(
+                "pack", "geometry",
+                f"{field} has {len(getattr(packed, field))} entries for "
+                f"{T} slots", layer=name)
+    if packed.n_passes < 1 or T % packed.n_passes:
+        raise ChipVerifyError(
+            "pack", "geometry",
+            f"{T} slots do not divide into {packed.n_passes} passes",
+            layer=name)
+    if packed.bk < 1 or packed.bn < 1 or packed.n_rows < 1 \
+            or packed.n_cols < 1:
+        raise ChipVerifyError(
+            "pack", "geometry",
+            f"degenerate block geometry bk={packed.bk} bn={packed.bn} "
+            f"n_rows={packed.n_rows} n_cols={packed.n_cols}", layer=name)
+
+    gd_shape = (T, packed.bk, packed.bn)
+    if _trailing(packed.gd_tiles.shape, 3) != gd_shape:
+        raise ChipVerifyError(
+            "pack", "stack-shape",
+            f"gd_tiles trailing dims {_trailing(packed.gd_tiles.shape, 3)} "
+            f"!= {gd_shape}", layer=name)
+    for fname, arr in (("inv_norm_tiles", packed.inv_norm_tiles),
+                       ("denorm_tiles", packed.denorm_tiles)):
+        if _trailing(arr.shape, 3) != (T, 1, packed.bn):
+            raise ChipVerifyError(
+                "pack", "stack-shape",
+                f"{fname} trailing dims {_trailing(arr.shape, 3)} != "
+                f"{(T, 1, packed.bn)}", layer=name)
+    for fname, arr in (("v_decr_tiles", packed.v_decr_tiles),
+                       ("row_index", packed.row_index)):
+        if _trailing(arr.shape, 1) != (T,):
+            raise ChipVerifyError(
+                "pack", "stack-shape",
+                f"{fname} trailing dim {_trailing(arr.shape, 1)} != {(T,)}",
+                layer=name)
+
+    if sorted(packed.tile_slot) != list(range(T)):
+        raise ChipVerifyError(
+            "pack", "tile-slot-permutation",
+            f"tile_slot is not a permutation of range({T}) — some stack "
+            "entries would be launched twice and others never", layer=name)
+
+    n_rb = max(1, math.ceil(packed.n_rows / packed.bk))
+    n_cb = max(1, math.ceil(packed.n_cols / packed.bn))
+    pass_len = packed.pass_len
+    n_runs = len(packed.out_col)
+    for i in range(T):
+        if not 0 <= packed.row_block[i] < n_rb:
+            raise ChipVerifyError(
+                "pack", "index-bounds",
+                f"row_block[{i}]={packed.row_block[i]} outside the "
+                f"{n_rb} input blocks of n_rows={packed.n_rows} at "
+                f"bk={packed.bk}", layer=name, tile=i)
+        if not 0 <= packed.col_block[i] < n_cb:
+            raise ChipVerifyError(
+                "pack", "index-bounds",
+                f"col_block[{i}]={packed.col_block[i]} outside the "
+                f"{n_cb} output blocks of n_cols={packed.n_cols} at "
+                f"bn={packed.bn}", layer=name, tile=i)
+        if packed.seq_slot[i] != i // pass_len:
+            raise ChipVerifyError(
+                "pack", "index-bounds",
+                f"seq_slot[{i}]={packed.seq_slot[i]} breaks the "
+                f"pass-major layout (expected {i // pass_len})",
+                layer=name, tile=i)
+        if not 0 <= packed.out_slot[i] < n_runs:
+            raise ChipVerifyError(
+                "pack", "index-bounds",
+                f"out_slot[{i}]={packed.out_slot[i]} outside the "
+                f"{n_runs} runs of out_col", layer=name, tile=i)
+    for r, blk in enumerate(packed.out_col):
+        if not -1 <= blk < n_cb:
+            raise ChipVerifyError(
+                "pack", "index-bounds",
+                f"out_col[{r}]={blk} outside the {n_cb} output blocks "
+                "(-1 marks an all-idle run)", layer=name)
+
+    if T:
+        if packed.out_slot[0] != 0:
+            raise ChipVerifyError(
+                "pack", "fused-runs",
+                f"out_slot starts at {packed.out_slot[0]}, not run 0",
+                layer=name, tile=0)
+        for i in range(1, T):
+            if packed.out_slot[i] - packed.out_slot[i - 1] not in (0, 1):
+                raise ChipVerifyError(
+                    "pack", "fused-runs",
+                    f"out_slot[{i - 1}..{i}] = ({packed.out_slot[i - 1]}, "
+                    f"{packed.out_slot[i]}): runs must be maximal stretches "
+                    "of consecutive slots", layer=name, tile=i)
+        if packed.out_slot[-1] != n_runs - 1:
+            raise ChipVerifyError(
+                "pack", "fused-runs",
+                f"out_slot ends at run {packed.out_slot[-1]} but out_col "
+                f"declares {n_runs} runs", layer=name, tile=T - 1)
+        for r in range(1, n_runs):
+            if packed.out_col[r] == packed.out_col[r - 1]:
+                raise ChipVerifyError(
+                    "pack", "fused-runs",
+                    f"adjacent runs {r - 1} and {r} share output block "
+                    f"{packed.out_col[r]}", layer=name)
+
+    seen = {}
+    for i in range(T):
+        run_blk = packed.out_col[packed.out_slot[i]]
+        if run_blk == -1:
+            continue                        # idle slot (pass padding)
+        if run_blk != packed.col_block[i]:
+            raise ChipVerifyError(
+                "pack", "run-block",
+                f"slot {i} sits in run {packed.out_slot[i]} of output "
+                f"block {run_blk} but its col_block is "
+                f"{packed.col_block[i]}", layer=name, tile=i)
+        blk = (packed.row_block[i], packed.col_block[i])
+        if blk in seen:
+            raise ChipVerifyError(
+                "pack", "block-coverage",
+                f"output block {blk} packed twice (slots {seen[blk]} and "
+                f"{i}) — its partial sum would be double-counted",
+                layer=name, tile=i)
+        seen[blk] = i
+    missing = [(r, c) for r in range(n_rb) for c in range(n_cb)
+               if (r, c) not in seen]
+    if missing:
+        raise ChipVerifyError(
+            "pack", "block-coverage",
+            f"no slot covers output block(s) {missing} of the "
+            f"{n_rb}x{n_cb} block grid — those outputs would be "
+            "silently zero", layer=name)
+
+    # the kernel's CSR offsets: column block j owns [col_start[j],
+    # col_start[j+1]); a stale or corrupt table would skip or repeat tiles
+    want = col_block_offsets(packed.col_block)
+    have = None if packed.col_start is None \
+        else [int(v) for v in packed.col_start.tolist()]
+    if have != want:
+        raise ChipVerifyError(
+            "pack", "col-offsets",
+            f"col_start {have} disagrees with col_block (expected {want})",
+            layer=name)
+    if [int(v) for v in packed.row_index.tolist()] != list(packed.row_block):
+        raise ChipVerifyError(
+            "pack", "col-offsets",
+            "row_index disagrees with row_block", layer=name)
+
+    bm_eff = block_rows(_DEFAULT_BM if bm is None else max(int(bm), 1))
+    if shared_bytes(bm_eff) > SMEM_LIMIT:
+        raise ChipVerifyError(
+            "pack", "shared-memory",
+            f"one CUDA block needs {shared_bytes(bm_eff)} bytes of shared "
+            f"memory at {bm_eff} rows but a Hopper block has {SMEM_LIMIT}",
+            layer=name)
+
+    # The kernel sums each tile's dot in FP64 and rounds once, which is
+    # exact — and so equal to the plain version bit for bit — only when
+    # every gd element is a multiple of 2^-23 (G+ - G- of conductances
+    # >= 1 uS, as `ideal` programs them) and no partial sum can reach
+    # 2^30 = 2^53 grid steps for any input a CIMConfig allows.
+    gd = packed.gd_tiles
+    scaled = gd * _GD_GRID_INV
+    off_grid = int((scaled != torch.round(scaled)).sum())
+    if off_grid:
+        raise ChipVerifyError(
+            "pack", "exact-dot",
+            f"{off_grid} gd_tiles elements are not multiples of 2^-23: the "
+            "kernel's FP64 tile dot would round, and its counts could "
+            "differ from the plain version's at .5 boundaries", layer=name)
+    g_max = float(gd.abs().max()) if gd.numel() else 0.0
+    if packed.bk * _IN_MAX_LIMIT * g_max >= 2.0 ** 30:
+        raise ChipVerifyError(
+            "pack", "exact-dot",
+            f"|gd| reaches {g_max}: a {packed.bk}-row tile dot of inputs "
+            f"up to {_IN_MAX_LIMIT} could reach 2^30 and round in FP64",
+            layer=name)
+
+
+# --------------------------------------------------- chip-level invariants
+
+def verify_chip(chip):
+    """Run every verifier pass over a CompiledChip; returns the chip,
+    raises ChipVerifyError on the first violated invariant."""
+    check_plan(chip.plan, chip.cfg, chip.spec)
+    for name, sched in chip.schedules.items():
+        check_schedule(chip.plan.tiles_for(name), sched, layer=name)
+    for name, pcl in chip.layers.items():
+        check_packed(pcl.packed, layer=name)
+        sched = chip.schedules.get(name)
+        if sched is not None and (
+                pcl.packed.n_passes != sched.n_passes
+                or pcl.packed.n_tiles != sched.n_passes * sched.pass_len):
+            raise ChipVerifyError(
+                "chip", "schedule-pack",
+                f"packed pass structure ({pcl.packed.n_passes} passes x "
+                f"{pcl.packed.pass_len}) disagrees with the stage-2 "
+                f"schedule ({sched.n_passes} x {sched.pass_len})",
+                layer=name)
+    return chip
+
+
+def verify_deployed(tree):
+    """Verify every PackedPlan reachable in a deployed params tree (dicts,
+    lists and tuples, as the port's deploys build them); returns the tree.
+    """
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, PackedPlan):
+            check_packed(node)
+        elif isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+    return tree

@@ -1,0 +1,319 @@
+"""Dense decoder LM backbone (PyTorch port of the dense family of
+`repro/models/transformer.py`).
+
+GQA attention with gemma2's details — attention-logit and final-logit
+softcaps, alternating local (even layers) / global (odd layers) sliding
+window attention, the sqrt(d_model) embedding scale and tied unembedding
+— and a SwiGLU MLP. Params are a dict of tensors in the reference's
+layout: per-layer weights stacked as (L, in, out) under params['layers'].
+The reference's `lax.scan` over layers is a Python loop here.
+
+Every projection can route through the NeuRRAM CIM path (`cim_linear`):
+with cim_mode="packed" and a deployed '<name>_cim' entry
+(models/nn.deploy_transformer_cim), the projection runs on its compiled
+chip through the packed kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """A dense decoder. The unembedding is tied to the embedding (gemma2,
+    the one arch ported so far; untied archs arrive with their configs)."""
+    name: str = "dense"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_head: int = 0              # 0 -> d_model // n_heads
+    d_ff: int = 1024
+    vocab: int = 1024
+    attn_softcap: float = 0.0    # gemma2: 50.0
+    final_softcap: float = 0.0   # gemma2: 30.0
+    local_window: int = 0        # sliding window size for local layers
+    alt_local_global: bool = False  # gemma2: alternate local/global
+    dtype: Any = torch.bfloat16
+    rope_theta: float = 1e6
+    # NeuRRAM CIM technique: off | packed (serve the dense-block
+    # projections through their compiled chips, one kernel launch each)
+    cim_mode: str = "off"
+    cim_in_bits: int = 4
+    cim_out_bits: int = 8
+    # "auto" launches the packed kernel on CUDA tensors; "plain" forces
+    # its plain PyTorch version (the on-card comparison only)
+    cim_impl: str = "auto"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // self.n_heads)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+# --------------------------------------------------------------- CIM linear
+
+def cim_linear(x, w, cfg: ArchConfig, *, packed=None):
+    """Route a matmul through the paper's technique, selected by cim_mode.
+
+    off:    plain x @ w.
+    packed: the programmed chip datapath — `packed` is this projection's
+            PackedCIMLayer; the whole tile plan is one kernel launch.
+            Without a deployed plan, packed mode keeps the float path.
+    """
+    if cfg.cim_mode == "packed" and packed is not None:
+        from . import nn as nn_mod
+        ccfg = nn_mod.arch_cim_config(cfg)
+        shape = x.shape
+        y = nn_mod.packed_linear(packed, x.reshape(-1, shape[-1]), ccfg,
+                                 impl=cfg.cim_impl)
+        return y.reshape(*shape[:-1], y.shape[-1]).to(x.dtype)
+    if cfg.cim_mode in ("off", "packed"):
+        return x @ w
+    raise NotImplementedError(
+        f"cim_mode={cfg.cim_mode!r} is not ported yet (noisy: ROADMAP "
+        "B5/A11; chipsim: ROADMAP A11)")
+
+
+def routed_linear(x, p, name: str, cfg: ArchConfig):
+    """`cim_linear` over `p[name]`, picking up the deployed `p[name +
+    '_cim']` entry when present."""
+    return cim_linear(x, p[name], cfg, packed=p.get(name + "_cim"))
+
+
+# ------------------------------------------------------------------- layers
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rope(x, positions, theta: float):
+    """x: (..., S, H, D). positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq       # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _softcap(x, cap: float):
+    return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+def _attn_mask(q_pos, kv_pos, causal, window: int, kv_len):
+    """Boolean (Sq, Sk) mask. kv_len: scalar cache fill (static path)."""
+    dist = q_pos[..., :, None] - kv_pos[None, :]
+    mask = torch.ones(dist.shape, dtype=torch.bool, device=dist.device)
+    if causal:
+        mask &= dist >= 0
+    if window > 0:
+        mask &= dist < window
+    if kv_len is not None:
+        mask &= kv_pos < kv_len
+    return mask
+
+
+def _expand_mask(mask):
+    """Broadcast an (Sq,Sk) mask against (B,H,Sq,Sk) logits (the per-slot
+    (B,Sq,Sk) masks of pool decode arrive with ROADMAP A6)."""
+    return mask[None, None]
+
+
+# KV length above which the reference switches to its chunked online-
+# softmax path (not ported: ROADMAP A4 leaves it out).
+ATTN_CHUNK = 4096
+
+
+def attention(q, k, v, *, causal: bool, q_pos, kv_pos, window: int = 0,
+              softcap: float = 0.0, kv_len=None):
+    """q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D) — GQA via head repetition; dense
+    softmax over the whole KV."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if sk > 2 * ATTN_CHUNK:
+        raise NotImplementedError(
+            f"KV length {sk} > {2 * ATTN_CHUNK} needs the chunked "
+            "online-softmax attention, which is not ported yet")
+    rep = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    kf = torch.repeat_interleave(k, rep, dim=2)
+    vf = torch.repeat_interleave(v, rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
+    logits = _softcap(logits, softcap)
+    mask = _attn_mask(q_pos, kv_pos, causal, window, kv_len)
+    logits = torch.where(_expand_mask(mask), logits.to(torch.float32),
+                         torch.tensor(-1e30, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v if rep == 1 else vf)
+
+
+def mlp(x, wi, wg, wo, cfg: ArchConfig, packed=(None, None, None)):
+    """SwiGLU MLP. packed: optional (w_i, w_g, w_o) PackedCIMLayers."""
+    pi, pg, po = packed
+    h = F.silu(cim_linear(x, wg, cfg, packed=pg)) \
+        * cim_linear(x, wi, cfg, packed=pi)
+    return cim_linear(h, wo, cfg, packed=po)
+
+
+def routed_mlp(x, p, cfg: ArchConfig):
+    """`mlp` routed by param name (`w_i/w_g/w_o` + optional `_cim`)."""
+    return mlp(x, p["w_i"], p["w_g"], p["w_o"], cfg,
+               packed=(p.get("w_i_cim"), p.get("w_g_cim"), p.get("w_o_cim")))
+
+
+# ------------------------------------------------------------ param init
+
+def _dense_layer_params(gen: torch.Generator, cfg: ArchConfig, n_layers: int):
+    """Per-layer weights stacked over `n_layers`: normal / sqrt(fan_in)."""
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    d, f = cfg.d_model, cfg.d_ff
+    dev, dtype = gen.device, cfg.dtype
+
+    def s(*sh):
+        w = torch.randn((n_layers, *sh), generator=gen, device=dev)
+        return (w * (1.0 / math.sqrt(sh[0]))).to(dtype)
+
+    p = {"wq": s(d, nh * hd), "wk": s(d, nkv * hd), "wv": s(d, nkv * hd),
+         "wo": s(nh * hd, d)}
+    p["ln1"] = torch.ones((n_layers, d), dtype=dtype, device=dev)
+    p["ln2"] = torch.ones((n_layers, d), dtype=dtype, device=dev)
+    p["w_g"] = s(d, f)
+    p["w_i"] = s(d, f)
+    p["w_o"] = s(f, d)
+    return p
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Dict:
+    """Random params from a torch.Generator seeded with `seed`, made on
+    `device` (CUDA unless "cpu" is passed; the full-width embedding alone
+    is 3.7 GB in f32)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    return {
+        "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                              device=device) * 0.02).to(cfg.dtype),
+        "ln_f": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "layers": _dense_layer_params(gen, cfg, cfg.n_layers),
+    }
+
+
+def layer_params(params, li: int) -> Dict:
+    """Layer li's params: a view of each (L, ...) weight stack and that
+    layer's entry of each deployed '<name>_cim' list."""
+    return {k: v[li] for k, v in params["layers"].items()}
+
+
+# ------------------------------------------------------------ layer bodies
+
+def _window(cfg: ArchConfig, layer_idx: int) -> int:
+    """gemma2's local/global alternation: even layers local, odd global."""
+    if cfg.local_window <= 0:
+        return 0
+    if cfg.alt_local_global and layer_idx % 2:
+        return 0
+    return cfg.local_window
+
+
+def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
+                cache=None, cache_len: Optional[int] = None):
+    """One pre-norm transformer block. Returns (y, cache).
+
+    cache: this layer's (k, v) views of the (B, S_max, nkv, hd) cache;
+    the new keys and values are written into them IN PLACE at
+    cache_len (the reference returns an updated copy)."""
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    h = rms_norm(x, p["ln1"])
+    q = routed_linear(h, p, "wq", cfg).reshape(b, s, nh, hd)
+    k = routed_linear(h, p, "wk", cfg).reshape(b, s, nkv, hd)
+    v = routed_linear(h, p, "wv", cfg).reshape(b, s, nkv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    window = _window(cfg, layer_idx)
+
+    if cache is not None:
+        ck, cv = cache
+        ck[:, cache_len:cache_len + s] = k
+        cv[:, cache_len:cache_len + s] = v
+        kv_pos = torch.arange(ck.shape[1], device=x.device)
+        attn = attention(q, ck, cv, causal=True, q_pos=positions,
+                         kv_pos=kv_pos, window=window,
+                         softcap=cfg.attn_softcap, kv_len=cache_len + s)
+    else:
+        attn = attention(q, k, v, causal=True, q_pos=positions,
+                         kv_pos=positions, window=window,
+                         softcap=cfg.attn_softcap)
+    x = x + routed_linear(attn.reshape(b, s, nh * hd), p, "wo", cfg)
+    h2 = rms_norm(x, p["ln2"])
+    return x + routed_mlp(h2, p, cfg), cache
+
+
+def _embed(params, tokens, cfg: ArchConfig):
+    x = params["embed"][tokens].to(cfg.dtype)
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
+    return x
+
+
+def lm_forward(params, tokens, cfg: ArchConfig):
+    """Teacher-forcing forward. tokens: (B, S) -> logits (B, S, V)."""
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for li in range(cfg.n_layers):
+        x, _ = dense_block(layer_params(params, li), x, cfg,
+                           positions=positions, layer_idx=li)
+    x = rms_norm(x, params["ln_f"])
+    logits = x @ params["embed"].T             # tied unembedding
+    return _softcap(logits.to(torch.float32), cfg.final_softcap)
+
+
+# ------------------------------------------------------------- serve path
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
+               device=None):
+    """Decode cache on `device` (CUDA unless "cpu" is passed): KV of shape
+    (L, B, S, nkv, hd) and the scalar fill."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    device = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
+
+
+def decode_step(params, cache, tokens, cfg: ArchConfig):
+    """One decode step: tokens (B, S) + cache -> (logits (B, V) of the
+    last position, cache). The cache tensors are updated in place; the
+    returned dict carries the new fill."""
+    x = _embed(params, tokens, cfg)
+    pos = cache["len"]
+    positions = pos + torch.arange(tokens.shape[1], device=x.device)
+    for li in range(cfg.n_layers):
+        x, _ = dense_block(layer_params(params, li), x, cfg,
+                           positions=positions, layer_idx=li,
+                           cache=(cache["k"][li], cache["v"][li]),
+                           cache_len=pos)
+    x = rms_norm(x, params["ln_f"])
+    logits = _softcap((x[:, -1] @ params["embed"].T).to(torch.float32),
+                      cfg.final_softcap)
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "len": pos + tokens.shape[1]}
+
+
+def prefill(params, tokens, cache, cfg: ArchConfig):
+    """Prefill the cache with a full prompt (decode_step with S > 1)."""
+    return decode_step(params, cache, tokens, cfg)

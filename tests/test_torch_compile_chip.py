@@ -1,0 +1,165 @@
+"""Port parity, the whole chip compiler: `repro_torch.core.cim.compile_chip`
+against `repro.core.cim.compile_chip` on the same weights and the same
+explicit calibration batches — equal plans, schedules and index maps,
+programmed and packed tensors to f32 rounding, served outputs within the
+count rule — plus the port's chip-IR verifier on good and corrupted
+artifacts."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (F32_RTOL, boundary_hits, to_numpy, to_torch)
+
+from repro_torch.core import cim as tcim
+from repro_torch.core import verify as tverify
+from repro_torch.core.types import CIMConfig, CoreSpec
+from repro_torch.kernels.cim_mvm import kernel as K
+
+SHAPES = {"a": (300, 500), "b": (128, 64), "c": (200, 70)}
+IN_ALPHA = 2.5
+INDEX_MAPS = ("row_block", "col_block", "seq_slot", "n_passes", "tile_slot",
+              "out_slot", "out_col", "bk", "bn", "n_rows", "n_cols")
+
+
+@pytest.fixture(scope="module")
+def chips():
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core import cim as jcim
+    from repro.core.types import CIMConfig as JCfg, CoreSpec as JSpec
+    rng = np.random.default_rng(0)
+    w = {n: rng.normal(0, 0.1, s).astype(np.float32)
+         for n, s in SHAPES.items()}
+    x_cal = {n: (IN_ALPHA * rng.standard_normal((64, s[0]))
+                 ).astype(np.float32) for n, s in SHAPES.items()}
+    cj = jcim.compile_chip(jax.random.PRNGKey(3),
+                           {n: jnp.asarray(v) for n, v in w.items()},
+                           JCfg(), JSpec(), "ideal", in_alpha=IN_ALPHA,
+                           x_cal={n: jnp.asarray(v) for n, v in x_cal.items()})
+    ct = tcim.compile_chip({n: to_torch(v) for n, v in w.items()},
+                           CIMConfig(), CoreSpec(), "ideal",
+                           in_alpha=IN_ALPHA,
+                           x_cal={n: to_torch(v) for n, v in x_cal.items()})
+    x = {n: rng.normal(0, 1.2, (6, s[0])).astype(np.float32)
+         for n, s in SHAPES.items()}
+    y_ref = {n: np.asarray(jcim.packed_forward(cj.layers[n], jnp.asarray(v),
+                                               JCfg()))
+             for n, v in x.items()}
+    return {"j": cj, "t": ct, "x": x, "y_ref": y_ref}
+
+
+def test_plans_and_schedules_equal(chips):
+    cj, ct = chips["j"], chips["t"]
+    fields = ("layer", "row0", "col0", "rows", "cols", "core", "replica",
+              "seq_slot")
+    assert [tuple(getattr(t, f) for f in fields) for t in ct.plan.tiles] \
+        == [tuple(getattr(t, f) for f in fields) for t in cj.plan.tiles]
+    assert ct.schedules == {n: type(ct.schedules[n])(*dataclasses.astuple(s))
+                            for n, s in cj.schedules.items()}
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_packed_layers_match(chips, name):
+    lj, lt = chips["j"].layers[name], chips["t"].layers[name]
+    for f in INDEX_MAPS:
+        assert getattr(lt.packed, f) == getattr(lj.packed, f), f
+    for f in ("g_pos", "g_neg", "w_max", "in_alpha", "adc_offset"):
+        np.testing.assert_array_equal(to_numpy(getattr(lt.layer, f)),
+                                      np.asarray(getattr(lj.layer, f)), f)
+    for f in ("norm", "v_decr"):
+        np.testing.assert_allclose(to_numpy(getattr(lt.layer, f)),
+                                   np.asarray(getattr(lj.layer, f)),
+                                   rtol=1e-5, err_msg=f)
+    np.testing.assert_array_equal(to_numpy(lt.packed.gd_tiles),
+                                  np.asarray(lj.packed.gd_tiles))
+    # per-tile ADC steps are quantiles of f32 partial sums taken in another
+    # order: a few roundings of the sum, then the interpolation
+    for f in ("inv_norm_tiles", "v_decr_tiles", "denorm_tiles"):
+        np.testing.assert_allclose(to_numpy(getattr(lt.packed, f)),
+                                   np.asarray(getattr(lj.packed, f)),
+                                   rtol=5 * F32_RTOL, err_msg=f)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_packed_forward_matches(chips, name):
+    """Same activations through both chips: outputs agree up to one count
+    per tile whose |q|/v_decr sits on a .5 boundary (times that tile's
+    output LSB), plus f32 rounding of the rescale."""
+    lt = chips["t"].layers[name]
+    x = chips["x"][name]
+    got = to_numpy(tcim.packed_forward(lt, to_torch(x), CIMConfig()))
+    want = chips["y_ref"][name]
+    from repro_torch.core.quant import quantize_to_int
+    x_int, scale = quantize_to_int(to_torch(x), lt.layer.in_alpha, 4)
+    hits = boundary_hits(to_numpy(x_int).astype(np.float32), lt.packed, 0.5)
+    lsb = float(lt.packed.denorm_tiles.max() * lt.layer.w_max * scale
+                / (0.5 * 40.0))
+    tol = hits * lsb * 1.001 + 1e-5 * np.abs(want).max()
+    assert np.all(np.abs(got - want) <= tol)
+
+
+def test_verify_chip_passes(chips):
+    assert tverify.verify_chip(chips["t"]) is chips["t"]
+    tverify.verify_deployed({"layers": {"a_cim": [chips["t"].layers["a"]]}})
+
+
+def _mutants(p):
+    """(name, invariant, mutated PackedPlan) for one artifact each."""
+    rb = list(p.row_block)
+    rb[1] = rb[0]
+    yield "dup-block", "block-coverage", dataclasses.replace(
+        p, row_block=tuple(rb))
+    stale = dataclasses.replace(p)          # a corrupted kernel offset
+    stale.col_start = stale.col_start.clone()
+    stale.col_start[1] += 1
+    yield "col-start", "col-offsets", stale
+    stale = dataclasses.replace(p)
+    stale.row_index = stale.row_index.clone()
+    stale.row_index[0] = 1
+    yield "row-index", "col-offsets", stale
+    yield "gd-shape", "stack-shape", dataclasses.replace(
+        p, gd_tiles=p.gd_tiles[:, :-1])
+    yield "runs", "fused-runs", dataclasses.replace(
+        p, out_slot=(1,) + p.out_slot[1:])
+    yield "row-bounds", "index-bounds", dataclasses.replace(
+        p, row_block=(99,) + p.row_block[1:])
+    for name, value in (("gd-off-grid", 2.0 ** -30),
+                        ("gd-too-large", 2.0 ** 24)):
+        gd = p.gd_tiles.clone()
+        gd[0, 0, 0] = value
+        yield name, "exact-dot", dataclasses.replace(p, gd_tiles=gd)
+
+
+@pytest.mark.parametrize("mutant", range(8))
+def test_mutated_artifact_raises(chips, mutant):
+    name, invariant, bad = list(_mutants(chips["t"].layers["a"].packed))[mutant]
+    with pytest.raises(tverify.ChipVerifyError) as e:
+        tverify.check_packed(bad)
+    assert e.value.invariant == invariant and e.value.stage == "pack", name
+    with pytest.raises(tverify.ChipVerifyError):
+        tverify.verify_deployed({"layers": {"a_cim": [
+            tcim.PackedCIMLayer(chips["t"].layers["a"].layer, bad)]}})
+
+
+def test_shared_memory_invariant_matches_kernel_tiling(monkeypatch):
+    """The verifier's shared-memory check uses the kernel's own tiling: at
+    every batch the bytes fit Hopper's 232,448, and a limit below the
+    kernel's need is reported as `shared-memory`."""
+    p = tcim.compile_chip({"m": torch.randn(300, 500)}, CIMConfig(),
+                          in_alpha=3.0).layers["m"].packed
+    for bm in (1, 4, 5, 32, 256, 4096):
+        assert K.shared_bytes(K.block_rows(bm)) <= K.SMEM_LIMIT
+        tverify.check_packed(p, bm=bm)
+    monkeypatch.setattr(tverify, "SMEM_LIMIT", K.shared_bytes(32) - 1)
+    with pytest.raises(tverify.ChipVerifyError) as e:
+        tverify.check_packed(p, bm=256)
+    assert e.value.invariant == "shared-memory"
+
+
+def test_compile_chip_rejects_unported_modes():
+    w = {"m": torch.randn(64, 32)}
+    for mode in ("relaxed", "writeverify"):
+        with pytest.raises(NotImplementedError, match="A11"):
+            tcim.compile_chip(w, CIMConfig(), mode=mode)

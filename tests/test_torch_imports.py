@@ -1,0 +1,58 @@
+"""The PyTorch port stands alone: no module of `src/repro_torch/` and not
+`chip_smoke.py` imports JAX or the JAX package, and the package imports
+in a process with neither `triton` nor `nvcc` on hand (kernels are built
+at first use, inside the function that launches them)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_port_module_imports_no_jax(path):
+    bad = sorted({r for r in _imported_roots(path)
+                  if r in ("jax", "jaxlib", "repro")})
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_port_imports_without_triton_or_nvcc():
+    """Every module of the package imports with `triton` unimportable and
+    no nvcc on PATH, and no kernel library is built by importing."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in (REPO / "src" / "repro_torch").rglob("*.py"))
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None\n"      # import triton -> ImportError
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from repro_torch.kernels.cim_mvm import kernel\n"
+        "assert kernel._lib is None and kernel.LAUNCHES == 0\n"
+        "assert not any(m.startswith(('jax', 'repro.')) or m == 'repro'"
+        " for m in sys.modules), 'JAX loaded'\n")
+    env = dict(os.environ, PATH="/usr/bin:/bin",
+               PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
