@@ -8,24 +8,44 @@ card.
 Phases, each printed as one JSON line; any failure exits nonzero without
 the final result line:
 
-  device   the card (nvidia-smi name and power limit); no CUDA is a failure
-  build    nvcc build of every kernel of the main path, from this checkout
-  kernel   each kernel against its plain PyTorch version at the full-width
-           gemma2-9b layer shapes (M = 4 decode rows, M = 256 prefill rows),
-           every activation mode, with times and bounds
-  smoke    the smoke-size model served on the card against the same model
-           served by the plain versions on the CPU
-  serve    the main path: full-width gemma2-9b (4 of 42 layers, random
-           weights from a seed) deployed on a 6144-core chip, batch 4,
-           prompt 64, 32 generated tokens; kernel launches counted; prefill
-           and two decode steps rerun through the plain versions on the
-           same chip; a profiled window of decode steps
-  kernels  one line per the contract below, then the result line
+  device        the card (nvidia-smi name and power limit); no CUDA fails
+  build         nvcc build of every kernel, from this checkout, in parallel
+  kernel        the packed kernel against its plain PyTorch version at the
+                full-width gemma2-9b layer shapes (M = 4 decode rows,
+                M = 256 prefill rows), every activation, times and bounds
+  kernel-runs   the scheduled kernel on the multi-pass w_g and w_o of a
+                full-width layer compiled on a 3072-core chip, the
+                scheduled kernel forced onto a single-pass plan against
+                the packed kernel (and timed beside it, kernel-level
+                line), and the transposed kernel on the bwd
+                direction of that chip's w_g and w_o and at the RBM's
+                geometry (795 x 121, M = 64); every activation including
+                stochastic, bit for bit, with times and bounds
+  smoke         the smoke-size model served on the card against the same
+                model served by the plain versions on the CPU
+  serve         full-width gemma2-9b (4 of 42 layers, random weights from
+                a seed) on a 6144-core chip, batch 4, prompt 64, 32
+                tokens; launches counted; prefill and two decode steps
+                rerun through the plain versions
+  serve-merged  the same model on a 3072-core chip (merged cores), 8
+                tokens: 4 projections per layer on the packed kernel, 3 on
+                the scheduled kernel; launches counted exactly; plain rerun
+  serve-irdrop  2 layers on a 32768-core IR-drop chip (alpha 2e-7, 47-column
+                tiles), 4 tokens: every projection scheduled; plain rerun
+  recover       Bayesian image recovery at paper geometry (784 pixels + 10
+                labels, 120 hidden units), batch 64, 10 Gibbs cycles:
+                digital, stochastic and pixel-interleaved runs, launches
+                counted per run, a plain rerun from the same seeds
+  profile       a profiled decode window of each serve path, and the
+                transposed kernel's device time at the RBM's shape, after
+                every timed run
+  kernels       one line per the contract below, then the result line
 
-Tolerances: the kernel and its plain version must agree bit for bit in
+Tolerances: every kernel and its plain version must agree bit for bit in
 every activation mode — the tile dot is exact in FP64 and every later
-operation is the same IEEE operation in the same order — so the served
-logits of the kernel run and of the plain rerun must be equal too. The
+operation is the same IEEE operation in the same order, the stochastic
+neuron's hash included — so the served logits and the Gibbs trajectories
+of the kernel runs and of the plain reruns must be equal too. The
 card-vs-CPU smoke comparison differs in the float ops around the kernel
 (attention, norms, matmuls on two devices): logits within SMOKE_ATOL and
 greedy tokens equal unless the top two logits lie within 2 * SMOKE_ATOL.
@@ -45,10 +65,30 @@ FP64_FLOPS_PER_S = 67e12         # H100 SXM FP64 peak (tensor cores; 34 on CUDA 
 SMOKE_ATOL = 1e-4                # smoke logits are O(1); f32 roundings
 LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wo": (4096, 3584),
          "w_g": (3584, 14336), "w_o": (14336, 3584)}
+FULL_LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wv": (3584, 2048),
+              "wo": (4096, 3584), "w_g": (3584, 14336),
+              "w_i": (3584, 14336), "w_o": (14336, 3584)}
 # projections of one gemma2-9b layer per LAYER shape (wv = wk, w_i = w_g)
 PER_LAYER = {"wq": 1, "wk": 2, "wo": 1, "w_g": 2, "w_o": 1}
 ACTIVATIONS = ("none", "relu", "tanh", "sigmoid", "identity")
+ALL_ACTIVATIONS = ACTIVATIONS + ("stochastic",)
+SEED = 1234                      # the stochastic neuron's salt
 SERVE = dict(n_layers=4, batch=4, prompt_len=64, gen=32, cim_cores=6144)
+MERGED = dict(n_layers=4, batch=4, prompt_len=64, gen=8, cim_cores=3072)
+IRDROP = dict(n_layers=2, batch=4, prompt_len=64, gen=4, cim_cores=32768,
+              cim_ir_drop=2e-7)
+# projections per layer on each kernel (the plans the chips compile to)
+SERVE_ROUTES = {"cim_mvm_packed": 7}
+MERGED_ROUTES = {"cim_mvm_packed": 4, "cim_mvm_scheduled": 3}
+IRDROP_ROUTES = {"cim_mvm_scheduled": 7}
+RECOVER = ["--pixels", "784", "--labels", "10", "--hidden", "120",
+           "--batch", "64", "--cycles", "10", "--mode", "ideal"]
+SOURCES = {k: f"src/repro_torch/kernels/cim_mvm/csrc/{k}.cu"
+           for k in ("cim_mvm_packed", "cim_mvm_scheduled",
+                     "cim_mvm_transposed")}
+REPLACES = {"cim_mvm_packed": "src/repro/kernels/cim_mvm/kernel.py:238",
+            "cim_mvm_scheduled": "src/repro/kernels/cim_mvm/kernel.py:351",
+            "cim_mvm_transposed": "src/repro/kernels/cim_mvm/kernel.py:466"}
 
 failures = []
 
@@ -92,6 +132,16 @@ def median_ms(torch, fn, reps, flush=None):
     return statistics.median(times)
 
 
+def reset_launches(K):
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+
+
+def free(torch):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 @phase("device")
 def device_phase(torch):
     smi = subprocess.run(
@@ -107,9 +157,11 @@ def device_phase(torch):
 @phase("build")
 def build_phase(K, stopwatch):
     with stopwatch() as sw:
-        lib = K.build()
+        libs = K.build()
         K.load()
-    return {"seconds": sw.s, "library": str(lib.relative_to(ROOT))}
+    return {"seconds": sw.s,
+            "libraries": {k: str(v.relative_to(ROOT))
+                          for k, v in libs.items()}}
 
 
 def packed_args(p, den=None):
@@ -118,14 +170,45 @@ def packed_args(p, den=None):
             p.row_index, p.col_start)
 
 
-def plan_bytes(p, m):
-    """Bytes the function must move: every input read once, the output
-    written once."""
-    t = [p.gd_tiles, p.inv_norm_tiles, p.denorm_tiles, p.v_decr_tiles,
-         p.row_index, p.col_start]
-    n_out = m * p.n_col_blocks * p.bn
-    return (sum(a.numel() * a.element_size() for a in t)
-            + m * p.n_rows * 4 + n_out * 4)
+def live_slots(p):
+    """Slots whose run is live: idle slots (pass padding) are work the
+    function does not need."""
+    return [s for s in range(p.n_tiles) if p.out_col[p.out_slot[s]] >= 0]
+
+
+def bound(p, m, kernel):
+    """(bound ms, bound_by, bytes, flops) of one launch of plan p on M rows
+    through `kernel`: bytes each live tile's tensors read once, the index
+    tables the kernel reads, x read once, the output written once; FP64
+    multiply-adds of the live tiles."""
+    n_live = len(live_slots(p))
+    tile_bytes = p.bk * p.bn * 4 + 2 * p.bn * 4 + 4 + 4
+    tables = [p.row_index] + ([p.col_start] if kernel == "cim_mvm_packed"
+                              else [p.run_start, p.col_run_start, p.col_runs])
+    if p.tile_index is not None:
+        tables.append(p.tile_index)
+    tables = sum(t.numel() * 4 for t in tables)
+    nbytes = (n_live * tile_bytes + tables + m * p.n_rows * 4
+              + m * p.n_col_blocks * p.bn * 4)
+    flops = 2.0 * m * n_live * p.bk * p.bn
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP64_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def check_equal(torch, a, b, what, stats, kernel):
+    """a equals b bit for bit; records the max |a - b| of `kernel`."""
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    d = (a - b).abs()
+    err = stats["err"]
+    err[kernel] = max(err.get(kernel, 0.0),
+                      float(d.max()) if d.numel() else 0.0)
+    if bool((d != 0).any()):
+        raise AssertionError(f"{what}: {int((d != 0).sum())} outputs differ "
+                             f"from the plain version (max {float(d.max())})")
 
 
 @phase("kernel")
@@ -145,32 +228,18 @@ def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
                                  "runs single-pass plans")
         mask = (p.inv_norm_tiles > 0).to(torch.float32)
         kw = dict(n_row_blocks=p.n_row_blocks, n_ranks=p.n_ranks,
-                  v_read=0.5)
+                  v_read=0.5, seed=SEED)
         for m in (4, 256):
             x = torch.randint(-7, 8, (m, r), generator=gen,
                               device=dev).to(torch.float32)
-            hits = K.boundary_counts(x, p.gd_tiles, p.inv_norm_tiles,
-                                     p.v_decr_tiles, p.row_index,
-                                     p.col_start, **kw)
-            for act in ACTIVATIONS:
+            for act in ALL_ACTIVATIONS:
                 for den in (mask, p.denorm_tiles):
                     a = K.cim_mvm_packed(x, *packed_args(p, den),
                                          activation=act, **kw)
                     b = K.cim_mvm_packed(x, *packed_args(p, den),
                                          activation=act, impl="plain", **kw)
-                    torch.cuda.synchronize()
-                    if not bool(torch.isfinite(a).all()):
-                        raise AssertionError(f"{name} M={m} {act}: "
-                                             "non-finite output")
-                    d = (a - b).abs()
-                    stats["max_abs_err"] = max(stats["max_abs_err"],
-                                               float(d.max()))
-                    if bool((d != 0).any()):
-                        raise AssertionError(
-                            f"{name} M={m} {act}: {int((d != 0).sum())} "
-                            f"outputs differ from the plain version (max "
-                            f"{float(d.max())}; {int((hits > 0).sum())} "
-                            "outputs lie near a .5 boundary)")
+                    check_equal(torch, a, b, f"{name} M={m} {act}", stats,
+                                "cim_mvm_packed")
             run_k = lambda: K.cim_mvm_packed(x, *packed_args(p),
                                              activation="none", **kw)
             run_p = lambda: K.cim_mvm_packed(x, *packed_args(p),
@@ -179,24 +248,171 @@ def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
             run_k()
             ms = median_ms(torch, run_k, 20, flush)
             plain_ms = median_ms(torch, run_p, 5, flush)
-            nbytes = plan_bytes(p, m)
-            flops = 2.0 * m * p.n_tiles * p.bk * p.bn
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP64_FLOPS_PER_S * 1e3
+            b_ms, b_by, nbytes, flops = bound(p, m, "cim_mvm_packed")
             row = {"matrix": name, "shape": [r, c], "m": m,
                    "tiles": p.n_tiles, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "bytes": nbytes, "flops": flops,
-                   "boundary_outputs": int((hits > 0).sum())}
-            emit({"phase": "kernel-shape", **row})
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "flops": flops}
+            emit({"phase": "kernel-shape", "kernel": "cim_mvm_packed", **row})
             rows.append(row)
     decode = [r for r in rows if r["m"] == 4]
-    stats["decode_layer"] = {
+    stats["time"]["cim_mvm_packed"] = {
         k: sum(PER_LAYER[r["matrix"]] * r[k] for r in decode)
         for k in ("ms", "plain_ms", "bound_ms")}
-    return {"shapes": len(rows), "max_abs_err": stats["max_abs_err"],
-            "decode_layer": stats["decode_layer"]}
+    stats["time"]["cim_mvm_packed"]["bound_by"] = "bytes"
+    return {"shapes": len(rows),
+            "max_abs_err": stats["err"]["cim_mvm_packed"],
+            "decode_layer": stats["time"]["cim_mvm_packed"]}
+
+
+def time_route(torch, ops, p, x, flush, kernel, label, scheduled=None):
+    """Kernel and plain times of plan p on x (activation none) with its
+    bound, emitted as one kernel-shape line."""
+    from repro_torch.core.types import CIMConfig
+    cfg = CIMConfig()
+    run_k = lambda: ops.cim_mvm_packed(x, p, cfg, scheduled=scheduled)
+    run_p = lambda: ops.cim_mvm_packed(x, p, cfg, scheduled=scheduled,
+                                       impl="plain")
+    run_k()
+    ms = median_ms(torch, run_k, 20, flush)
+    plain_ms = median_ms(torch, run_p, 5, flush)
+    b_ms, b_by, nbytes, flops = bound(p, x.shape[0], kernel)
+    row = {"kernel": kernel, "matrix": label, "m": x.shape[0],
+           "slots": p.n_tiles, "live_tiles": len(live_slots(p)),
+           "passes": p.n_passes, "runs": len(p.out_col), "bn": p.bn,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes, "flops": flops}
+    emit({"phase": "kernel-shape", **row})
+    return row
+
+
+def time_level(torch, ops, p, x, flush):
+    """The packed and the forced-scheduled launch of one single-pass plan
+    (activation none), timed in the order packed, scheduled, scheduled,
+    packed; emitted as one kernel-level line."""
+    from repro_torch.core.types import CIMConfig
+    cfg = CIMConfig()
+    out = {"cim_mvm_packed": [], "cim_mvm_scheduled": []}
+    for scheduled in (False, True, True, False):
+        run = lambda: ops.cim_mvm_packed(x, p, cfg, scheduled=scheduled)
+        run()
+        out[p.route(scheduled)].append(median_ms(torch, run, 20, flush))
+    row = {"matrix": "wq single-pass", "m": x.shape[0], "tiles": p.n_tiles,
+           "packed_ms": out["cim_mvm_packed"],
+           "scheduled_ms": out["cim_mvm_scheduled"]}
+    emit({"phase": "kernel-level", **row})
+    return row
+
+
+def profiled_ms(torch, fn, name, reps, flush):
+    """Median device time of the kernel whose name holds `name`, one launch
+    per call of fn, each call after an L2 flush (torch.profiler / CUPTI):
+    the kernel alone, without the wrapper's host work."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type.name == "CUDA" and name in e.name]
+    if len(us) != reps:
+        return "not measured"
+    return statistics.median(us) / 1e3
+
+
+def compare_all(torch, K, ops, p, x, what, stats, kernel, scheduled=None,
+                against_packed=False):
+    """`kernel` at every activation against its plain version (or, with
+    against_packed, against the packed kernel on the same plan)."""
+    from repro_torch.core.types import CIMConfig
+    for act in ALL_ACTIVATIONS:
+        cfg = CIMConfig(activation=act)
+        before = K.LAUNCHES[kernel]
+        a = ops.cim_mvm_packed(x, p, cfg, seed=SEED, scheduled=scheduled)
+        torch.cuda.synchronize()
+        if K.LAUNCHES[kernel] != before + 1:
+            raise AssertionError(f"{what} {act}: {kernel} did not launch")
+        if against_packed:
+            b = ops.cim_mvm_packed(x, p, cfg, seed=SEED, scheduled=False)
+        else:
+            b = ops.cim_mvm_packed(x, p, cfg, seed=SEED, scheduled=scheduled,
+                                   impl="plain")
+        check_equal(torch, a, b, f"{what} M={x.shape[0]} {act}", stats,
+                    kernel)
+
+
+@phase("kernel-runs")
+def kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
+    gen = torch.Generator(dev).manual_seed(12)
+    # in sorted name order, as the serving deploy plans them: the merge
+    # takes tiles in that order
+    weights = {n: torch.randn(r, c, generator=gen, device=dev) / r ** 0.5
+               for n, (r, c) in sorted(FULL_LAYER.items())}
+    chip = cim.compile_chip(weights, CIMConfig(), CoreSpec(n_cores=3072),
+                            "ideal", in_alpha=3.0, directions=("fwd", "bwd"),
+                            generator=gen)
+    del weights
+    flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB > L2
+    rows = {}
+    for name in ("w_g", "w_o"):
+        for d, kernel in (("fwd", "cim_mvm_scheduled"),
+                          ("bwd", "cim_mvm_transposed")):
+            p = chip.layers_for(d)[name].packed
+            if p.route() != kernel or p.n_passes < 2:
+                raise AssertionError(f"{name} {d}: {p.n_passes} passes, "
+                                     f"route {p.route()}")
+            for m in (4, 256):
+                x = torch.randint(-7, 8, (m, p.n_rows), generator=gen,
+                                  device=dev).to(torch.float32)
+                compare_all(torch, K, ops, p, x, f"{name} {d}", stats,
+                            kernel)
+                rows[name, d, m] = time_route(torch, ops, p, x, flush,
+                                              kernel, f"{name} {d}")
+    # the scheduled kernel forced onto a single-pass plan is the packed one
+    single = chip.layers["wq"].packed
+    if single.n_passes != 1:
+        raise AssertionError("wq is not single-pass on the 3072-core chip")
+    for m in (4, 256):
+        x = torch.randint(-7, 8, (m, single.n_rows), generator=gen,
+                          device=dev).to(torch.float32)
+        compare_all(torch, K, ops, single, x, "wq forced scheduled", stats,
+                    "cim_mvm_scheduled", scheduled=True, against_packed=True)
+        level = time_level(torch, ops, single, x, flush)
+        rows["wq", "level", x.shape[0]] = level
+    del chip
+    free(torch)
+    # the RBM's geometry: the augmented 795 x 121 array, 7 tiles
+    w = {"rbm": torch.randn(795, 121, generator=gen, device=dev) * 0.3}
+    rchip = cim.compile_chip(w, CIMConfig(in_bits=2), CoreSpec(), "ideal",
+                             directions=("fwd", "bwd"), generator=gen)
+    p = rchip.bwd_layers["rbm"].packed
+    x = torch.randint(0, 2, (64, p.n_rows), generator=gen,
+                      device=dev).to(torch.float32)
+    compare_all(torch, K, ops, p, x, "rbm bwd", stats, "cim_mvm_transposed")
+    rows["rbm", "bwd", 64] = time_route(torch, ops, p, x, flush,
+                                        "cim_mvm_transposed", "rbm bwd")
+    # its device time is read in the profile phase, after every timed run
+    stats["kernel_profile"] = (
+        "cim_mvm_transposed",
+        lambda: ops.cim_mvm_packed(x, p, CIMConfig()), flush)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    # a merged decode layer runs w_g, w_i (= w_g's shape) and w_o scheduled
+    stats["time"]["cim_mvm_scheduled"] = {
+        k: 2 * rows["w_g", "fwd", 4][k] + rows["w_o", "fwd", 4][k]
+        for k in keys[:3]}
+    stats["time"]["cim_mvm_scheduled"]["bound_by"] = rows["w_o", "fwd",
+                                                          4]["bound_by"]
+    stats["time"]["cim_mvm_transposed"] = {
+        k: rows["rbm", "bwd", 64][k] for k in keys}
+    stats["time"]["cim_mvm_transposed"]["w_g_bwd_ms"] = rows["w_g", "bwd",
+                                                             4]["ms"]
+    return {"shapes": len(rows),
+            "max_abs_err": {k: stats["err"].get(k) for k in
+                            ("cim_mvm_scheduled", "cim_mvm_transposed")}}
 
 
 def compare_runs(torch, ref, other, what, atol):
@@ -219,44 +435,110 @@ def compare_runs(torch, ref, other, what, atol):
     return err
 
 
-@phase("serve")
-def serve_phase(torch, K, serve, dev, stats):
-    K.LAUNCHES = 0                       # the main path's run starts here
-    res = serve.serve_static("gemma2-9b", cim=True, device=str(dev),
-                             **SERVE)
+def serve_and_check(torch, K, ops, serve, dev, stats, path, conf, routes):
+    """Serve `conf` with the launch counts set to 0 just before and read
+    just after. The chip's projections must route as `routes` says, and
+    each kernel must launch once per projection, layer and token. Then
+    prefill and two decode steps rerun through the plain versions on the
+    same chip, fed the kernel run's tokens: logits equal. Returns
+    (result, launches, plain err)."""
+    reset_launches(K)                    # the path's run starts here
+    res = serve.serve_static("gemma2-9b", cim=True, device=str(dev), **conf)
     torch.cuda.synchronize()
-    launches = K.LAUNCHES                # ... and ends here
-    stats["launches"] = launches
-    cfg, g = res.cfg, res.out
-    want = 7 * SERVE["n_layers"] * SERVE["gen"]
+    launches = dict(K.LAUNCHES)          # ... and ends here
+    stats["launches"][path] = launches
+    got = {}
+    for k, v in res.params["layers"].items():
+        if k.endswith("_cim"):
+            r = v[0].packed.route()
+            got[r] = got.get(r, 0) + 1
+    if got != routes:
+        raise AssertionError(f"{path}: projections route {got}, expected "
+                             f"{routes}")
+    want = {k: routes.get(k, 0) * conf["n_layers"] * conf["gen"]
+            for k in K.LAUNCHES}
     if launches != want:
-        raise AssertionError(f"kernel launched {launches} times, the main "
-                             f"path needs {want}")
-    shape = (SERVE["batch"], SERVE["gen"])
+        raise AssertionError(f"{path}: launches {launches}, the path needs "
+                             f"{want}")
+    g = res.out
+    shape = (conf["batch"], conf["gen"])
     if tuple(g.tokens.shape) != shape:
         raise AssertionError(f"tokens {tuple(g.tokens.shape)} != {shape}")
     if not all(bool(torch.isfinite(lg).all()) for lg in g.logits):
         raise AssertionError("non-finite logits")
-    # prefill + two decode steps through the plain versions, same chip,
-    # fed the kernel run's tokens
-    plain = serve.greedy_decode(res.params, cfg.replace(cim_impl="plain"),
-                                res.prompts, 3, dev,
-                                teacher=g.tokens[:, :2])
+    plain = serve.greedy_decode(res.params, res.cfg.replace(cim_impl="plain"),
+                                res.prompts, 3, dev, teacher=g.tokens[:, :2])
     ref = serve.Generation(g.tokens[:, :3], g.logits[:3], 0.0, [])
-    err = compare_runs(torch, ref, plain, "kernel vs plain serve", 0.0)
+    err = compare_runs(torch, ref, plain, f"{path}: kernel vs plain", 0.0)
+    return res, launches, err
+
+
+def serve_numbers(res, conf):
+    g = res.out
     mean = lambda v: sum(v) / len(v)
-    return {"config": "gemma2-9b full width, 4 of 42 layers",
-            "deploy_s": res.deploy_s, "prefill_ms": g.prefill_s * 1e3,
+    return {"deploy_s": res.deploy_s, "prefill_ms": g.prefill_s * 1e3,
             "decode_ms_per_token": mean(g.decode_s) * 1e3,
             "decode_ms_median": statistics.median(g.decode_s) * 1e3,
-            "decode_tok_per_s": SERVE["batch"] / mean(g.decode_s),
-            "launches": launches, "plain_max_abs_logit_err": err,
+            "decode_tok_per_s": conf["batch"] / mean(g.decode_s),
+            "sample_tokens": g.tokens[0, :8].tolist()}
+
+
+SERVE_PATHS = (
+    ("serve", SERVE, SERVE_ROUTES,
+     "gemma2-9b full width, 4 of 42 layers, 6144 cores"),
+    ("serve-merged", MERGED, MERGED_ROUTES,
+     "gemma2-9b full width, 4 of 42 layers, 3072 cores"),
+    ("serve-irdrop", IRDROP, IRDROP_ROUTES,
+     "gemma2-9b full width, 2 of 42 layers, 32768 cores, "
+     "ir_drop_alpha 2e-7"))
+
+
+def serve_path(torch, K, ops, serve, dev, stats, path, conf, routes, text):
+    """One serve path: its timed run and plain rerun; the deployed model
+    is kept for the profile phase, which runs after every timed run (a
+    profiled window can slow the host's launches after it)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, launches, err = serve_and_check(torch, K, ops, serve, dev, stats,
+                                         path, conf, routes)
+    stats["profile"].append((path, res))
+    return {"config": text, **serve_numbers(res, conf), "launches": launches,
+            "plain_max_abs_logit_err": err,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-            "sample_tokens": g.tokens[0, :8].tolist(),
-            "decode_profile": profile_decode(torch, serve, res, dev)}
+            "plans": plan_summary(res.params)}
 
 
-def profile_decode(torch, serve, res, dev):
+@phase("profile")
+def profile_phase(torch, dev, stats):
+    out = {}
+    if "kernel_profile" in stats:
+        kernel, fn, flush = stats.pop("kernel_profile")
+        t = stats["time"][kernel]
+        t["device_ms"] = profiled_ms(torch, fn, kernel, 20, flush)
+        out["rbm bwd"] = {"kernel": kernel, "device_ms": t["device_ms"],
+                          "event_ms": t["ms"]}
+        del fn, flush
+        free(torch)
+    while stats["profile"]:
+        path, res = stats["profile"].pop(0)
+        out[path] = profile_decode(torch, res, dev)
+        del res
+        free(torch)
+    return out
+
+
+def plan_summary(params):
+    """Per projection of layer 0: slots, live tiles, passes, runs, bn."""
+    out = {}
+    for k, v in params["layers"].items():
+        if k.endswith("_cim"):
+            p = v[0].packed
+            out[k[:-4]] = {"slots": p.n_tiles, "tiles": len(live_slots(p)),
+                           "passes": p.n_passes, "runs": len(p.out_col),
+                           "bn": p.bn}
+    return out
+
+
+def profile_decode(torch, res, dev):
     """Device time by kernel over as many decode steps as the serve run
     took, after a prefill (torch.profiler / CUPTI). The device's busy
     share is read twice: against the profiled window's wall time, and
@@ -293,7 +575,7 @@ def profile_decode(torch, serve, res, dev):
     if not busy:
         return {"device_ms_per_step": "not measured"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    cim = sum(v for k, v in by_name.items() if "cim_mvm_packed" in k)
+    cim = sum(v for k, v in by_name.items() if "cim_mvm_" in k)
     step_s = sum(res.out.decode_s) / steps
     return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
             "device_ms_per_step": busy / 1e3 / steps,
@@ -331,6 +613,83 @@ def smoke_phase(torch, serve, dev):
                                              card.out.tokens.cpu()))}
 
 
+@phase("recover")
+def recover_phase(torch, K, dev, stats):
+    """Paper-geometry recovery, three ways. Per run: launches counted
+    (packed 10 = the v->h half-steps, transposed 10 = h->v), a plain
+    rerun from the same generator seeds bitwise equal, the per-cycle L2
+    reduction and the CUDA-event time of one Gibbs run."""
+    from repro_torch.launch import recover
+    from repro_torch.obs.clock import timed_call
+    out = {}
+    for mode, flags in (("digital", []), ("stochastic", ["--stochastic"]),
+                        ("interleave", ["--interleave"])):
+        args = recover.parse_args(RECOVER + flags + ["--device", str(dev)])
+        setup = recover.build(args, dev)
+        reset_launches(K)                # the path's run starts here
+        traj = recover.recover(setup, args)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)      # ... and ends here
+        stats["launches"][f"recover-{mode}"] = launches
+        want = {"cim_mvm_packed": args.cycles, "cim_mvm_scheduled": 0,
+                "cim_mvm_transposed": args.cycles}
+        if launches != want:
+            raise AssertionError(f"recover {mode}: launches {launches}, "
+                                 f"the path needs {want}")
+        shape = (args.cycles, args.batch, setup.crbm.n_vis)
+        if tuple(traj.shape) != shape or not bool(torch.isfinite(traj).all()):
+            raise AssertionError(f"recover {mode}: trajectory "
+                                 f"{tuple(traj.shape)} != {shape} or not "
+                                 "finite")
+        plain = recover.recover(setup, args, impl="plain")
+        if not torch.equal(traj, plain):
+            raise AssertionError(f"recover {mode}: the plain rerun's "
+                                 "trajectory differs")
+        _, t_run = timed_call(recover.recover, setup, args, device=dev)
+        red = recover.reductions(setup, traj, args.pixels)
+        out[mode] = {"launches": launches, "l2_reduction_per_cycle": red,
+                     "ms_per_gibbs_run": t_run * 1e3,
+                     "train_s": setup.train_s, "deploy_s": setup.deploy_s,
+                     "tiles": setup.crbm.chip.layers["rbm"].packed.n_tiles}
+        del setup, traj, plain
+        free(torch)
+    return out
+
+
+def kernels_line(stats):
+    """The contract's kernels line: launches on each kernel's path (with
+    every path's count beside it), max |err| against the plain version,
+    and the kernel, plain and bound times of the shape noted in `at`."""
+    at = {"cim_mvm_packed": "one full-width layer's seven projections at "
+                            "M = 4 (a decode step, 6144-core chip)",
+          "cim_mvm_scheduled": "a merged full-width layer's three scheduled "
+                               "projections (w_g, w_i, w_o) at M = 4 (a "
+                               "decode step, 3072-core chip)",
+          "cim_mvm_transposed": "the RBM's h->v launch at paper geometry, "
+                                "M = 64 (CUDA-event window, host work "
+                                "included; device_ms: the kernel alone)"}
+    main_path = {"cim_mvm_packed": "serve",
+                 "cim_mvm_scheduled": "serve-merged",
+                 "cim_mvm_transposed": "recover-digital"}
+    paths = stats["launches"]
+    rows = []
+    for kernel in SOURCES:
+        t = stats["time"].get(kernel, {})
+        rows.append({
+            "name": kernel, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel],
+            "launches": paths.get(main_path[kernel], {}).get(kernel, 0),
+            "launches_by_path": {p: c.get(kernel, 0)
+                                 for p, c in paths.items()},
+            "max_abs_err": stats["err"].get(kernel),
+            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": None, "at": at[kernel],
+            **{k: v for k, v in t.items() if k in ("device_ms", "w_g_bwd_ms")},
+            "ok": not failures})
+    return {"kernels": rows}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -345,32 +704,27 @@ def main() -> int:
     from repro_torch.core import cim
     from repro_torch.core.types import CIMConfig, CoreSpec
     from repro_torch.kernels.cim_mvm import kernel as K
+    from repro_torch.kernels.cim_mvm import ops
     from repro_torch.launch import serve
     from repro_torch.obs.clock import stopwatch
 
     dev = serve.resolve_device("cuda")
-    stats = {"max_abs_err": 0.0}
+    stats = {"err": {}, "time": {}, "launches": {}, "profile": []}
     info = device_phase(torch)
     if build_phase(K, stopwatch) is None:
         return 1
     kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats)
-    torch.cuda.empty_cache()
+    free(torch)
+    kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats)
+    free(torch)
     smoke_phase(torch, serve, dev)      # also loads the model's CUDA modules
-    serve_phase(torch, K, serve, dev, stats)
+    for path, conf, routes, text in SERVE_PATHS:
+        phase(path)(serve_path)(torch, K, ops, serve, dev, stats, path, conf,
+                                routes, text)
+    recover_phase(torch, K, dev, stats)
+    profile_phase(torch, dev, stats)
 
-    layer = stats.get("decode_layer", {})
-    emit({"kernels": [{
-        "name": "cim_mvm_packed", "route": "cuda",
-        "source": "src/repro_torch/kernels/cim_mvm/csrc/cim_mvm_packed.cu",
-        "replaces": "src/repro/kernels/cim_mvm/kernel.py:238",
-        "launches": stats.get("launches", 0),
-        "max_abs_err": stats["max_abs_err"],
-        "ms": layer.get("ms"), "plain_ms": layer.get("plain_ms"),
-        "bound_ms": layer.get("bound_ms"), "bound_by": "bytes",
-        "library_ms": None,
-        "at": "one full-width layer's seven projections at M = 4 "
-              "(a decode step)",
-        "ok": not failures}]})
+    emit(kernels_line(stats))
     if failures or info is None:
         print(f"chip_smoke.py: failed phases: {failures}", file=sys.stderr)
         return 1

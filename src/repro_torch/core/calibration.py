@@ -9,6 +9,7 @@ full-width layer sorts thousands of tiles at once.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -52,19 +53,29 @@ def calibrate_v_decr(q_samples, cfg: CIMConfig, coverage: float = 0.999):
     return torch.clamp(qmax, min=1e-9) / cfg.out_mag_levels
 
 
-def tile_partial_sums(x_int, g_pos, g_neg, tile, cfg: CIMConfig):
-    """Normalized analog partial sums ONE core (tile) produces on a batch
-    in the forward direction: inputs drive the tile's weight rows, outputs
-    appear on its columns, normalized by the tile's per-column sum of
-    G+ + G- (the transpose direction waits for ROADMAP A9).
+def tile_partial_sums(x_int, g_pos, g_neg, tile, cfg: CIMConfig,
+                      direction: str = "fwd"):
+    """Normalized analog partial sums ONE core (tile) produces on a batch.
 
-    x_int: (B, R) integer activations in full-matrix coordinates.
+      'fwd' (SL->BL): inputs drive the tile's weight rows, outputs appear
+            on its columns; normalizer = per-column sum of G+ + G-.
+      'bwd' (BL->SL): inputs drive the tile's COLUMNS, outputs appear on
+            its rows; normalizer = per-row sum of G+ + G-.
+
+    x_int: (B, R) / (B, C) integer activations in the direction's input
+    space, in full-matrix coordinates.
     """
     r0, r1 = tile.row0, tile.row0 + tile.rows
     c0, c1 = tile.col0, tile.col0 + tile.cols
     gp, gn = g_pos[r0:r1, c0:c1], g_neg[r0:r1, c0:c1]
-    return (x_int[:, r0:r1].to(torch.float32) @ (gp - gn)) \
-        * cfg.v_read / torch.sum(gp + gn, dim=0)
+    xf = x_int.to(torch.float32)
+    if direction == "fwd":
+        return (xf[:, r0:r1] @ (gp - gn)) * cfg.v_read \
+            / torch.sum(gp + gn, dim=0)
+    if direction == "bwd":
+        return (xf[:, c0:c1] @ (gp - gn).T) * cfg.v_read \
+            / torch.sum(gp + gn, dim=1)
+    raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction!r}")
 
 
 def measure_adc_offsets(n_cols: int, cfg: CIMConfig, device=None):
@@ -80,6 +91,10 @@ def calibrate_layer(x_int_cal, g_pos, g_neg, cfg: CIMConfig,
                     coverage: float = 0.999) -> LayerCalibration:
     """x_int_cal: (B_cal, R) integer activations from the *training set*."""
     offs = measure_adc_offsets(g_pos.shape[1], cfg, g_pos.device)
-    out = cim_mvm_ref(x_int_cal, g_pos, g_neg, 1.0, cfg, adc_offset=offs)
+    # analog-only pass: only q_analog is read, so the ADC runs without an
+    # activation (the oracle refuses the stochastic neuron)
+    out = cim_mvm_ref(x_int_cal, g_pos, g_neg, 1.0,
+                      dataclasses.replace(cfg, activation="none"),
+                      adc_offset=offs)
     return LayerCalibration(calibrate_v_decr(out.q_analog, cfg, coverage),
                             offs)

@@ -1,5 +1,5 @@
 """High-level CIM API — the chip-compiler pipeline models deploy through
-(PyTorch port of `repro/core/cim.py`, forward direction, ideal mode).
+(PyTorch port of `repro/core/cim.py`, ideal mode).
 
     plan  ->  schedule  ->  program  ->  calibrate  ->  pack
 
@@ -7,9 +7,11 @@
   * `schedule_chip`  (mapping.schedule_tiles): per-layer ordered passes.
   * `program_chip`   : weights -> `CIMLayer` conductances ('ideal' encode)
                        plus the whole-matrix calibration.
-  * `calibrate_chip` : one ADC v_decr per tile, measured on that tile's own
-                       partial-sum distribution.
-  * `pack_chip`      (mapping.pack_tiles): per-layer `PackedCIMLayer`s.
+  * `calibrate_chip` : one ADC v_decr per tile and direction, measured on
+                       that tile's own partial-sum distribution.
+  * `pack_chip`      (mapping.pack_tiles / pack_tiles_transposed):
+                       per-layer `PackedCIMLayer`s; the transpose (BL->SL)
+                       direction shares the forward gd_tiles stack.
 
 `compile_chip` composes them into a `CompiledChip` and, by default, runs
 the chip-IR verifier (`core.verify.verify_chip`) over it. `packed_forward`
@@ -17,20 +19,20 @@ serves one packed layer: quantize, one kernel launch, rescale.
 
 Randomness (synthetic calibration batches) comes from an explicit
 `torch.Generator`; callers that must match the JAX reference pass the
-reference's calibration batches as `x_cal` instead.
+reference's calibration batches as `x_cal` / `x_cal_bwd` instead.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .calibration import calibrate_layer, quantile_linear
 from .conductance import weights_to_conductances
 from .mapping import (MatrixReq, PackedPlan, Plan, TileSchedule, block_view,
-                      ir_drop_max_cols, pack_tiles, plan_layers,
-                      schedule_tiles)
+                      ir_drop_max_cols, pack_tiles, pack_tiles_transposed,
+                      plan_layers, schedule_tiles)
 from .quant import quantize_to_int
 from .types import CIMConfig, CoreSpec
 from .verify import verify_chip
@@ -87,17 +89,25 @@ class PackedCIMLayer(NamedTuple):
 
 
 def calibrate_tile_v_decr(layer: CIMLayer, tiles, x_cal, cfg: CIMConfig,
-                          coverage: float = 0.999):
-    """Per-core ADC calibration: one v_decr per tile, covering that tile's
-    OWN normalized partial-sum distribution
-        q_t = (x_t @ gd_t) * v_read / norm_t,   norm_t = column sums of the
-    tile's G+ + G-. Batched over all tiles of the layer: the (R, C) matrix
-    viewed as (row_block, col_block, bk, bn) blocks gives every tile's
-    partial sums in one product. Returns (T,) aligned with the replica-0
-    tiles in the given order."""
+                          coverage: float = 0.999, *,
+                          direction: str = "fwd",
+                          in_alpha: Optional[float] = None):
+    """Per-core, per-direction ADC calibration: one v_decr per tile,
+    covering that tile's OWN normalized partial-sum distribution
+        fwd: q_t = (x_t @ gd_t) * v_read / (column sums of G+ + G-)
+        bwd: q_t = (x_t @ gd_t.T) * v_read / (row sums of G+ + G-)
+    with x_cal in the direction's input space ((B, C) for 'bwd') and
+    `in_alpha` overriding the layer's forward input clip. Batched over
+    all tiles of the layer: the (R, C) matrix viewed as (row_block,
+    col_block, bk, bn) blocks gives every tile's partial sums in one
+    product. Returns (T,) aligned with the replica-0 tiles in the given
+    order."""
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction must be 'fwd' or 'bwd', got "
+                         f"{direction!r}")
     tiles = [t for t in tiles if not t.replica]
-    x_int, _ = quantize_to_int(x_cal, layer.in_alpha, cfg.in_bits,
-                               signed=True)
+    alpha = layer.in_alpha if in_alpha is None else in_alpha
+    x_int, _ = quantize_to_int(x_cal, alpha, cfg.in_bits, signed=True)
     bk = max(t.rows for t in tiles)
     bn = max(t.cols for t in tiles)
     dev = layer.g_pos.device
@@ -105,22 +115,32 @@ def calibrate_tile_v_decr(layer: CIMLayer, tiles, x_cal, cfg: CIMConfig,
     cb = torch.tensor([t.col0 // bn for t in tiles], device=dev)
     rows = torch.tensor([t.rows for t in tiles], device=dev)
     cols = torch.tensor([t.cols for t in tiles], device=dev)
-    rmask = (torch.arange(bk, device=dev)[None, :] < rows[:, None])
-    keep = rmask[:, :, None] & (torch.arange(bn, device=dev)[None, None, :]
-                                < cols[:, None, None])
+    rmask = torch.arange(bk, device=dev)[None, :] < rows[:, None]
+    cmask = torch.arange(bn, device=dev)[None, :] < cols[:, None]
+    keep = rmask[:, :, None] & cmask[:, None, :]
     zero = torch.zeros((), device=dev)
     gd = torch.where(keep, block_view(layer.g_pos - layer.g_neg, bk, bn)[rb, cb],
                      zero)
-    norm = torch.where(keep, block_view(layer.g_pos + layer.g_neg, bk, bn)[rb, cb],
-                       zero).sum(dim=1)
-    xb = block_view(x_int.to(torch.float32), x_int.shape[0], bk)[0]
-    xt = torch.where(rmask[:, None, :], xb[rb], zero)        # (T, B, bk)
-    q = torch.bmm(xt, gd) * cfg.v_read / norm[:, None, :]    # (T, B, bn)
-    colok = torch.arange(bn, device=dev)[None, None, :] < cols[:, None, None]
-    absq = torch.where(colok, q.abs(), torch.full((), float("inf"),
-                                                  device=dev))
-    n_valid = cols * x_int.shape[0]
-    qmax = quantile_linear(absq.reshape(len(tiles), -1), coverage, n_valid)
+    gs = torch.where(keep,
+                     block_view(layer.g_pos + layer.g_neg, bk, bn)[rb, cb],
+                     zero)
+    xf = x_int.to(torch.float32)
+    n_b = xf.shape[0]
+    if direction == "fwd":                  # x_t: (T, B, bk) -> q: (T, B, bn)
+        xt = block_view(xf, n_b, bk)[0][rb]
+        xt = torch.where(rmask[:, None, :], xt, zero)
+        q = torch.bmm(xt, gd) * cfg.v_read / gs.sum(dim=1)[:, None, :]
+        ok, n_out = cmask, cols
+    else:                                   # x_t: (T, B, bn) -> q: (T, B, bk)
+        xt = block_view(xf, n_b, bn)[0][cb]
+        xt = torch.where(cmask[:, None, :], xt, zero)
+        q = torch.bmm(xt, gd.transpose(1, 2)) * cfg.v_read \
+            / gs.sum(dim=2)[:, None, :]
+        ok, n_out = rmask, rows
+    absq = torch.where(ok[:, None, :], q.abs(),
+                       torch.full((), float("inf"), device=dev))
+    qmax = quantile_linear(absq.reshape(len(tiles), -1), coverage,
+                           n_out * n_b)
     return torch.clamp(qmax, min=1e-9) / cfg.out_mag_levels
 
 
@@ -137,16 +157,22 @@ def pack_cim_layer(layer: CIMLayer, tiles, cfg: CIMConfig, v_decr=None,
     return PackedCIMLayer(layer, packed)
 
 
-def packed_forward(pcl: PackedCIMLayer, x, cfg: CIMConfig, *,
+def packed_forward(pcl: PackedCIMLayer, x, cfg: CIMConfig, *, seed: int = 0,
                    impl: str = "auto"):
     """y ~= x @ W through the packed chip datapath. x: (B, R) float over
     the layer's full weight rows; the whole tile plan is one kernel
     launch, with row-split partial sums de-normalized per core and
-    accumulated digitally inside it."""
+    accumulated digitally inside it. seed: the stochastic neuron's salt."""
     layer, packed = pcl.layer, pcl.packed
+    if cfg.activation == "stochastic" and packed.n_row_blocks > 1:
+        raise ValueError(
+            f"stochastic sampling on plan '{packed.layer}' would sum "
+            f"comparator bits across {packed.n_row_blocks} input splits "
+            "into non-Bernoulli values; serve a direction whose input fits "
+            "one block")
     x_int, scale = quantize_to_int(x, layer.in_alpha, cfg.in_bits,
                                    signed=True)
-    acc = cim_mvm_packed(x_int, packed, cfg, impl=impl)
+    acc = cim_mvm_packed(x_int, packed, cfg, seed=seed, impl=impl)
     if cfg.activation in ("tanh", "sigmoid", "stochastic"):
         return acc                     # already neuron units
     return acc * layer.w_max * scale / (cfg.v_read * cfg.device.g_max)
@@ -156,13 +182,33 @@ def packed_forward(pcl: PackedCIMLayer, x, cfg: CIMConfig, *,
 
 @dataclasses.dataclass(eq=False)
 class CompiledChip:
-    """The chip-compiler's output: every stage's result, servable."""
+    """The chip-compiler's output: every stage's result, servable. When
+    compiled with directions=("fwd", "bwd") every matrix also carries a
+    transpose-direction packed view in `bwd_layers`, sharing its forward
+    gd_tiles stack by reference."""
     cfg: CIMConfig
     spec: CoreSpec
     mode: str
     plan: Plan
     schedules: Dict[str, TileSchedule]
     layers: Dict[str, PackedCIMLayer]
+    bwd_layers: Dict[str, PackedCIMLayer] = dataclasses.field(
+        default_factory=dict)
+
+    @property
+    def directions(self) -> Tuple[str, ...]:
+        return ("fwd", "bwd") if self.bwd_layers else ("fwd",)
+
+    def layers_for(self, direction: str) -> Dict[str, PackedCIMLayer]:
+        if direction == "fwd":
+            return self.layers
+        if direction == "bwd":
+            if not self.bwd_layers:
+                raise ValueError(
+                    "chip was not compiled with directions=('fwd','bwd')")
+            return self.bwd_layers
+        raise ValueError(f"direction must be 'fwd' or 'bwd', got "
+                         f"{direction!r}")
 
     def __contains__(self, name: str) -> bool:
         return name in self.layers
@@ -192,38 +238,80 @@ def program_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig, *,
     batches: Dict[str, torch.Tensor] = {}
     for name in sorted(weights):
         w = weights[name]
-        xc = x_cal.get(name) if x_cal is not None else None
-        if xc is None:
-            gen = generator or torch.Generator(w.device).manual_seed(0)
-            xc = synthetic_x_cal(w.shape[0], in_alpha, gen)
-        xc = torch.as_tensor(xc, dtype=torch.float32, device=w.device)
+        xc = _batch(x_cal, name, w.shape[0], in_alpha, generator, w.device)
         layers[name] = program(w, cfg, in_alpha=in_alpha, x_cal=xc,
                                mode=mode)
         batches[name] = xc
     return layers, batches
 
 
+def _batch(x_cal, name: str, width: int, in_alpha: float, generator,
+           device):
+    """The calibration batch for `name`: the given one, or a synthetic one
+    matched to the input clip from `generator` (a fresh one seeded 0)."""
+    xc = x_cal.get(name) if x_cal is not None else None
+    if xc is None:
+        gen = generator or torch.Generator(device).manual_seed(0)
+        xc = synthetic_x_cal(width, in_alpha, gen)
+    return torch.as_tensor(xc, dtype=torch.float32, device=device)
+
+
 def calibrate_chip(layers: Dict[str, CIMLayer], plan: Plan,
-                   batches: Dict[str, torch.Tensor], cfg: CIMConfig
+                   batches: Dict[str, torch.Tensor], cfg: CIMConfig, *,
+                   direction: str = "fwd",
+                   in_alpha: Optional[float] = None
                    ) -> Dict[str, torch.Tensor]:
-    """Stage 4 (CALIBRATE): one v_decr per tile."""
+    """Stage 4 (CALIBRATE): one v_decr per tile in `direction`; batches
+    live in the direction's input space, in_alpha overrides the forward
+    clip for the transpose direction."""
     return {n: calibrate_tile_v_decr(layers[n], plan.tiles_for(n),
-                                     batches[n], cfg)
+                                     batches[n], cfg, direction=direction,
+                                     in_alpha=in_alpha)
             for n in layers}
 
 
 def pack_chip(layers: Dict[str, CIMLayer], plan: Plan,
               schedules: Dict[str, TileSchedule], cfg: CIMConfig,
-              v_decrs: Dict[str, torch.Tensor]
-              ) -> Dict[str, PackedCIMLayer]:
-    """Stage 5 (PACK), forward direction."""
-    return {n: pack_cim_layer(layers[n], plan.tiles_for(n), cfg,
-                              v_decr=v_decrs[n], schedule=schedules[n])
-            for n in layers}
+              v_decrs: Dict[str, torch.Tensor], *, direction: str = "fwd",
+              packed: Optional[Dict[str, PackedCIMLayer]] = None,
+              in_alpha: float = 1.0) -> Dict[str, PackedCIMLayer]:
+    """Stage 5 (PACK). direction='bwd' packs the transpose view of an
+    already packed forward chip (`packed`), sharing its gd_tiles stacks;
+    in_alpha is then the transpose direction's input clip."""
+    if direction == "fwd":
+        return {n: pack_cim_layer(layers[n], plan.tiles_for(n), cfg,
+                                  v_decr=v_decrs[n], schedule=schedules[n])
+                for n in layers}
+    if direction != "bwd":
+        raise ValueError(f"direction must be 'fwd' or 'bwd', got "
+                         f"{direction!r}")
+    if packed is None:
+        raise ValueError("direction='bwd' needs the forward pack "
+                         "(packed=...) whose gd_tiles it shares")
+    fold = cfg.activation not in ("tanh", "sigmoid", "stochastic")
+    out: Dict[str, PackedCIMLayer] = {}
+    for n, lay in layers.items():
+        p_bwd = pack_tiles_transposed(
+            plan.tiles_for(n), packed[n].packed,
+            gsum=lay.g_pos + lay.g_neg, v_decr=v_decrs[n],
+            fold_norm=fold, schedule=schedules[n])
+        # the transpose view of the programmed layer: the SAME conductance
+        # tensors, that direction's normalizer (row sums), a conservative
+        # whole-matrix ADC step (the per-tile steps in the pack serve) and
+        # its own input clip
+        dev = lay.g_pos.device
+        lay_bwd = CIMLayer(
+            lay.g_pos, lay.g_neg, lay.w_max,
+            torch.sum(lay.g_pos + lay.g_neg, dim=1), torch.max(v_decrs[n]),
+            torch.zeros((lay.g_pos.shape[0],), device=dev),
+            torch.tensor(in_alpha, dtype=torch.float32, device=dev))
+        out[n] = PackedCIMLayer(lay_bwd, p_bwd)
+    return out
 
 
 def _oracle_only(cfg: CIMConfig) -> bool:
-    """Non-idealities the packed serving path cannot honor at all."""
+    """Non-idealities the packed serving path cannot honor at all (IR drop
+    is planned around: `mapping.ir_drop_max_cols`)."""
     ni = cfg.nonideal
     return (ni.wire_r_alpha > 0 or ni.coupling_sigma > 0
             or ni.adc_offset_sigma > 0)
@@ -231,17 +319,25 @@ def _oracle_only(cfg: CIMConfig) -> bool:
 
 def compile_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig,
                  spec: CoreSpec = CoreSpec(), mode: str = "ideal", *,
-                 in_alpha: float = 1.0,
+                 plan: Optional[Plan] = None, in_alpha: float = 1.0,
                  x_cal: Optional[Dict[str, torch.Tensor]] = None,
+                 directions: Sequence[str] = ("fwd",),
+                 in_alpha_bwd: float = 1.0,
+                 x_cal_bwd: Optional[Dict[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None,
                  verify: str = "strict") -> CompiledChip:
     """Run plan -> schedule -> program -> calibrate -> pack over one chip's
-    weight matrices (name -> (R, C), all on one device), forward direction
-    (transpose-direction chips wait for ROADMAP A9).
+    weight matrices (name -> (R, C), all on one device).
 
-    x_cal: optional per-name (B_cal, R) calibration activations; missing
-    names draw synthetic batches from `generator`. verify: "strict" (the
-    default) runs the chip-IR verifier; "off" skips it.
+    plan: optional pre-built Plan overriding stage 1 (a custom mapping,
+    such as the pixel-interleaved RBM, or one layer's plan reused for
+    every layer of a stack of equal shapes). x_cal: optional per-name
+    (B_cal, R) calibration activations; missing names draw synthetic
+    batches from `generator`. directions ("fwd",) or ("fwd", "bwd"): with
+    "bwd" every matrix is also calibrated and packed in the transpose
+    direction, from x_cal_bwd ((B_cal, C) per name) at input clip
+    in_alpha_bwd. verify: "strict" (the default) runs the chip-IR
+    verifier; "off" skips it.
     """
     if verify not in ("strict", "off"):
         raise ValueError(f"verify must be 'strict' or 'off', got "
@@ -250,16 +346,43 @@ def compile_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig,
         raise ValueError(
             "compile_chip serves the fused kernel path only; per-phase "
             "non-idealities require the bit-serial oracle")
-    plan = plan_chip([MatrixReq(n, int(w.shape[0]), int(w.shape[1]))
-                      for n, w in weights.items()], cfg, spec)
+    directions = tuple(directions)
+    if "fwd" not in directions or set(directions) - {"fwd", "bwd"}:
+        raise ValueError(f"directions must be ('fwd',) or ('fwd','bwd'), "
+                         f"got {directions}")
+    if plan is None:
+        plan = plan_chip([MatrixReq(n, int(w.shape[0]), int(w.shape[1]))
+                          for n, w in weights.items()], cfg, spec)
+    else:
+        for n, w in weights.items():
+            ts = plan.tiles_for(n)
+            if not ts:
+                raise ValueError(f"supplied plan has no tiles for '{n}'")
+            ext = (max(t.row0 + t.rows for t in ts),
+                   max(t.col0 + t.cols for t in ts))
+            if ext != tuple(w.shape):
+                raise ValueError(
+                    f"supplied plan covers {ext} for '{n}' but the weight "
+                    f"is {tuple(w.shape)}")
     schedules = schedule_chip(plan, sorted(weights))
     layers, batches = program_chip(weights, cfg, mode=mode,
                                    in_alpha=in_alpha, x_cal=x_cal,
                                    generator=generator)
     v_decrs = calibrate_chip(layers, plan, batches, cfg)
     packed = pack_chip(layers, plan, schedules, cfg, v_decrs)
+    bwd_packed: Dict[str, PackedCIMLayer] = {}
+    if "bwd" in directions:
+        batches_bwd = {n: _batch(x_cal_bwd, n, w.shape[1], in_alpha_bwd,
+                                 generator, w.device)
+                       for n, w in sorted(weights.items())}
+        v_decrs_bwd = calibrate_chip(layers, plan, batches_bwd, cfg,
+                                     direction="bwd", in_alpha=in_alpha_bwd)
+        bwd_packed = pack_chip(layers, plan, schedules, cfg, v_decrs_bwd,
+                               direction="bwd", packed=packed,
+                               in_alpha=in_alpha_bwd)
     chip = CompiledChip(cfg=cfg, spec=spec, mode=mode, plan=plan,
-                        schedules=schedules, layers=packed)
+                        schedules=schedules, layers=packed,
+                        bwd_layers=bwd_packed)
     if verify == "strict":
         verify_chip(chip)
     return chip

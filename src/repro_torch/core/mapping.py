@@ -12,10 +12,18 @@ paper Fig. 2a + Methods 'Weight mapping strategy onto multiple CIM cores').
   * `pack_tiles` (PACK): one layer's tiles as stacked tensors
     (`gd_tiles (T, bk, bn)`, `inv_norm_tiles (T, 1, bn)`, `v_decr_tiles
     (T,)`, `denorm_tiles (T, 1, bn)`) plus static index maps, executed as
-    ONE kernel launch (`kernels/cim_mvm`). A single-pass pack sorts tiles
-    by (col0, row0), so each output column block owns a contiguous range
-    of tiles; `col_start` holds those ranges as CSR offsets, on the plan's
-    device next to `row_index`, for the kernel to read.
+    ONE kernel launch (`kernels/cim_mvm`). Each pass's slots are re-sorted
+    stably by output column block (`_fused_layout`): a RUN is a stretch of
+    consecutive slots of one column block. A single-pass pack's column
+    blocks are one run each, so `col_start` holds them as CSR offsets; a
+    multi-pass pack may split a column block over several runs, which
+    `run_start` / `col_run_start` / `col_runs` describe. All of these live
+    on the plan's device next to `row_index`, for the kernels to read.
+  * `pack_tiles_transposed` (PACK, BL->SL direction): the transpose view
+    of a forward pack for bidirectional workloads (the RBM, paper Fig.
+    4e-g). It shares the forward `gd_tiles` stack by reference and builds
+    only the per-row normalizer, ADC steps and denorms, in its own fused
+    slot order; `tile_slot` maps each slot to its stack position.
 
 The planner and scheduler work on Python metadata. The pack is batched
 tensor code: a (R, C) matrix viewed as (row_block, bk, col_block, bn)
@@ -225,13 +233,18 @@ class PackedPlan:
                       tile's counts: the valid-column mask, or mask * norm
                       * v_decr (fold_norm, de-normalized charge units).
     Made from the static maps on that device when the plan is built, for
-    the kernel to read:
-      row_index:      (T,) int32  row_block.
+    the kernels to read:
+      row_index:      (T,) int32  row_block (the input block per slot).
       col_start:      (n_col_blocks + 1,) int32 CSR offsets: column block
                       j's tiles are slots [col_start[j], col_start[j+1]).
                       None when col_block is not non-decreasing (a
-                      multi-pass plan), which the single-pass kernel
-                      refuses.
+                      multi-pass plan) and for transpose plans; the
+                      single-pass kernel refuses both.
+      run_start:      (n_runs + 1,) int32 CSR offsets of each fused run's
+                      slots (out_slot is non-decreasing).
+      col_run_start / col_runs: CSR of each output column block's live
+                      runs, in run order (runs with out_col -1 left out).
+      tile_index:     (T,) int32 tile_slot for transpose plans, else None.
 
     Static geometry (as in the reference): row_block / col_block (slot ->
     input / output block), seq_slot (slot -> pass), n_passes, transpose,
@@ -257,20 +270,58 @@ class PackedPlan:
     denorm_tiles: torch.Tensor
     row_index: torch.Tensor = dataclasses.field(init=False)
     col_start: Optional[torch.Tensor] = dataclasses.field(init=False)
+    run_start: torch.Tensor = dataclasses.field(init=False)
+    col_run_start: torch.Tensor = dataclasses.field(init=False)
+    col_runs: torch.Tensor = dataclasses.field(init=False)
+    tile_index: Optional[torch.Tensor] = dataclasses.field(init=False)
 
     def __post_init__(self):
         dev = self.gd_tiles.device
-        self.row_index = torch.tensor(self.row_block, dtype=torch.int32,
-                                      device=dev)
-        starts = col_block_offsets(self.col_block)
-        self.col_start = None if starts is None else torch.tensor(
-            starts, dtype=torch.int32, device=dev)
+
+        def table(v):
+            return torch.tensor(v, dtype=torch.int32, device=dev)
+        self.row_index = table(self.row_block)
+        starts = None if self.transpose else col_block_offsets(self.col_block)
+        self.col_start = None if starts is None else table(starts)
+        run_start, col_run_start, col_runs = run_tables(
+            self.out_slot, self.out_col, self.n_col_blocks)
+        self.run_start = table(run_start)
+        self.col_run_start = table(col_run_start)
+        self.col_runs = table(col_runs)
+        self.tile_index = table(self.tile_slot) if self.transpose else None
+
+    def route(self, scheduled=None) -> str:
+        """The kernel this plan launches: 'cim_mvm_transposed' for a
+        transpose plan, else 'cim_mvm_scheduled' iff the plan has more than
+        one pass (or `scheduled` forces it), else 'cim_mvm_packed'."""
+        if self.transpose:
+            return "cim_mvm_transposed"
+        if scheduled is None:
+            scheduled = self.n_passes > 1
+        if self.n_passes > 1 and not scheduled:
+            raise ValueError(
+                f"plan '{self.layer}' has {self.n_passes} sequential passes; "
+                "the tile-grid kernel cannot serialize merged cores")
+        return "cim_mvm_scheduled" if scheduled else "cim_mvm_packed"
 
     @functools.cached_property
     def n_ranks(self) -> int:
         """The most tiles one output column block holds (the row-split
         depth the plain version loops over)."""
         return max(collections.Counter(self.col_block).values())
+
+    @functools.cached_property
+    def n_run_ranks(self) -> int:
+        """The most live runs one output column block folds."""
+        live = [c for c in self.out_col if c >= 0]
+        return max(collections.Counter(live).values()) if live else 0
+
+    @functools.cached_property
+    def n_run_len(self) -> int:
+        """The most slots one live run holds."""
+        lens = collections.Counter(self.out_slot)
+        return max((lens[r] for r, c in enumerate(self.out_col) if c >= 0),
+                   default=0)
 
     @property
     def n_tiles(self) -> int:
@@ -302,6 +353,28 @@ def col_block_offsets(col_block: Sequence[int]) -> Optional[List[int]]:
     for j in range(n_cb):
         starts[j + 1] += starts[j]
     return starts
+
+
+def run_tables(out_slot: Sequence[int], out_col: Sequence[int],
+               n_col_blocks: int) -> Tuple[List[int], List[int], List[int]]:
+    """The kernels' run tables of a fused layout: (run_start, CSR offsets
+    of each run's slots; col_run_start and col_runs, CSR of each column
+    block's live runs in run order). out_slot must be non-decreasing (the
+    verifier's `fused-runs` invariant); runs with out_col -1 are idle."""
+    run_start = [0] * (len(out_col) + 1)
+    for r in out_slot:
+        if 0 <= r < len(out_col):
+            run_start[r + 1] += 1
+    for r in range(len(out_col)):
+        run_start[r + 1] += run_start[r]
+    per_col: List[List[int]] = [[] for _ in range(n_col_blocks)]
+    for r, c in enumerate(out_col):
+        if 0 <= c < n_col_blocks:
+            per_col[c].append(r)
+    col_run_start = [0]
+    for runs in per_col:
+        col_run_start.append(col_run_start[-1] + len(runs))
+    return run_start, col_run_start, [r for runs in per_col for r in runs]
 
 
 def _slot_order(tiles: Sequence[Tile], schedule: Optional[TileSchedule]
@@ -343,6 +416,13 @@ def _fused_layout(blocks: Sequence[Optional[int]], pass_len: int
             out_col.append(blk)
         out_slot.append(len(out_col) - 1)
     return perm, tuple(out_slot), tuple(out_col)
+
+
+def transpose_tiles(tiles: Sequence[Tile]) -> List[Tile]:
+    """The SAME physical tiles viewed in the transpose (BL->SL) direction:
+    row/col offsets and extents swap; core, replica and seq_slot stay."""
+    return [dataclasses.replace(t, row0=t.col0, col0=t.row0,
+                                rows=t.cols, cols=t.rows) for t in tiles]
 
 
 def block_view(mat, bk: int, bn: int):
@@ -448,3 +528,91 @@ def pack_tiles(tiles: Sequence[Tile], gd, *, gsum=None, v_decr=1.0,
         tile_slot=tuple(range(n_slots)), out_slot=out_slot, out_col=out_col,
         gd_tiles=gd_tiles, inv_norm_tiles=inv_t[:, None, :],
         v_decr_tiles=vd_t, denorm_tiles=den_t[:, None, :])
+
+
+def pack_tiles_transposed(tiles: Sequence[Tile], packed: PackedPlan, *,
+                          gsum=None, v_decr=1.0, fold_norm: bool = False,
+                          schedule: Optional[TileSchedule] = None
+                          ) -> PackedPlan:
+    """Stage 5 (PACK), transpose direction: the BL->SL view of a packed
+    forward plan. It shares `packed.gd_tiles` (the forward stack, by
+    reference) and builds only this direction's per-ROW normalizer, ADC
+    steps and denorms, in this direction's own fused slot order; tile_slot
+    maps each slot to its position in the shared stack.
+
+    tiles / schedule: the SAME forward-space inputs given to `pack_tiles`.
+    gsum: (R, C) G+ + G- in the forward orientation; None means raw
+    matmul. v_decr: scalar or (T,) transpose-direction ADC steps aligned
+    with the replica-0 tiles in the order given.
+    """
+    tiles = [t for t in tiles if t.replica == 0]
+    if not tiles:
+        raise ValueError("pack_tiles_transposed needs at least one tile")
+    if packed.transpose:
+        raise ValueError("packed must be the forward-direction plan")
+    order, n_passes, pass_len = _slot_order(tiles, schedule)
+    if len(order) != packed.n_tiles or n_passes != packed.n_passes:
+        raise ValueError(
+            f"tiles/schedule do not match the forward pack "
+            f"({len(order)} slots vs {packed.n_tiles}, "
+            f"{n_passes} passes vs {packed.n_passes})")
+    bk_f, bn_f = packed.bk, packed.bn
+    # the forward pack built gd_tiles in ITS fused order: reproduce that
+    # permutation to locate each slot in the shared stack, then fuse this
+    # direction's slots by its own output blocks (forward ROW blocks)
+    blocks_f = [None if i is None else tiles[i].col0 // bn_f for i in order]
+    perm_f, _, _ = _fused_layout(blocks_f, pass_len)
+    stack_pos = {p: g for g, p in enumerate(perm_f)}
+    blocks_b = [None if i is None else tiles[i].row0 // bk_f for i in order]
+    perm_b, out_slot, out_col = _fused_layout(blocks_b, pass_len)
+    tile_slot = tuple(stack_pos[p] for p in perm_b)
+    order = [order[p] for p in perm_b]
+
+    dev = packed.gd_tiles.device
+    v_decr = torch.broadcast_to(
+        torch.as_tensor(v_decr, dtype=torch.float32, device=dev),
+        (len(tiles),))
+    live = [s for s, i in enumerate(order) if i is not None]
+    idx = [order[s] for s in live]
+    ts = [tiles[i] for i in idx]
+    rows = torch.tensor([t.rows for t in ts], device=dev)
+    mask = (torch.arange(bk_f, device=dev)[None, :]
+            < rows[:, None]).to(torch.float32)
+    if gsum is None:
+        inv = norm = mask                   # normalizer 1 on valid rows
+    else:
+        gs_live, _ = tile_blocks(ts, gsum.to(torch.float32), bk_f, bn_f)
+        norm = torch.sum(gs_live, dim=2)    # zero in padded rows
+        inv = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30),
+                          torch.zeros((), device=dev))
+    vd_live = v_decr[torch.tensor(idx, device=dev)]
+    den = (mask * norm * vd_live[:, None]) if fold_norm else mask
+
+    n_slots = len(order)
+    if len(live) == n_slots:
+        inv_t, den_t, vd_t = inv, den, vd_live
+    else:                                   # idle slots: inert zero rows
+        sel = torch.tensor(live, device=dev)
+        inv_t = torch.zeros((n_slots, bk_f), device=dev)
+        inv_t[sel] = inv
+        den_t = torch.zeros((n_slots, bk_f), device=dev)
+        den_t[sel] = den
+        vd_t = torch.ones((n_slots,), device=dev)
+        vd_t[sel] = vd_live
+    return PackedPlan(
+        layer=packed.layer, bk=bn_f, bn=bk_f,
+        n_rows=packed.n_cols, n_cols=packed.n_rows,
+        row_block=tuple(packed.col_block[g] for g in tile_slot),
+        col_block=tuple(packed.row_block[g] for g in tile_slot),
+        seq_slot=packed.seq_slot, n_passes=n_passes, transpose=True,
+        tile_slot=tile_slot, out_slot=out_slot, out_col=out_col,
+        gd_tiles=packed.gd_tiles,           # SHARED: one conductance set
+        inv_norm_tiles=inv_t[:, None, :], v_decr_tiles=vd_t,
+        denorm_tiles=den_t[:, None, :])
+
+
+def interleave_assignment(n_units: int, n_cores: int, device=None):
+    """Paper Fig. 4f: adjacent pixels (visible units) go to different
+    cores, so each core sees a down-sampled version of the whole image.
+    Returns the core index per unit."""
+    return torch.arange(n_units, device=device) % n_cores

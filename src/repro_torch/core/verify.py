@@ -1,5 +1,5 @@
 """Chip-IR verifier: static passes over every chip-compiler artifact
-(PyTorch port of `repro/core/verify.py`, forward plans).
+(PyTorch port of `repro/core/verify.py`).
 
 Every violation raises a structured `ChipVerifyError` naming the pipeline
 stage, layer, tile/slot and invariant, before anything launches.
@@ -20,30 +20,44 @@ stage, layer, tile/slot and invariant, before anything launches.
                                    block grid exactly once
             fused-runs / run-block the fused run layout is consecutive,
                                    maximal and agrees with col_block
-            col-offsets            col_start (the kernel's CSR offsets of
-                                   each column block's slots) matches
-                                   col_block
-            shared-memory          one CUDA block of the packed kernel, at
-                                   the tiling it picks for the batch, fits
-                                   Hopper's 232,448 bytes of shared memory
+            col-offsets            col_start (the packed kernel's CSR
+                                   offsets of each column block's slots)
+                                   matches col_block (None on transpose
+                                   plans); row_index / tile_index match
+                                   row_block / tile_slot
+            run-offsets            run_start, col_run_start and col_runs
+                                   (the run tables of the scheduled and
+                                   transposed kernels) match out_slot /
+                                   out_col
+            shared-memory          one CUDA block of the kernel the plan
+                                   routes to, at the tiling it picks for
+                                   the batch, fits Hopper's 232,448 bytes
+                                   of shared memory
             exact-dot              gd_tiles lie on the 2^-23 grid and are
                                    small enough that the kernel's FP64
-                                   tile dot is exact for |x| <= 127
+                                   tile dot (of the route's length, bk) is
+                                   exact for |x| <= 127
   chip      schedule-pack          the packed pass structure matches the
                                    stage-2 schedule
+            shared-stack           a transpose pack reuses the forward
+                                   pack's gd_tiles tensor
+            direction-agreement    the transpose pack is the forward
+            / direction-keys       pack's swap (geometry, block maps via
+                                   tile_slot, pass structure, names)
 
 The reference's `vmem-budget` (16 MiB of TPU VMEM per grid step) has no
 meaning on the card; `shared-memory` takes its place.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Sequence
 
 import torch
 
 from .mapping import (PackedPlan, Plan, Tile, TileSchedule,
-                      col_block_offsets, ir_drop_max_cols)
+                      col_block_offsets, ir_drop_max_cols, run_tables)
 from .types import CIMConfig, CoreSpec
 from ..kernels.cim_mvm.kernel import SMEM_LIMIT, block_rows, shared_bytes
 
@@ -140,10 +154,14 @@ def _trailing(shape, n):
     return tuple(int(d) for d in shape[-n:])
 
 
+def _ints(t):
+    return None if t is None else [int(v) for v in t.tolist()]
+
+
 def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
                  layer: Optional[str] = None) -> None:
-    """Verify a stage-5 forward PackedPlan's static index maps, tensor
-    shapes, kernel offsets and the kernel's shared memory.
+    """Verify a stage-5 PackedPlan's static index maps, tensor shapes,
+    kernel tables and its kernel's shared memory.
 
     bm: batch rows the shared-memory check assumes; None takes the
     largest batch block the serving path launches.
@@ -169,12 +187,15 @@ def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
             f"degenerate block geometry bk={packed.bk} bn={packed.bn} "
             f"n_rows={packed.n_rows} n_cols={packed.n_cols}", layer=name)
 
-    gd_shape = (T, packed.bk, packed.bn)
+    gd_shape = ((T, packed.bn, packed.bk) if packed.transpose
+                else (T, packed.bk, packed.bn))
     if _trailing(packed.gd_tiles.shape, 3) != gd_shape:
         raise ChipVerifyError(
             "pack", "stack-shape",
             f"gd_tiles trailing dims {_trailing(packed.gd_tiles.shape, 3)} "
-            f"!= {gd_shape}", layer=name)
+            f"!= {gd_shape}"
+            + (" (transpose plans index the forward-orientation stack)"
+               if packed.transpose else ""), layer=name)
     for fname, arr in (("inv_norm_tiles", packed.inv_norm_tiles),
                        ("denorm_tiles", packed.denorm_tiles)):
         if _trailing(arr.shape, 3) != (T, 1, packed.bn):
@@ -286,24 +307,42 @@ def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
 
     # the kernel's CSR offsets: column block j owns [col_start[j],
     # col_start[j+1]); a stale or corrupt table would skip or repeat tiles
-    want = col_block_offsets(packed.col_block)
-    have = None if packed.col_start is None \
-        else [int(v) for v in packed.col_start.tolist()]
+    want = None if packed.transpose else col_block_offsets(packed.col_block)
+    have = _ints(packed.col_start)
     if have != want:
         raise ChipVerifyError(
             "pack", "col-offsets",
             f"col_start {have} disagrees with col_block (expected {want})",
             layer=name)
-    if [int(v) for v in packed.row_index.tolist()] != list(packed.row_block):
+    if _ints(packed.row_index) != list(packed.row_block):
         raise ChipVerifyError(
             "pack", "col-offsets",
             "row_index disagrees with row_block", layer=name)
+    want_slots = list(packed.tile_slot) if packed.transpose else None
+    if _ints(packed.tile_index) != want_slots:
+        raise ChipVerifyError(
+            "pack", "col-offsets",
+            f"tile_index disagrees with tile_slot (expected {want_slots})",
+            layer=name)
 
+    # the run tables the scheduled and transposed kernels walk: a stale
+    # table would skip, repeat or misorder runs
+    for tname, want_t in zip(("run_start", "col_run_start", "col_runs"),
+                             run_tables(packed.out_slot, packed.out_col,
+                                        packed.n_col_blocks)):
+        if _ints(getattr(packed, tname)) != want_t:
+            raise ChipVerifyError(
+                "pack", "run-offsets",
+                f"{tname} disagrees with out_slot / out_col (expected "
+                f"{want_t})", layer=name)
+
+    kernel = packed.route()
     bm_eff = block_rows(_DEFAULT_BM if bm is None else max(int(bm), 1))
-    if shared_bytes(bm_eff) > SMEM_LIMIT:
+    need = shared_bytes(kernel, bm_eff)
+    if need > SMEM_LIMIT:
         raise ChipVerifyError(
             "pack", "shared-memory",
-            f"one CUDA block needs {shared_bytes(bm_eff)} bytes of shared "
+            f"one CUDA block of {kernel} needs {need} bytes of shared "
             f"memory at {bm_eff} rows but a Hopper block has {SMEM_LIMIT}",
             layer=name)
 
@@ -322,6 +361,8 @@ def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
             "kernel's FP64 tile dot would round, and its counts could "
             "differ from the plain version's at .5 boundaries", layer=name)
     g_max = float(gd.abs().max()) if gd.numel() else 0.0
+    # bk is the dot length of either route: a transpose plan's bk is the
+    # stored tile's column count
     if packed.bk * _IN_MAX_LIMIT * g_max >= 2.0 ** 30:
         raise ChipVerifyError(
             "pack", "exact-dot",
@@ -331,6 +372,42 @@ def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
 
 
 # --------------------------------------------------- chip-level invariants
+
+def check_directions(name: str, fwd: PackedPlan, bwd: PackedPlan) -> None:
+    """Verify a transpose-direction pack against its forward pack: shared
+    conductance stack by identity, swapped geometry, slot-for-slot
+    agreement through the cross-direction tile_slot permutation."""
+    if bwd.gd_tiles is not fwd.gd_tiles:
+        raise ChipVerifyError(
+            "chip", "shared-stack",
+            "transpose pack carries its own gd_tiles stack instead of "
+            "referencing the forward stack: one programmed conductance set "
+            "must serve both directions", layer=name)
+    if not bwd.transpose or fwd.transpose:
+        raise ChipVerifyError(
+            "chip", "direction-agreement",
+            f"direction flags wrong (fwd.transpose={fwd.transpose}, "
+            f"bwd.transpose={bwd.transpose})", layer=name)
+    if (bwd.bk, bwd.bn) != (fwd.bn, fwd.bk) \
+            or (bwd.n_rows, bwd.n_cols) != (fwd.n_cols, fwd.n_rows):
+        raise ChipVerifyError(
+            "chip", "direction-agreement",
+            f"transpose geometry not the forward swap: bwd "
+            f"{(bwd.bk, bwd.bn, bwd.n_rows, bwd.n_cols)} vs fwd "
+            f"{(fwd.bk, fwd.bn, fwd.n_rows, fwd.n_cols)}", layer=name)
+    if bwd.n_passes != fwd.n_passes or bwd.seq_slot != fwd.seq_slot:
+        raise ChipVerifyError(
+            "chip", "direction-agreement",
+            "transpose pack's pass structure diverges from the forward "
+            f"pack ({bwd.n_passes} vs {fwd.n_passes} passes)", layer=name)
+    want_row = tuple(fwd.col_block[g] for g in bwd.tile_slot)
+    want_col = tuple(fwd.row_block[g] for g in bwd.tile_slot)
+    if bwd.row_block != want_row or bwd.col_block != want_col:
+        raise ChipVerifyError(
+            "chip", "direction-agreement",
+            "transpose block maps are not the forward maps gathered "
+            "through tile_slot (slot-for-slot agreement broken)", layer=name)
+
 
 def verify_chip(chip):
     """Run every verifier pass over a CompiledChip; returns the chip,
@@ -350,20 +427,36 @@ def verify_chip(chip):
                 f"{pcl.packed.pass_len}) disagrees with the stage-2 "
                 f"schedule ({sched.n_passes} x {sched.pass_len})",
                 layer=name)
+    if chip.bwd_layers:
+        if set(chip.bwd_layers) != set(chip.layers):
+            raise ChipVerifyError(
+                "chip", "direction-keys",
+                f"bwd layer names {sorted(chip.bwd_layers)} != fwd names "
+                f"{sorted(chip.layers)}")
+        for name, pcl in chip.bwd_layers.items():
+            check_packed(pcl.packed, layer=name)
+            check_directions(name, chip.layers[name].packed, pcl.packed)
     return chip
 
 
 def verify_deployed(tree):
-    """Verify every PackedPlan reachable in a deployed params tree (dicts,
-    lists and tuples, as the port's deploys build them); returns the tree.
-    """
+    """Verify every chip artifact reachable in a deployed tree (dicts,
+    lists, tuples and dataclasses, as the port's deploys build them):
+    CompiledChips get `verify_chip`, PackedPlans `check_packed`. Returns
+    the tree."""
+    from .cim import CompiledChip        # cim imports this module
     stack = [tree]
     while stack:
         node = stack.pop()
         if isinstance(node, PackedPlan):
             check_packed(node)
+        elif isinstance(node, CompiledChip):
+            verify_chip(node)
         elif isinstance(node, dict):
             stack.extend(node.values())
         elif isinstance(node, (list, tuple)):
             stack.extend(node)
+        elif dataclasses.is_dataclass(node) and not isinstance(node, type):
+            stack.extend(getattr(node, f.name)
+                         for f in dataclasses.fields(node))
     return tree

@@ -1,2 +1,3 @@
 """Synthetic data of the port."""
-from .synthetic import lm_tokens  # noqa: F401
+from .synthetic import (binary_patterns, corrupt_flip,  # noqa: F401
+                        corrupt_occlude, lm_tokens)

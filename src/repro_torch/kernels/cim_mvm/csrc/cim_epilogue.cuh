@@ -1,0 +1,140 @@
+// Shared device code of the NeuRRAM CIM MVM kernels for Hopper (sm_90a):
+// the ADC epilogue, the stochastic neuron with its hash PRNG, and the
+// forward tile dot. Included by cim_mvm_packed.cu, cim_mvm_scheduled.cu
+// and cim_mvm_transposed.cu.
+//
+// Ports repro/kernels/cim_mvm/kernel.py `_epilogue`, `_acc_weight` and
+// `_pwl_tanh`, and repro/kernels/prng.py `hash_bits` / `hash_uniform`.
+// Every f32 step is one IEEE rounding written out (__fmul_rn, __fadd_rn,
+// __fdiv_rn), so no multiply-add contracts and the results equal the
+// plain PyTorch versions in kernel.py bit for bit.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cim {
+
+constexpr int kThreads = 128;  // output columns per block (one per thread)
+constexpr int kChunk = 128;    // x columns staged per shared-memory pass
+
+enum Activation { kNone = 0, kRelu = 1, kTanh = 2, kSigmoid = 3,
+                  kIdentity = 4, kStochastic = 5 };
+
+// Mirrors kernel.Epilogue (ctypes) field for field.
+struct Epilogue {
+  int act;
+  float v_read, n_max, n_max4;
+  float k0, k1, k2, st0, st1, st2;  // PWL tanh knots (f32, as the reference)
+  uint32_t seed;                    // stochastic: the reference's seed salt
+  int bm_ref;                       // stochastic: the reference's batch block
+};
+
+// Murmur3 finalizer (prng._mix), in uint32 wraparound.
+__device__ __forceinline__ uint32_t hash_mix(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+// prng.hash_bits at (row, col) with three salts (seed, row block, tile).
+__device__ __forceinline__ uint32_t hash_bits(uint32_t row, uint32_t col,
+                                              uint32_t s0, uint32_t s1,
+                                              uint32_t s2) {
+  uint32_t h = row * 0x9E3779B9u + col * 0x7F4A7C15u;
+  h = hash_mix(h + s0 * 0x6C62272Eu);
+  h = hash_mix(h + s1 * 0x6C622730u);
+  h = hash_mix(h + s2 * 0x6C622732u);
+  return hash_mix(h);
+}
+
+// ADC charge-decrement count with the fused activation (not stochastic).
+__device__ __forceinline__ float adc(float q, float vd, const Epilogue& e) {
+  if (e.act == kIdentity) return q;
+  const float sign = (float)((q > 0.f) - (q < 0.f));
+  const float steps = floorf(__fadd_rn(__fdiv_rn(fabsf(q), vd), 0.5f));
+  if (e.act == kRelu) return __fmul_rn(fminf(steps, e.n_max), sign > 0.f ? 1.f : 0.f);
+  if (e.act == kTanh || e.act == kSigmoid) {
+    const float s = fminf(steps, e.n_max4);
+    float o;
+    if (s <= e.st0)      o = s;
+    else if (s <= e.st1) o = __fadd_rn(e.k0, __fmul_rn(__fsub_rn(s, e.st0), 0.5f));
+    else if (s <= e.st2) o = __fadd_rn(e.k1, __fdiv_rn(__fsub_rn(s, e.st1), 3.0f));
+    else                 o = __fadd_rn(e.k2, __fmul_rn(__fsub_rn(s, e.st2), 0.25f));
+    float out = __fmul_rn(sign, fminf(floorf(o), e.n_max));
+    if (e.act == kSigmoid) out = floorf(__fmul_rn(__fadd_rn(out, e.n_max), 0.5f));
+    return out;
+  }
+  return __fmul_rn(sign, fminf(steps, e.n_max));
+}
+
+// One tile's contribution to one output: the count times its digital
+// accumulation weight. row: the output's row in x; col: its column inside
+// the tile's output block; tile: the hash's tile salt (the slot, or the
+// stack position for the transposed kernel). The stochastic neuron emits
+// the comparator bit of q plus uniform noise in +-(vd * n_max), weighted
+// by the valid-column mask (inv > 0), as the reference's `_acc_weight`.
+__device__ __forceinline__ float tile_term(float q, float vd, float inv,
+                                           float den, int row, int col,
+                                           int tile, const Epilogue& e) {
+  if (e.act != kStochastic) return __fmul_rn(adc(q, vd, e), den);
+  const uint32_t bits = hash_bits((uint32_t)(row % e.bm_ref), (uint32_t)col,
+                                  e.seed, (uint32_t)(row / e.bm_ref),
+                                  (uint32_t)tile);
+  const float u01 = __fmul_rn(__uint2float_rn(bits), 2.3283064365386963e-10f);
+  const float u = __fsub_rn(__fmul_rn(u01, 2.f), 1.f);
+  const float bit = __fadd_rn(q, __fmul_rn(u, __fmul_rn(vd, e.n_max))) > 0.f ? 1.f : 0.f;
+  return inv > 0.f ? bit : 0.f;
+}
+
+// acc[r] = sum_k x[m0 + r, kbase + k] * g[k * bn] over the tile's bk rows,
+// in FP64: x holds integers (|x| <= 127) and gd is a multiple of 2^-23
+// below 2^6, so every partial sum is exact (the verifier's `exact-dot`)
+// and the order does not matter. The x chunk, read by every thread of the
+// block, is staged in shared memory; each gd element has one reader and is
+// read straight from global memory (neighbouring threads, neighbouring
+// columns: coalesced). Every thread of the block must call this.
+template <int BM>
+__device__ __forceinline__ void fwd_tile_dot(double (*xs)[BM + 2],
+                                             const float* __restrict__ x,
+                                             int M, int K, int m0, int kbase,
+                                             const float* __restrict__ g,
+                                             int bk, int bn, bool live,
+                                             double (&acc)[BM]) {
+#pragma unroll
+  for (int r = 0; r < BM; ++r) acc[r] = 0.0;
+  for (int k0 = 0; k0 < bk; k0 += kChunk) {
+    const int kc = min(kChunk, bk - k0);
+    __syncthreads();  // the previous chunk is fully consumed
+    for (int i = threadIdx.x; i < BM * kChunk; i += kThreads) {
+      const int r = i / kChunk, k = i % kChunk;
+      const int row = m0 + r, col = kbase + k0 + k;
+      xs[k][r] = (row < M && k < kc && col < K) ? (double)x[(size_t)row * K + col] : 0.0;
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll 8
+      for (int k = 0; k < kc; ++k) {
+        const double gv = (double)__ldg(g + (size_t)(k0 + k) * bn);
+#pragma unroll
+        for (int r = 0; r < BM; r += 2) {
+          const double2 xv = *reinterpret_cast<const double2*>(&xs[k][r]);
+          acc[r] = fma(xv.x, gv, acc[r]);
+          acc[r + 1] = fma(xv.y, gv, acc[r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Static shared memory of a kernel instantiation (-1 on error).
+template <typename Kernel>
+int static_shared_bytes(Kernel kernel) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
+  return (int)attr.sharedSizeBytes;
+}
+
+}  // namespace cim

@@ -5,7 +5,7 @@
 // `_acc_weight` and `_pwl_tanh`): a single-pass tile plan of one layer,
 //   q      = x[:, row_block[t]] @ gd_tiles[t] * v_read * inv_norm[t]
 //   counts = ADC epilogue of q (charge-decrement rounding + activation)
-//   out[:, col_block[t]] += counts * denorm[t]      in slot order.
+//   out[:, col_block[t]] += counts * weight[t]      in slot order.
 //
 // What bounds it: at decode (M = 4 rows) every gd_tiles element is read
 // once and used for M multiply-adds, so the kernel is bound by the bytes
@@ -15,71 +15,29 @@
 //
 // What the design does about it (simple and right first):
 //   * grid (row blocks of BM, output column blocks x column sub-blocks of
-//     128), BM = 4 for M <= 4 (decode) and 32 above: a block owns BM x 128 outputs of one column block and loops
-//     over that block's tiles [col_start[j], col_start[j+1]) in slot
-//     order, the reference's accumulation order. The sum stays in
-//     registers and is written once: no zero-init pass, no atomics, no
-//     reduction across blocks.
-//   * one thread per output column: neighbouring threads read neighbouring
-//     gd elements (coalesced), and each gd element is used BM times from a
-//     register. Each element is used by exactly one thread, so gd is read
-//     straight from global memory with the k loop unrolled to keep several
-//     loads in flight; the x chunk, which every thread of the block reads,
-//     is staged in shared memory ([k][BM + 2] doubles: broadcast 16-byte
-//     reads, padded against bank conflicts on the transposing store).
-//   * the dot is EXACT: x holds integers (|x| <= 127) and G+ - G- of
-//     conductances >= g_min = 1 uS is a multiple of 2^-23 below 2^6, so
-//     every product and partial sum of a tile (<= 256 rows) is a multiple
-//     of 2^-23 below 2^21 and fits a double. The chip verifier
-//     (core/verify.py, invariant `exact-dot`) checks this of every packed
-//     plan before it is served. The FP64 sum is therefore the
-//     same in any order, and its one rounding to f32 is the correctly
-//     rounded dot: the plain version (an FP64 batched matmul) agrees bit
-//     for bit, where two f32 summation orders would disagree near the .5
-//     count boundaries.
-//   * the rest follows the reference exactly: the epilogue and `out +=
-//     counts * denorm` use __fmul_rn / __fadd_rn / __fdiv_rn, so no
-//     multiply-add contracts and the division is IEEE; sign is (q > 0) -
-//     (q < 0), as jnp.sign.
+//     128), BM = 4 for M <= 4 (decode) and 32 above: a block owns BM x 128
+//     outputs of one column block and loops over that block's tiles
+//     [col_start[j], col_start[j+1]) in slot order, the reference's
+//     accumulation order. The sum stays in registers and is written once:
+//     no zero-init pass, no atomics, no reduction across blocks.
+//   * one thread per output column; the tile dot (cim_epilogue.cuh
+//     `fwd_tile_dot`) stages the x chunk in shared memory ([k][BM + 2]
+//     doubles: broadcast 16-byte reads, padded against bank conflicts on
+//     the transposing store) and reads gd straight from global memory.
+//   * the dot is EXACT in FP64 (see `fwd_tile_dot`), so its one rounding
+//     to f32 is the correctly rounded dot and the plain version (an FP64
+//     batched matmul) agrees bit for bit.
+//   * the epilogue and `out += counts * weight` follow the reference
+//     operation by operation (cim_epilogue.cuh `tile_term`).
 //   * ragged rows (M not a multiple of BM) and ragged columns (bn not a
 //     multiple of 128) are masked, not padded.
-// Shared memory per block: K_CHUNK * (BM + 2) * 8 bytes, at most 34,816
+// Shared memory per block: kChunk * (BM + 2) * 8 bytes, at most 34,816
 // (BM = 32): static, under the 48 KB default.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cim_epilogue.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // output columns per block (one per thread)
-constexpr int kChunk = 128;    // x columns staged per shared-memory pass
-
-enum Activation { kNone = 0, kRelu = 1, kTanh = 2, kSigmoid = 3,
-                  kIdentity = 4 };
-
-struct Epilogue {
-  int act;
-  float v_read, n_max, n_max4;
-  float k0, k1, k2, st0, st1, st2;  // PWL tanh knots (f32, as the reference)
-};
-
-__device__ __forceinline__ float adc(float q, float vd, const Epilogue& e) {
-  if (e.act == kIdentity) return q;
-  const float sign = (float)((q > 0.f) - (q < 0.f));
-  const float steps = floorf(__fadd_rn(__fdiv_rn(fabsf(q), vd), 0.5f));
-  if (e.act == kRelu) return __fmul_rn(fminf(steps, e.n_max), sign > 0.f ? 1.f : 0.f);
-  if (e.act == kTanh || e.act == kSigmoid) {
-    const float s = fminf(steps, e.n_max4);
-    float o;
-    if (s <= e.st0)      o = s;
-    else if (s <= e.st1) o = __fadd_rn(e.k0, __fmul_rn(__fsub_rn(s, e.st0), 0.5f));
-    else if (s <= e.st2) o = __fadd_rn(e.k1, __fdiv_rn(__fsub_rn(s, e.st1), 3.0f));
-    else                 o = __fadd_rn(e.k2, __fmul_rn(__fsub_rn(s, e.st2), 0.25f));
-    float out = __fmul_rn(sign, fminf(floorf(o), e.n_max));
-    if (e.act == kSigmoid) out = floorf(__fmul_rn(__fadd_rn(out, e.n_max), 0.5f));
-    return out;
-  }
-  return __fmul_rn(sign, fminf(steps, e.n_max));
-}
+using namespace cim;
 
 template <int BM>
 __global__ void __launch_bounds__(kThreads)
@@ -104,34 +62,9 @@ cim_mvm_packed_kernel(const float* __restrict__ x, int M, int K,
 
   const int t_end = col_start[cb + 1];
   for (int t = col_start[cb]; t < t_end; ++t) {
-    const int kbase = row_block[t] * bk;
-    const float* g = gd + (size_t)t * bk * bn + c;
     double acc[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) acc[r] = 0.0;
-
-    for (int k0 = 0; k0 < bk; k0 += kChunk) {
-      const int kc = min(kChunk, bk - k0);
-      __syncthreads();  // the previous chunk is fully consumed
-      for (int i = threadIdx.x; i < BM * kChunk; i += kThreads) {
-        const int r = i / kChunk, k = i % kChunk;
-        const int row = m0 + r, col = kbase + k0 + k;
-        xs[k][r] = (row < M && k < kc && col < K) ? (double)x[(size_t)row * K + col] : 0.0;
-      }
-      __syncthreads();
-      if (live) {
-#pragma unroll 8
-        for (int k = 0; k < kc; ++k) {
-          const double gv = (double)__ldg(g + (size_t)(k0 + k) * bn);
-#pragma unroll
-          for (int r = 0; r < BM; r += 2) {
-            const double2 xv = *reinterpret_cast<const double2*>(&xs[k][r]);
-            acc[r] = fma(xv.x, gv, acc[r]);
-            acc[r + 1] = fma(xv.y, gv, acc[r + 1]);
-          }
-        }
-      }
-    }
+    fwd_tile_dot<BM>(xs, x, M, K, m0, row_block[t] * bk,
+                     gd + (size_t)t * bk * bn + c, bk, bn, live, acc);
     if (live) {
       const float inv = inv_norm[(size_t)t * bn + c];
       const float w = denorm[(size_t)t * bn + c];
@@ -139,7 +72,7 @@ cim_mvm_packed_kernel(const float* __restrict__ x, int M, int K,
 #pragma unroll
       for (int r = 0; r < BM; ++r) {
         const float q = __fmul_rn(__fmul_rn(__double2float_rn(acc[r]), e.v_read), inv);
-        total[r] = __fadd_rn(total[r], __fmul_rn(adc(q, vd, e), w));
+        total[r] = __fadd_rn(total[r], tile_term(q, vd, inv, w, m0 + r, c, t, e));
       }
     }
   }
@@ -164,14 +97,6 @@ cudaError_t launch(const float* x, int M, int K, const float* gd,
   return cudaGetLastError();
 }
 
-template <int BM>
-int shared_bytes() {
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, cim_mvm_packed_kernel<BM>) != cudaSuccess)
-    return -1;
-  return (int)attr.sharedSizeBytes;
-}
-
 }  // namespace
 
 extern "C" {
@@ -181,15 +106,12 @@ int cim_mvm_packed_launch(const float* x, int M, int K, const float* gd,
                           const float* inv_norm, const float* denorm,
                           const float* v_decr, const int* row_block,
                           const int* col_start, int n_col_blocks, int bk,
-                          int bn, float* out, int activation, float v_read,
-                          float n_max, float n_max4, float k0, float k1,
-                          float k2, float st0, float st1, float st2, int bm,
+                          int bn, float* out, const cim::Epilogue* e, int bm,
                           void* stream) {
-  const Epilogue e{activation, v_read, n_max, n_max4, k0, k1, k2, st0, st1, st2};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bm) {
-    case 4:  return launch<4>(x, M, K, gd, inv_norm, denorm, v_decr, row_block, col_start, n_col_blocks, bk, bn, out, e, s);
-    case 32: return launch<32>(x, M, K, gd, inv_norm, denorm, v_decr, row_block, col_start, n_col_blocks, bk, bn, out, e, s);
+    case 4:  return launch<4>(x, M, K, gd, inv_norm, denorm, v_decr, row_block, col_start, n_col_blocks, bk, bn, out, *e, s);
+    case 32: return launch<32>(x, M, K, gd, inv_norm, denorm, v_decr, row_block, col_start, n_col_blocks, bk, bn, out, *e, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -197,8 +119,8 @@ int cim_mvm_packed_launch(const float* x, int M, int K, const float* gd,
 // Static shared memory of the instantiation for `bm` rows (-1 on error).
 int cim_mvm_packed_shared_bytes(int bm) {
   switch (bm) {
-    case 4:  return shared_bytes<4>();
-    case 32: return shared_bytes<32>();
+    case 4:  return cim::static_shared_bytes(cim_mvm_packed_kernel<4>);
+    case 32: return cim::static_shared_bytes(cim_mvm_packed_kernel<32>);
     default: return -1;
   }
 }

@@ -1,19 +1,43 @@
-"""The packed whole-layer CIM MVM: a hand-written CUDA kernel for Hopper and
-its plain PyTorch version (port of
-`repro/kernels/cim_mvm/kernel.py::cim_mvm_packed_pallas`).
+"""The whole-layer CIM MVM kernels: hand-written CUDA kernels for Hopper and
+their plain PyTorch versions (port of `repro/kernels/cim_mvm/kernel.py`).
 
-A single-pass tile plan (core/mapping.PackedPlan) executes as one launch:
-for every tile t, in slot order,
+Three kernels execute a packed tile plan (core/mapping.PackedPlan) in one
+launch each; for every output column block j and every tile t of j, in the
+reference's order,
 
-    q      = x[:, row_block[t]] @ gd_tiles[t] * v_read * inv_norm[t]
-    counts = epilogue(q)         ADC charge-decrement count + activation
-    out[:, col_block[t]] += counts * denorm[t]
+    q      = x[:, in_block[t]] @ tile(t) * v_read * inv_norm[t]
+    counts = epilogue(q)          ADC charge-decrement count + activation
+    out[:, j] += counts * weight[t]
 
-`cim_mvm_packed` is the wrapper: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel (`csrc/cim_mvm_packed.cu`) or raises —
-nothing falls back. The kernel is compiled with nvcc at first use into
-`build/kernels/` and bound with ctypes (a plain C entry point, no torch
-headers). `LAUNCHES` counts kernel launches, and only those.
+  * `cim_mvm_packed` (replaces `cim_mvm_packed_pallas`): single-pass plans;
+    column block j's tiles are the slot range [col_start[j],
+    col_start[j+1]), summed left to right.
+  * `cim_mvm_scheduled` (replaces `cim_mvm_scheduled_pallas`): merged-core
+    plans on the pass-major slot order. Each fused RUN (a stretch of
+    consecutive slots of one column block) sums its slots into a partial
+    from zero, and column block j folds its live runs in run order — the
+    reference's in-kernel run accumulation followed by `_fold_runs`.
+    Idle runs (`out_col == -1`) are never read.
+  * `cim_mvm_transposed` (replaces `cim_mvm_transposed_pallas`): the
+    BL->SL direction over the SHARED forward stack: slot t reads
+    gd_tiles[tile_slot[t]] contracted on its stored column axis, with the
+    direction's per-row normalizer; runs fold as in the scheduled kernel.
+
+The epilogue is the reference's `_epilogue` (none, relu, tanh, sigmoid,
+identity, stochastic) and the weight its `_acc_weight`: the plan's denorm,
+or the valid-column mask (inv_norm > 0) for stochastic comparator bits.
+The stochastic neuron draws `hash_uniform` (kernels/prng.py) at the
+reference's coordinates: row r % bm_ref, column inside the tile's output
+block, salts (seed, r // bm_ref, j) with j the slot (the stack position
+for the transposed kernel) and bm_ref = min(256, M), the reference's
+default batch block.
+
+Each wrapper takes the plain version for a CPU tensor and launches its
+kernel (`csrc/*.cu`) for a CUDA tensor, or raises — nothing falls back.
+The kernels are compiled with nvcc at first use into `build/kernels/`, one
+library per source, all built in parallel, and bound with ctypes (plain C
+entry points, no torch headers). `LAUNCHES` counts each kernel's launches,
+and only those.
 """
 from __future__ import annotations
 
@@ -23,21 +47,30 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 import torch
 
-LAUNCHES = 0          # kernel launches made by `cim_mvm_packed`
+from ..prng import bits_to_uniform, hash_bits_at
 
-ACTIVATIONS = {"none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "identity": 4}
-K_CHUNK = 128         # x columns staged per shared-memory pass
+KERNELS = ("cim_mvm_packed", "cim_mvm_scheduled", "cim_mvm_transposed")
+LAUNCHES = {name: 0 for name in KERNELS}   # kernel launches, per kernel
+
+ACTIVATIONS = {"none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "identity": 4,
+               "stochastic": 5}
+K_CHUNK = 128         # x columns staged per shared-memory pass (forward)
+T_CHUNK = 32          # tile columns staged per pass (transposed kernel)
+THREADS = 128         # output columns per CUDA block
 BLOCK_ROWS = (4, 32)  # decode (M <= 4) and prefill row blocks
 SMEM_LIMIT = 232_448  # shared memory a Hopper block can use, bytes
+HASH_BM = 256         # the reference's default batch block (autotune.py)
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "cim_mvm_packed.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_HEADERS = ("cim_epilogue.cuh",)
 _REPO = Path(__file__).resolve().parents[4]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-_lib = None
+_lib: Dict[str, ctypes.CDLL] = {}
 
 
 def block_rows(m: int) -> int:
@@ -46,10 +79,13 @@ def block_rows(m: int) -> int:
     return next((b for b in BLOCK_ROWS if b >= m), BLOCK_ROWS[-1])
 
 
-def shared_bytes(bm: int) -> int:
-    """Static shared memory of one block at `bm` rows: the staged x chunk,
-    [K_CHUNK][bm + 2] doubles (checked against the built kernel's own
-    attribute when the library loads)."""
+def shared_bytes(kernel: str, bm: int) -> int:
+    """Static shared memory of one block of `kernel` at `bm` rows: the
+    staged x chunk, [chunk][bm + 2] doubles, and for the transposed kernel
+    the staged tile chunk, [THREADS][T_CHUNK + 1] floats (checked against
+    the built kernels' own attributes when the libraries load)."""
+    if kernel == "cim_mvm_transposed":
+        return T_CHUNK * (bm + 2) * 8 + THREADS * (T_CHUNK + 1) * 4
     return K_CHUNK * (bm + 2) * 8
 
 
@@ -75,10 +111,13 @@ def _pwl_tanh(steps, n_max: float):
     return torch.clamp(torch.floor(out), max=n_max)
 
 
-def _epilogue(q, vd, activation: str, n_max: int):
-    """ADC epilogue of the reference kernel; vd broadcasts against q."""
+def _epilogue(q, vd, activation: str, n_max: int, u=None):
+    """ADC epilogue of the reference kernel; vd broadcasts against q. u:
+    the stochastic neuron's uniform draws in [0, 1], shaped like q."""
     if activation == "identity":
         return q                   # raw charge passthrough (exact matmul)
+    if activation == "stochastic":
+        return (q + (u * 2.0 - 1.0) * (vd * n_max) > 0).to(torch.float32)
     sign = torch.sign(q)
     steps = torch.floor(torch.abs(q) / vd + 0.5)
     if activation == "relu":
@@ -92,133 +131,230 @@ def _epilogue(q, vd, activation: str, n_max: int):
     return sign * torch.clamp(steps, max=float(n_max))
 
 
-def _rank_tiles(col_start, n_ranks: int):
-    """(n_ranks, n_col_blocks) slot of each column block's r-th tile, and
-    whether that tile exists (column blocks may hold unequal counts)."""
-    start, end = col_start[:-1].long(), col_start[1:].long()
-    r = torch.arange(n_ranks, device=col_start.device)[:, None]
-    slot = start[None, :] + r
-    return torch.minimum(slot, (end - 1).clamp(min=0)[None, :]), slot < end
-
-
-def _x_blocks(x, n_row_blocks: int, bk: int):
-    """(M, K) -> (n_row_blocks, M, bk), zero-padded at the ragged edge."""
+def _x_blocks(x, n_in_blocks: int, width: int):
+    """(M, K) -> (n_in_blocks, M, width), zero-padded at the ragged edge."""
     m, k = x.shape
-    xp = torch.nn.functional.pad(x, (0, n_row_blocks * bk - k))
-    return xp.reshape(m, n_row_blocks, bk).permute(1, 0, 2)
+    xp = torch.nn.functional.pad(x, (0, n_in_blocks * width - k))
+    return xp.reshape(m, n_in_blocks, width).permute(1, 0, 2)
 
 
-def cim_mvm_packed_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles,
-                         v_decr_tiles, row_index, col_start, *,
-                         n_row_blocks: int, n_ranks: int, activation: str,
-                         n_max: int, v_read: float):
-    """The plain PyTorch version: vectorised over column blocks, looping
-    over the row-split rank, so each column block folds its tiles left to
-    right in slot order, as the kernel does. Each tile's dot is an FP64
-    batched matmul rounded once to f32 — exact for integer x and
-    conductance-difference tiles, so it is the kernel's dot bit for bit.
-    Returns (M, n_col_blocks*bn)."""
+def _walk(tables, n_run_ranks: int, n_run_len: int):
+    """The kernels' order over one layer, vectorised over output column
+    blocks: for run rank k of each column block and slot rank s inside
+    that run, in that order, yields (s, slot, slot_valid, run_valid); slot
+    is (n_cb,) clamped in range, slot_valid / run_valid (n_cb,) bool."""
+    run_start, col_run_start, col_runs = (t.long() for t in tables)
+    n_slots = int(run_start[-1])
+    lo, hi = col_run_start[:-1], col_run_start[1:]
+    for k in range(n_run_ranks):
+        kr = lo + k
+        run_valid = kr < hi
+        run = col_runs[torch.clamp(kr, max=max(col_runs.numel() - 1, 0))] \
+            if col_runs.numel() else torch.zeros_like(kr)
+        for s in range(n_run_len):
+            slot = run_start[run] + s
+            valid = run_valid & (slot < run_start[run + 1])
+            yield s, torch.clamp(slot, max=n_slots - 1), valid, run_valid
+
+
+def _dot(xb, gd_tiles, in_index, slot, stack, transpose: bool):
+    """Each column block's tile dot at `slot`, in FP64 (exact for integer x
+    and conductance-difference tiles, so it is the kernel's dot bit for
+    bit), rounded once to f32."""
+    g = gd_tiles[stack[slot].long() if stack is not None else slot]
+    g = g.to(torch.float64)
+    if transpose:
+        g = g.transpose(1, 2)
+    return torch.bmm(xb[in_index[slot].long()], g).to(torch.float32)
+
+
+def _uniform(q_shape, m: int, slot_salt, seed: int, device):
+    """The stochastic draws of one (n_cb, M, bn) step at the reference's
+    hash coordinates (see the module docstring)."""
+    bm = min(HASH_BM, m)
+    rows = torch.arange(m, device=device)[None, :, None]
+    cols = torch.arange(q_shape[-1], device=device)[None, None, :]
+    bits = hash_bits_at(rows % bm, cols, seed, rows // bm,
+                        slot_salt.long()[:, None, None])
+    return bits_to_uniform(bits)
+
+
+def cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
+                   in_index, run_start, col_run_start, col_runs, *,
+                   tile_index=None, n_run_ranks: int, n_run_len: int,
+                   activation: str, n_max: int, v_read: float,
+                   seed: int = 0):
+    """The plain PyTorch version of all three kernels: vectorised over
+    output column blocks, looping over run rank and slot rank, so each
+    block sums every run's slots from zero in slot order and folds the
+    runs in run order, as the kernels do. tile_index (transposed plans):
+    slot -> stack position, the tile is read transposed and j of the hash
+    is its stack position. Returns (M, n_col_blocks * out_block)."""
     m = x.shape[0]
-    _, bk, bn = gd_tiles.shape
-    n_cb = col_start.shape[0] - 1
-    xb = _x_blocks(x.to(torch.float64), n_row_blocks, bk)
-    slots, valid = _rank_tiles(col_start, n_ranks)
-    out = torch.zeros((n_cb, m, bn), dtype=torch.float32, device=x.device)
-    for r in range(n_ranks):
-        t = slots[r]
-        dot = torch.bmm(xb[row_index[t].long()], gd_tiles[t].to(torch.float64))
-        q = dot.to(torch.float32) * v_read * inv_norm_tiles[t]
-        counts = _epilogue(q, v_decr_tiles[t][:, None, None], activation,
-                           n_max)
-        out = torch.where(valid[r][:, None, None],
-                          out + counts * denorm_tiles[t], out)
-    return out.permute(1, 0, 2).reshape(m, n_cb * bn)
+    transpose = tile_index is not None
+    _, rows_s, cols_s = gd_tiles.shape
+    width, out_w = (cols_s, rows_s) if transpose else (rows_s, cols_s)
+    n_cb = col_run_start.shape[0] - 1
+    n_in = int(in_index.max()) + 1 if in_index.numel() else 1
+    xb = _x_blocks(x.to(torch.float64), max(n_in, -(-x.shape[1] // width)),
+                   width)
+    total = torch.zeros((n_cb, m, out_w), dtype=torch.float32,
+                        device=x.device)
+    part = total
+    tables = (run_start, col_run_start, col_runs)
+    for s, slot, valid, run_valid in _walk(tables, n_run_ranks, n_run_len):
+        if s == 0:
+            part = torch.zeros_like(total)
+        q = _dot(xb, gd_tiles, in_index, slot, tile_index, transpose) \
+            * v_read * inv_norm_tiles[slot]
+        vd = v_decr_tiles[slot][:, None, None]
+        if activation == "stochastic":
+            salt = tile_index[slot] if transpose else slot
+            u = _uniform(q.shape, m, salt, seed, x.device)
+            term = _epilogue(q, vd, activation, n_max, u) \
+                * (inv_norm_tiles[slot] > 0).to(torch.float32)
+        else:
+            term = _epilogue(q, vd, activation, n_max) * denorm_tiles[slot]
+        part = torch.where(valid[:, None, None], part + term, part)
+        if s == n_run_len - 1:
+            total = torch.where(run_valid[:, None, None], total + part,
+                                total)
+    return total.permute(1, 0, 2).reshape(m, n_cb * out_w)
 
 
-def boundary_counts(x, gd_tiles, inv_norm_tiles, v_decr_tiles, row_index,
-                    col_start, *, n_row_blocks: int, n_ranks: int,
-                    v_read: float):
-    """For each output element, how many of its tiles put |q|/v_decr
-    within f32 rounding of a .5 boundary, where two correct f32
-    executions of the same dot may round to different ADC counts.
+def boundary_counts(x, gd_tiles, inv_norm_tiles, v_decr_tiles, in_index,
+                    run_start, col_run_start, col_runs, *, tile_index=None,
+                    n_run_ranks: int, n_run_len: int, v_read: float,
+                    activation: str = "none", n_max: int = 127,
+                    seed: int = 0):
+    """For each output element, how many of its tiles sit where two
+    correct f32 executions of the same dot may decide differently.
 
-    q is taken in float64. The band is the forward error bound of an f32
-    dot of bk terms followed by the two scalings, doubled because both
-    executions err: 2 * (bk + 2) * 2^-24 * (|x| @ |gd|) * v_read * |inv|,
-    over v_decr: wide enough for an f32 summation in any order (the
-    reference's), of which the port's exact dot is one. Returns int32
-    (M, n_col_blocks*bn)."""
+    q is taken in float64; its band is the forward error bound of an f32
+    dot of `width` terms followed by the two scalings, doubled because
+    both executions err: 2 * (width + 2) * 2^-24 * (|x| @ |gd|) * v_read
+    * |inv| — wide enough for an f32 summation in any order (the
+    reference's), of which the port's exact dot is one. A count is near
+    when |q| / v_decr lies within band / v_decr of a .5 boundary; a
+    stochastic bit when |q + u * v_decr * n_max| lies within the band plus
+    one rounding of the noise term. Returns int32 (M, n_cb * out_block)."""
     m = x.shape[0]
-    _, bk, bn = gd_tiles.shape
-    n_cb = col_start.shape[0] - 1
-    xb = _x_blocks(x.double(), n_row_blocks, bk)
-    slots, valid = _rank_tiles(col_start, n_ranks)
-    hits = torch.zeros((n_cb, m, bn), dtype=torch.int32, device=x.device)
-    u = 2.0 ** -24
-    for r in range(n_ranks):
-        t = slots[r]
-        xr = xb[row_index[t].long()]
-        g = gd_tiles[t].double()
-        inv = inv_norm_tiles[t].double()
-        vd = v_decr_tiles[t].double()[:, None, None]
-        v = (torch.bmm(xr, g) * v_read * inv).abs() / vd
-        band = 2 * (bk + 2) * u * torch.bmm(xr.abs(), g.abs()) * v_read \
-            * inv.abs() / vd
-        near = (v - (torch.floor(v) + 0.5)).abs() <= band
-        hits += (near & valid[r][:, None, None]).to(torch.int32)
-    return hits.permute(1, 0, 2).reshape(m, n_cb * bn)
+    transpose = tile_index is not None
+    _, rows_s, cols_s = gd_tiles.shape
+    width, out_w = (cols_s, rows_s) if transpose else (rows_s, cols_s)
+    n_cb = col_run_start.shape[0] - 1
+    n_in = int(in_index.max()) + 1 if in_index.numel() else 1
+    xb = _x_blocks(x.double(), max(n_in, -(-x.shape[1] // width)), width)
+    hits = torch.zeros((n_cb, m, out_w), dtype=torch.int32, device=x.device)
+    u32 = 2.0 ** -24
+    tables = (run_start, col_run_start, col_runs)
+    for _, slot, valid, _ in _walk(tables, n_run_ranks, n_run_len):
+        g = gd_tiles[tile_index[slot].long() if transpose else slot].double()
+        if transpose:
+            g = g.transpose(1, 2)
+        xr = xb[in_index[slot].long()]
+        inv = inv_norm_tiles[slot].double()
+        vd = v_decr_tiles[slot].double()[:, None, None]
+        q = torch.bmm(xr, g) * v_read * inv
+        band = 2 * (width + 2) * u32 * torch.bmm(xr.abs(), g.abs()) \
+            * v_read * inv.abs()
+        if activation == "stochastic":
+            salt = tile_index[slot] if transpose else slot
+            u = _uniform(q.shape, m, salt, seed, x.device).double()
+            noise = (u * 2.0 - 1.0) * (vd * n_max)
+            near = (q + noise).abs() <= band + 2 * u32 * noise.abs()
+        else:
+            v = q.abs() / vd
+            near = (v - (torch.floor(v) + 0.5)).abs() <= band / vd
+        hits += (near & valid[:, None, None]).to(torch.int32)
+    return hits.permute(1, 0, 2).reshape(m, n_cb * out_w)
 
 
-# ------------------------------------------------------------- CUDA kernel
+# ------------------------------------------------------------- CUDA kernels
+
+class Epilogue(ctypes.Structure):
+    """The kernels' `Epilogue` (csrc/cim_epilogue.cuh), field for field."""
+    _fields_ = [("act", ctypes.c_int), ("v_read", ctypes.c_float),
+                ("n_max", ctypes.c_float), ("n_max4", ctypes.c_float),
+                ("k0", ctypes.c_float), ("k1", ctypes.c_float),
+                ("k2", ctypes.c_float), ("st0", ctypes.c_float),
+                ("st1", ctypes.c_float), ("st2", ctypes.c_float),
+                ("seed", ctypes.c_uint32), ("bm_ref", ctypes.c_int)]
+
+
+def _epilogue_args(activation: str, n_max: int, v_read: float, seed: int,
+                   m: int) -> Epilogue:
+    return Epilogue(ACTIVATIONS[activation], v_read, float(n_max),
+                    4.0 * n_max, *pwl_knots(n_max), int(seed) & 0xFFFFFFFF,
+                    min(HASH_BM, m))
+
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: building the CUDA kernel needs "
+        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
                            "the CUDA toolkit")
     return path
 
 
-def build() -> Path:
-    """Compile csrc/cim_mvm_packed.cu into a shared library under
-    build/kernels/ (once per source content) and return its path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def build() -> Dict[str, Path]:
+    """Compile every csrc/<kernel>.cu into its own shared library under
+    build/kernels/ (once per source and header content), all nvcc runs
+    started together; returns kernel name -> library path."""
+    common = b"".join((_CSRC / h).read_bytes() for h in _HEADERS) \
+        + " ".join(NVCC_FLAGS).encode()
     out_dir = _REPO / "build" / "kernels"
-    lib = out_dir / f"cim_mvm_packed-{tag}.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    libs, procs = {}, {}
+    for name in KERNELS:
+        src = _CSRC / f"{name}.cu"
+        tag = hashlib.sha1(src.read_bytes() + common).hexdigest()[:12]
+        libs[name] = lib = out_dir / f"{name}-{tag}.so"
+        if lib.exists():
+            continue
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {name}.cu:\n{err}")
+        else:
+            os.replace(tmp, libs[name])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return libs
 
 
-def load():
-    """Build (at first use) and bind the kernel's C entry points."""
-    global _lib
-    if _lib is not None:
+def load() -> Dict[str, ctypes.CDLL]:
+    """Build (at first use) and bind every kernel's C entry points; checks
+    each kernel's static shared memory against the verifier's model."""
+    if _lib:
         return _lib
-    lib = ctypes.CDLL(str(build()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cim_mvm_packed_launch.argtypes = [
-        p, i, i, p, p, p, p, p, p, i, i, i, p, i,
-        f, f, f, f, f, f, f, f, f, i, p]
-    lib.cim_mvm_packed_launch.restype = i
-    lib.cim_mvm_packed_shared_bytes.argtypes = [i]
-    lib.cim_mvm_packed_shared_bytes.restype = i
-    for bm in BLOCK_ROWS:            # the verifier's shared-memory model
-        got = lib.cim_mvm_packed_shared_bytes(bm)
-        if got != shared_bytes(bm):
-            raise RuntimeError(
-                f"kernel uses {got} B of shared memory at bm={bm}, the "
-                f"verifier assumes {shared_bytes(bm)} B")
-    _lib = lib
-    return lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    n_tables = {"cim_mvm_packed": 2, "cim_mvm_scheduled": 4,
+                "cim_mvm_transposed": 5}
+    libs = {}
+    for name, path in build().items():
+        lib = ctypes.CDLL(str(path))
+        launch = getattr(lib, f"{name}_launch")
+        # x, M, K, gd, inv_norm, denorm, v_decr, the index tables,
+        # n_col_blocks, in width, out width, out, epilogue, bm, stream
+        launch.argtypes = ([p, i, i] + [p] * (4 + n_tables[name])
+                           + [i, i, i, p, ctypes.POINTER(Epilogue), i, p])
+        launch.restype = i
+        smem = getattr(lib, f"{name}_shared_bytes")
+        smem.argtypes, smem.restype = [i], i
+        for bm in BLOCK_ROWS:        # the verifier's shared-memory model
+            if smem(bm) != shared_bytes(name, bm):
+                raise RuntimeError(
+                    f"{name} uses {smem(bm)} B of shared memory at bm={bm}, "
+                    f"the verifier assumes {shared_bytes(name, bm)} B")
+        libs[name] = lib
+    _lib.update(libs)
+    return _lib
 
 
 def _check(name, t, dtype, shape, device):
@@ -233,74 +369,143 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_args(activation: str, impl: str):
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+
+
+def _launch(kernel: str, x, gd_tiles, tile_tensors, index_tensors, n_cb: int,
+            in_w: int, out_w: int, *, activation, n_max, v_read, seed):
+    """Check the plan's tensors, allocate the output and launch `kernel`
+    once on the current stream. tile_tensors: (inv_norm, denorm, v_decr);
+    index_tensors: the int32 tables in the C entry point's order."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {x.device}")
+    m, k = x.shape
+    n_tiles = gd_tiles.shape[0]
+    dev, f32, i32 = x.device, torch.float32, torch.int32
+    inv, den, vd = tile_tensors
+    _check("x", x, f32, (m, k), dev)
+    _check("gd_tiles", gd_tiles, f32, tuple(gd_tiles.shape), dev)
+    _check("inv_norm_tiles", inv, f32, (n_tiles, 1, out_w), dev)
+    _check("denorm_tiles", den, f32, (n_tiles, 1, out_w), dev)
+    _check("v_decr_tiles", vd, f32, (n_tiles,), dev)
+    for j, t in enumerate(index_tensors):
+        _check(f"index table {j}", t, i32, tuple(t.shape), dev)
+    lib = load()[kernel]
+    out = torch.empty((m, n_cb * out_w), dtype=f32, device=dev)
+    if m == 0:
+        return out
+    epi = _epilogue_args(activation, n_max, v_read, seed, m)
+    err = getattr(lib, f"{kernel}_launch")(
+        x.data_ptr(), m, k, gd_tiles.data_ptr(), inv.data_ptr(),
+        den.data_ptr(), vd.data_ptr(), *(t.data_ptr() for t in index_tensors),
+        n_cb, in_w, out_w, out.data_ptr(), ctypes.byref(epi), block_rows(m),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+    return out
+
+
 def cim_mvm_packed(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
                    row_index, col_start, *, n_row_blocks: int, n_ranks: int,
                    activation: str = "none", n_max: int = 127,
-                   v_read: float = 0.5, impl: str = "auto"):
-    """Whole-layer packed CIM MVM: ONE launch over every tile.
+                   v_read: float = 0.5, seed: int = 0, impl: str = "auto"):
+    """Whole-layer packed CIM MVM of a single-pass plan: ONE launch.
 
     x: (M, K) f32 integer-valued activations; gd_tiles: (T, bk, bn);
     inv_norm_tiles / denorm_tiles: (T, 1, bn); v_decr_tiles: (T,);
     row_index: (T,) int32 input block per slot; col_start: (n_cb + 1,)
-    int32 CSR offsets of each output column block's slots (the plan's
-    col_block must be non-decreasing). n_row_blocks / n_ranks: static
-    plan geometry (input blocks; most tiles in one column block).
-    Returns (M, n_cb * bn) f32.
+    int32 CSR offsets of each output column block's slots. n_row_blocks /
+    n_ranks: static plan geometry (input blocks; most tiles in one column
+    block). seed: the stochastic neuron's salt. Returns (M, n_cb * bn).
 
     impl: "auto" runs the plain version on a CPU tensor and launches the
     kernel on a CUDA tensor; "plain" forces the plain version (on-card
     comparison only).
     """
-    global LAUNCHES
-    if activation not in ACTIVATIONS:
-        if activation == "stochastic":
-            raise NotImplementedError(
-                "the stochastic neuron needs the hash PRNG in the kernel, "
-                "not ported yet (ROADMAP B3)")
-        raise ValueError(f"unknown activation {activation!r}")
+    _check_args(activation, impl)
     if col_start is None:
         raise ValueError("col_block is not non-decreasing: the packed "
                          "kernel needs each column block's tiles in one "
                          "contiguous slot range (a single-pass plan)")
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
-    args = (x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
-            row_index, col_start)
     if impl == "plain" or x.device.type == "cpu":
-        return cim_mvm_packed_plain(
-            *args, n_row_blocks=n_row_blocks, n_ranks=n_ranks,
-            activation=activation, n_max=n_max, v_read=v_read)
-    if x.device.type != "cuda":
-        raise ValueError(f"no packed CIM kernel for device {x.device}")
-
-    m, k = x.shape
-    n_tiles, bk, bn = gd_tiles.shape
-    n_cb = col_start.shape[0] - 1
-    dev = x.device
-    f32, i32 = torch.float32, torch.int32
-    _check("x", x, f32, (m, k), dev)
-    _check("gd_tiles", gd_tiles, f32, (n_tiles, bk, bn), dev)
-    _check("inv_norm_tiles", inv_norm_tiles, f32, (n_tiles, 1, bn), dev)
-    _check("denorm_tiles", denorm_tiles, f32, (n_tiles, 1, bn), dev)
-    _check("v_decr_tiles", v_decr_tiles, f32, (n_tiles,), dev)
-    _check("row_index", row_index, i32, (n_tiles,), dev)
-    _check("col_start", col_start, i32, (n_cb + 1,), dev)
-    if k > n_row_blocks * bk:
-        raise ValueError(f"x has {k} features, the plan covers "
+        # the run walk with one run per column block: the same sums in the
+        # same order
+        n_cb = col_start.shape[0] - 1
+        ar = torch.arange(n_cb + 1, dtype=torch.int32, device=x.device)
+        return cim_runs_plain(
+            x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
+            row_index, col_start, ar, ar[:-1], n_run_ranks=1,
+            n_run_len=n_ranks, activation=activation, n_max=n_max,
+            v_read=v_read, seed=seed)
+    _, bk, bn = gd_tiles.shape
+    if x.shape[1] > n_row_blocks * bk:
+        raise ValueError(f"x has {x.shape[1]} features, the plan covers "
                          f"{n_row_blocks * bk}")
-    lib = load()
-    out = torch.empty((m, n_cb * bn), dtype=f32, device=dev)
-    if m == 0:
-        return out
-    k0, k1, k2, st0, st1, st2 = pwl_knots(n_max)
-    err = lib.cim_mvm_packed_launch(
-        x.data_ptr(), m, k, gd_tiles.data_ptr(), inv_norm_tiles.data_ptr(),
-        denorm_tiles.data_ptr(), v_decr_tiles.data_ptr(),
-        row_index.data_ptr(), col_start.data_ptr(), n_cb, bk, bn,
-        out.data_ptr(), ACTIVATIONS[activation], v_read, float(n_max),
-        4.0 * n_max, k0, k1, k2, st0, st1, st2, block_rows(m),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"cim_mvm_packed launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return out
+    return _launch("cim_mvm_packed", x, gd_tiles,
+                   (inv_norm_tiles, denorm_tiles, v_decr_tiles),
+                   (row_index, col_start), col_start.shape[0] - 1, bk, bn,
+                   activation=activation, n_max=n_max, v_read=v_read,
+                   seed=seed)
+
+
+def cim_mvm_scheduled(x, gd_tiles, inv_norm_tiles, denorm_tiles,
+                      v_decr_tiles, row_index, run_start, col_run_start,
+                      col_runs, *, n_run_ranks: int, n_run_len: int,
+                      activation: str = "none", n_max: int = 127,
+                      v_read: float = 0.5, seed: int = 0,
+                      impl: str = "auto"):
+    """Whole-layer scheduled CIM MVM of a merged-core plan: ONE launch.
+
+    Tensors as `cim_mvm_packed` over the pass-major fused slot order, plus
+    the run tables: run_start (n_runs + 1,) CSR slots of each run;
+    col_run_start (n_cb + 1,) / col_runs: each column block's live runs
+    in run order. n_run_ranks / n_run_len: the most live runs of one
+    column block and the most slots of one run (the plain version's
+    loops). Returns (M, n_cb * bn)."""
+    _check_args(activation, impl)
+    tables = (run_start, col_run_start, col_runs)
+    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed)
+    if impl == "plain" or x.device.type == "cpu":
+        return cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles,
+                              v_decr_tiles, row_index, *tables,
+                              n_run_ranks=n_run_ranks, n_run_len=n_run_len,
+                              **kw)
+    _, bk, bn = gd_tiles.shape
+    return _launch("cim_mvm_scheduled", x, gd_tiles,
+                   (inv_norm_tiles, denorm_tiles, v_decr_tiles),
+                   (row_index, *tables), col_run_start.shape[0] - 1, bk, bn,
+                   **kw)
+
+
+def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
+                       v_decr_tiles, in_index, tile_index, run_start,
+                       col_run_start, col_runs, *, n_run_ranks: int,
+                       n_run_len: int, activation: str = "none",
+                       n_max: int = 127, v_read: float = 0.5, seed: int = 0,
+                       impl: str = "auto"):
+    """Whole-layer transpose-direction CIM MVM: ONE launch over the shared
+    forward stack gd_tiles (T, bk_f, bn_f), never copied or transposed.
+
+    x: (M, K') over the forward COLUMNS; inv_norm_tiles / denorm_tiles:
+    (T, 1, bk_f) per-row tensors in this direction's slot order; in_index:
+    (T,) forward column block per slot; tile_index: (T,) slot -> stack
+    position; run tables as `cim_mvm_scheduled`, over forward row blocks.
+    Returns (M, n_cb * bk_f)."""
+    _check_args(activation, impl)
+    tables = (run_start, col_run_start, col_runs)
+    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed)
+    if impl == "plain" or x.device.type == "cpu":
+        return cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles,
+                              v_decr_tiles, in_index, *tables,
+                              tile_index=tile_index, n_run_ranks=n_run_ranks,
+                              n_run_len=n_run_len, **kw)
+    _, bk_f, bn_f = gd_tiles.shape
+    return _launch("cim_mvm_transposed", x, gd_tiles,
+                   (inv_norm_tiles, denorm_tiles, v_decr_tiles),
+                   (in_index, tile_index, *tables),
+                   col_run_start.shape[0] - 1, bn_f, bk_f, **kw)

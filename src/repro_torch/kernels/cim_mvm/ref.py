@@ -10,9 +10,13 @@
                 flips (early-stopped at N_max = 2^(out_bits-1)-1 steps),
                 with ReLU / tanh / sigmoid fused into the conversion.
 
-Only the algebraic (`bit_serial=False`) path of the ideal datapath is
-ported. The per-phase non-idealities need the bit-serial walk and the
-stochastic neuron needs the hash PRNG (ROADMAP B3); both raise.
+Only the algebraic (`bit_serial=False`) path is ported, with the one
+non-ideality that path models: IR drop, an input-drive droop that grows with
+the total conductance the active rows source. The other per-phase
+non-idealities need the bit-serial walk and raise. So does the stochastic
+neuron: the reference draws its noise from a jax.random key, a stream the
+port does not replay (the port's stochastic neuron is the kernels' hash
+epilogue, kernels/prng.py).
 """
 from __future__ import annotations
 
@@ -63,15 +67,16 @@ def adc_convert(q, cfg: CIMConfig, v_decr):
         return out.to(torch.int32)
     if cfg.activation == "stochastic":
         raise NotImplementedError(
-            "the stochastic neuron needs the hash PRNG, not ported yet "
-            "(ROADMAP B3)")
+            "the oracle's stochastic neuron needs the reference's jax.random "
+            "noise stream, which is not ported; the kernels' stochastic "
+            "epilogue is the port's stochastic neuron")
     return (sign * torch.clamp(steps, max=float(n_max))).to(torch.int32)
 
 
 def _check_ideal(cfg: CIMConfig) -> None:
     ni = cfg.nonideal
-    if (ni.ir_drop_alpha > 0 or ni.wire_r_alpha > 0 or ni.coupling_sigma > 0
-            or ni.adc_offset_sigma > 0):
+    if ni.wire_r_alpha > 0 or ni.coupling_sigma > 0 \
+            or ni.adc_offset_sigma > 0:
         raise NotImplementedError(
             "per-phase non-idealities need the bit-serial oracle, which is "
             "not ported yet")
@@ -79,13 +84,21 @@ def _check_ideal(cfg: CIMConfig) -> None:
 
 def cim_mvm_ref(x_int, g_pos, g_neg, v_decr, cfg: CIMConfig, *,
                 adc_offset: Optional[torch.Tensor] = None) -> CIMOutput:
-    """Oracle CIM MVM on the ideal datapath, the reference's
-    `bit_serial=False` path. x_int: (B, R) integers; g_pos/g_neg: (R, C)
+    """Oracle CIM MVM, the reference's `bit_serial=False` path: the ideal
+    datapath plus IR drop. x_int: (B, R) integers; g_pos/g_neg: (R, C)
     uS; v_decr: scalar or (C,)."""
     _check_ideal(cfg)
     gd = g_pos - g_neg
     norm = torch.sum(g_pos + g_neg, dim=0)
-    v_in = x_int.to(torch.float32) * cfg.v_read
+    xf = x_int.to(torch.float32)
+    v_in = xf * cfg.v_read
+    alpha = cfg.nonideal.ir_drop_alpha
+    if alpha > 0.0:
+        # (i)+(ii): the input drive droops with the total current the active
+        # rows source, nonlinear in the input pattern
+        load = torch.abs(xf) @ torch.sum(g_pos + g_neg, dim=1)
+        droop = torch.clamp(1.0 - alpha * load, 0.7, 1.0)
+        v_in = v_in * droop[:, None]
     q = (v_in @ gd) / norm
     if adc_offset is not None:
         q = q + adc_offset[None, :]

@@ -9,10 +9,17 @@ One fixed request batch is prefilled once, then decoded token by token in
 lockstep (greedy), the KV cache updated in place. With --cim each layer's
 seven projections are compiled onto one simulated chip first (plan ->
 schedule -> program -> calibrate -> pack, `core.cim.compile_chip`), and
-prefill and decode run every projection as one launch of the packed CIM
-kernel. Full-width gemma2-9b needs `--cim-cores 6144` (one layer is 6048
-tiles of 128x256 weights, far above NeuRRAM's 48 cores) and a depth cut:
-each layer's weights, conductances and packed tiles take 3.2 GB.
+prefill and decode run every projection as one kernel launch. Full-width
+gemma2-9b needs at least 6048 cores for single-pass plans (one layer is
+6048 tiles of 128x256 weights, far above NeuRRAM's 48 cores) and a depth
+cut: each layer's weights, conductances and packed tiles take 3.2 GB.
+
+Fewer cores than tiles (`--cim-cores 3072`) merge tiles onto shared cores:
+those projections' plans serialize into passes and run on the scheduled
+kernel, the others on the packed kernel. `--cim-ir-drop A` plans the
+chip's IR drop (alpha A in 1/uS): the planner caps the columns per core
+(47 at 2e-7), so a full-width layer needs about 33,000 tiles and, at
+`--cim-cores 32768`, every projection merges and runs scheduled.
 
 Runs on the card unless `--device cpu` is given; without CUDA it raises.
 Times are CUDA-event times on the card. The continuous-batching mode
@@ -36,13 +43,15 @@ from .steps import arch_serving, make_decode_step, make_prefill_step
 
 def serving_config(arch: str = "gemma2-9b", *, smoke: bool = False,
                    cim: bool = False, cim_bits: int = 0,
+                   cim_ir_drop: float = 0.0,
                    n_layers: Optional[int] = None):
     """The arch config the driver serves: f32 under --cim (as the
     reference forces), `n_layers` cuts the depth."""
     cfg = configs.get(arch, smoke=smoke)
     cfg = cfg.replace(dtype=torch.float32 if smoke else cfg.dtype)
     if cim:
-        cfg = cfg.replace(cim_mode="packed", dtype=torch.float32)
+        cfg = cfg.replace(cim_mode="packed", dtype=torch.float32,
+                          cim_ir_drop=cim_ir_drop)
         if cim_bits:
             if not 1 <= cim_bits <= 8:
                 raise ValueError(f"cim_bits must be in 1..8, got {cim_bits}")
@@ -98,7 +107,7 @@ def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
                  batch: int = 4, prompt_len: int = 64, gen: int = 32,
                  cim: bool = False, cim_mode: str = "ideal",
                  cim_bits: int = 0, cim_cores: int = 0,
-                 device: Optional[str] = None,
+                 cim_ir_drop: float = 0.0, device: Optional[str] = None,
                  n_layers: Optional[int] = None,
                  params=None, prompts=None, x_cal=None) -> ServeResult:
     """Build (or take) params, deploy the chip under `cim`, serve one
@@ -107,7 +116,7 @@ def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
     given, replace those draws (params must already be on `device`)."""
     dev = resolve_device(device)
     cfg = serving_config(arch, smoke=smoke, cim=cim, cim_bits=cim_bits,
-                         n_layers=n_layers)
+                         cim_ir_drop=cim_ir_drop, n_layers=n_layers)
     sv = arch_serving(cfg, dev)
     if params is None:
         params = sv.init_params(0)
@@ -149,7 +158,12 @@ def main(argv=None):
                     help="bit-serial input precision for --cim (1..8; 0 = "
                          "the arch default)")
     ap.add_argument("--cim-cores", type=int, default=0,
-                    help="cores per chip for --cim (0 = NeuRRAM's 48)")
+                    help="cores per chip for --cim (0 = NeuRRAM's 48); "
+                         "fewer cores than tiles force merged-core "
+                         "scheduled plans")
+    ap.add_argument("--cim-ir-drop", type=float, default=0.0,
+                    help="ir_drop_alpha for --cim: > 0 plans IR-drop-bounded "
+                         "vertical column splits")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
@@ -157,14 +171,19 @@ def main(argv=None):
                        prompt_len=args.prompt_len, gen=args.gen,
                        cim=args.cim, cim_mode=args.cim_mode,
                        cim_bits=args.cim_bits, cim_cores=args.cim_cores,
-                       device=args.device, n_layers=args.layers or None)
+                       cim_ir_drop=args.cim_ir_drop, device=args.device,
+                       n_layers=args.layers or None)
     cfg, g = res.cfg, res.out
     if args.cim:
         n_packed = sum(1 for k in res.params["layers"] if k.endswith("_cim"))
+        passes = {k[:-4]: v[0].packed.n_passes
+                  for k, v in res.params["layers"].items()
+                  if k.endswith("_cim")}
         print(f"cim: compiled {n_packed} projection stacks x "
               f"{cfg.n_layers} layers ({args.cim_mode}, "
-              f"bits={cfg.cim_in_bits}/{cfg.cim_out_bits}, tp=1) "
-              f"in {res.deploy_s:.1f}s")
+              f"bits={cfg.cim_in_bits}/{cfg.cim_out_bits}, "
+              f"ir_drop={cfg.cim_ir_drop}, tp=1) in {res.deploy_s:.1f}s; "
+              f"passes per projection {passes}")
     t_decode = sum(g.decode_s) / len(g.decode_s) if g.decode_s else 0.0
     thr = (args.batch / t_decode) if t_decode else float("nan")
     dev = torch.device(args.device)

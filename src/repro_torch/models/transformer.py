@@ -48,8 +48,11 @@ class ArchConfig:
     cim_mode: str = "off"
     cim_in_bits: int = 4
     cim_out_bits: int = 8
-    # "auto" launches the packed kernel on CUDA tensors; "plain" forces
-    # its plain PyTorch version (the on-card comparison only)
+    # IR-drop alpha (1/uS) of the chip: > 0 makes the chip compiler split
+    # wide matrices vertically (mapping.ir_drop_max_cols)
+    cim_ir_drop: float = 0.0
+    # "auto" launches the CIM kernels on CUDA tensors; "plain" forces
+    # their plain PyTorch versions (the on-card comparison only)
     cim_impl: str = "auto"
 
     @property

@@ -47,17 +47,22 @@ def packed_to_torch(pj, device="cpu"):
         denorm_tiles=to_torch(pj.denorm_tiles, device))
 
 
-def boundary_hits(x, packed, v_read: float):
-    """Per output element, the number of contributing tiles whose exact
-    |q|/v_decr lies within f32 rounding of a .5 boundary (see
-    `repro_torch.kernels.cim_mvm.kernel.boundary_counts`). x: (M, K)
-    numpy; packed: the port's PackedPlan. Returns (M, n_cols) numpy."""
+def boundary_hits(x, packed, v_read: float, activation: str = "none",
+                  seed: int = 0):
+    """Per output element, the number of contributing tiles where two
+    correct f32 executions may decide differently: the exact |q|/v_decr
+    within f32 rounding of a .5 boundary, or for stochastic bits q plus the
+    noise within rounding of 0 (see `repro_torch.kernels.cim_mvm.kernel
+    .boundary_counts`). x: (M, K) numpy; packed: the port's PackedPlan of
+    any route. Returns (M, n_cols) numpy."""
     from repro_torch.kernels.cim_mvm.kernel import boundary_counts
     hits = boundary_counts(
         to_torch(x, packed.gd_tiles.device, torch.float32), packed.gd_tiles,
         packed.inv_norm_tiles, packed.v_decr_tiles, packed.row_index,
-        packed.col_start, n_row_blocks=packed.n_row_blocks,
-        n_ranks=packed.n_ranks, v_read=v_read)
+        packed.run_start, packed.col_run_start, packed.col_runs,
+        tile_index=packed.tile_index, n_run_ranks=packed.n_run_ranks,
+        n_run_len=packed.n_run_len, v_read=v_read, activation=activation,
+        seed=seed)
     return to_numpy(hits)[:, :packed.n_cols]
 
 

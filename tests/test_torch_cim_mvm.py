@@ -1,13 +1,18 @@
-"""Port parity, the packed CIM MVM: the port's plain executor against the
-reference's `cim_mvm_packed` (its Pallas kernel in interpret mode, as the
-reference's own tests run it) on the same packed plan and inputs, for
-every activation mode; and, where a CUDA device is present, the CUDA
-kernel against the plain executor.
+"""Port parity, the CIM MVM kernels: the port's plain executors against
+the reference's `cim_mvm_packed` (its Pallas kernels in interpret mode, as
+the reference's own tests run them, batch block pinned to 256) on the same
+packed plans and inputs, for every activation mode — single-pass plans
+(the packed kernel), merged-core and hand-scheduled plans whose column
+blocks split across runs (the scheduled kernel) and their transpose views
+(the transposed kernel); and, where a CUDA device is present, each CUDA
+kernel against its plain executor.
 
 Rule (ROADMAP north star): accumulated ADC counts agree exactly except
 at outputs where a contributing tile's reference |q|/v_decr lies within
-f32 rounding of a .5 boundary; the raw-charge (identity) mode agrees to
-f32 rounding of the sums.
+f32 rounding of a .5 boundary, and stochastic bits except where q plus
+the noise lies within rounding of 0 (both sets computed by
+`boundary_hits`); the raw-charge (identity) mode agrees to f32 rounding of
+the sums.
 
 JAX is imported by the fixtures that need it, so the CUDA test also runs
 where only the port is installed:
@@ -27,8 +32,9 @@ from repro_torch.core.types import CIMConfig, CoreSpec
 from repro_torch.kernels.cim_mvm import kernel as K
 from repro_torch.kernels.cim_mvm import ops
 
-ACTS = ("none", "relu", "tanh", "sigmoid", "identity")
+ACTS = ("none", "relu", "tanh", "sigmoid", "identity", "stochastic")
 R, C, M = 300, 500, 24          # the ragged split layer: 3 x 2 tiles
+SEED = 77                       # the stochastic neuron's salt
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +64,8 @@ def case():
         packs[fold] = pj
         for act in ACTS:
             outs[fold, act] = np.asarray(cim_mvm_packed(
-                jnp.asarray(x), pj, JCfg(activation=act), interpret=True))
+                jnp.asarray(x), pj, JCfg(activation=act), seed=SEED, bm=256,
+                interpret=True))
     return {"x": x, "packs": packs, "outs": outs}
 
 
@@ -67,14 +74,20 @@ def test_plain_matches_reference_counts(case, activation):
     """Raw-count packs (denorm = valid-column mask): integer sums."""
     pt = packed_to_torch(case["packs"][False])
     got = to_numpy(ops.cim_mvm_packed(to_torch(case["x"]), pt,
-                                      CIMConfig(activation=activation)))
+                                      CIMConfig(activation=activation),
+                                      seed=SEED))
     want = case["outs"][False, activation]
+    _assert_route_match(got, want, case["x"], pt, activation)
+
+
+def _assert_route_match(got, want, x, pt, activation):
     if activation == "identity":
-        # f32 sums of <= 128 products in another order: relative 2^-17
+        # f32 sums of <= 256 products in another order: relative 2^-17
         np.testing.assert_allclose(got, want, rtol=2e-5,
                                    atol=2e-5 * np.abs(want).max())
         return
-    assert_counts_match(got, want, boundary_hits(case["x"], pt, 0.5))
+    assert_counts_match(got, want, boundary_hits(x, pt, 0.5, activation,
+                                                 SEED))
 
 
 @pytest.mark.parametrize("activation", ("none", "relu"))
@@ -98,18 +111,30 @@ def test_plain_matches_reference_folded(case, activation):
 
 
 def test_cpu_wrapper_runs_plain_without_launching():
-    """A CPU tensor takes the plain version; the launch count is for the
-    kernel only."""
-    before = K.LAUNCHES
+    """A CPU tensor takes the plain version of every route; the launch
+    counts are for the kernels only."""
+    from repro_torch.core.mapping import (pack_tiles_transposed,
+                                          schedule_tiles)
+    before = dict(K.LAUNCHES)
     tiles = plan_layers([MatrixReq("m", 40, 30)]).tiles_for("m")
     p = pack_tiles(tiles, torch.ones(40, 30))
     y = ops.packed_call(torch.ones(2, 40), p, activation="identity",
                         n_max=1, v_read=1.0)
     assert torch.equal(y, torch.full((2, 30), 40.0))
+    y = ops.packed_call(torch.ones(2, 40), p, activation="identity",
+                        n_max=1, v_read=1.0, scheduled=True)
+    assert torch.equal(y, torch.full((2, 30), 40.0))
+    pb = pack_tiles_transposed(tiles, p, schedule=schedule_tiles(tiles))
+    y = ops.packed_call(torch.ones(2, 30), pb, activation="identity",
+                        n_max=1, v_read=1.0)
+    assert torch.equal(y, torch.full((2, 40), 30.0))
     assert K.LAUNCHES == before
 
 
 def test_unported_plans_and_modes_raise():
+    """Routing refuses what the reference refuses (a multi-pass plan on
+    the tile-grid kernel) and what the port leaves out (the per-slot
+    `fused=False` baseline, ROADMAP A10)."""
     from repro_torch.core.mapping import schedule_tiles
     tiles = plan_layers([MatrixReq("m", 200, 70)]).tiles_for("m")
     single = pack_tiles(tiles, torch.ones(200, 70))
@@ -118,15 +143,159 @@ def test_unported_plans_and_modes_raise():
     multi = pack_tiles(tiles, torch.ones(200, 70),
                        schedule=schedule_tiles(tiles))
     assert multi.n_passes == 2
-    with pytest.raises(NotImplementedError, match="B2"):
+    assert multi.route() == "cim_mvm_scheduled"
+    assert single.route(scheduled=True) == "cim_mvm_scheduled"
+    with pytest.raises(ValueError, match="passes"):
         ops.packed_call(torch.ones(2, 200), multi, activation="none",
-                        n_max=127, v_read=0.5)
-    with pytest.raises(NotImplementedError, match="B3"):
-        ops.packed_call(torch.ones(2, 200), single, activation="stochastic",
-                        n_max=127, v_read=0.5)
+                        n_max=127, v_read=0.5, scheduled=False)
+    with pytest.raises(NotImplementedError, match="A10"):
+        ops.packed_call(torch.ones(2, 200), single, activation="none",
+                        n_max=127, v_read=0.5, fused=False)
     with pytest.raises(ValueError, match="features"):
         ops.packed_call(torch.ones(2, 199), single, activation="none",
                         n_max=127, v_read=0.5)
+    with pytest.raises(ValueError, match="activation"):
+        ops.packed_call(torch.ones(2, 200), single, activation="softmax",
+                        n_max=127, v_read=0.5)
+
+
+# ------------------------------------------- scheduled and transposed runs
+
+RUN_PLANS = ("split-runs", "merged")
+
+
+@pytest.fixture(scope="module")
+def runs_case():
+    """Two multi-pass plans of the ragged 300x500 layer, each packed by
+    the reference forward and transposed, with raw-count and folded
+    denorms, and the reference's outputs: every activation on the raw
+    packs, 'none' on the folded ones, and stochastic bits at M = 300 (two
+    hash batch blocks).
+
+      split-runs: seq slots set by hand, 4 passes: column blocks split
+                  over several runs, idle slots, a run across a pass.
+      merged:     the planner merging onto 4 cores (3 passes)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core import mapping as jm
+    from repro.core.conductance import weights_to_conductances
+    from repro.core.types import CIMConfig as JCfg, CoreSpec as JSpec
+    from repro.kernels.cim_mvm.ops import cim_mvm_packed
+
+    rng = np.random.default_rng(1)
+    w = rng.normal(0, 0.1, (R, C)).astype(np.float32)
+    cond = weights_to_conductances(jnp.asarray(w), JCfg().device)
+    gd, gs = cond.g_pos - cond.g_neg, cond.g_pos + cond.g_neg
+    xs = {"fwd": rng.integers(-7, 8, (M, R)).astype(np.float32),
+          "bwd": rng.integers(-7, 8, (M, C)).astype(np.float32)}
+    x300 = {"fwd": rng.integers(-7, 8, (300, R)).astype(np.float32),
+            "bwd": rng.integers(-7, 8, (300, C)).astype(np.float32)}
+    packs, outs = {}, {}
+    for kind in RUN_PLANS:
+        if kind == "split-runs":
+            tiles = jm.plan_layers([jm.MatrixReq("m", R, C)]).tiles_for("m")
+            for i, t in enumerate(tiles):
+                t.seq_slot = i % 4 if i < 4 else i % 3
+        else:
+            tiles = jm.plan_layers([jm.MatrixReq("m", R, C),
+                                    jm.MatrixReq("s", 100, 60)],
+                                   JSpec(n_cores=4)).tiles_for("m")
+        sched = jm.schedule_tiles(tiles)
+        vd = jnp.asarray(rng.uniform(0.02, 0.05, len(tiles)), jnp.float32)
+        for fold in (False, True):
+            pf = jm.pack_tiles(tiles, gd, gsum=gs, v_decr=vd, fold_norm=fold,
+                               schedule=sched)
+            pb = jm.pack_tiles_transposed(tiles, pf, gsum=gs, v_decr=vd,
+                                          fold_norm=fold, schedule=sched)
+            assert pf.n_passes > 1
+            packs[kind, "fwd", fold], packs[kind, "bwd", fold] = pf, pb
+            for d, p in (("fwd", pf), ("bwd", pb)):
+                for act in (ACTS if not fold else ("none",)):
+                    outs[kind, d, fold, act] = np.asarray(cim_mvm_packed(
+                        jnp.asarray(xs[d]), p, JCfg(activation=act),
+                        seed=SEED, bm=256, interpret=True))
+                if not fold:
+                    outs[kind, d, "m300"] = np.asarray(cim_mvm_packed(
+                        jnp.asarray(x300[d]), p,
+                        JCfg(activation="stochastic"), seed=SEED, bm=256,
+                        interpret=True))
+    return {"x": xs, "x300": x300, "packs": packs, "outs": outs}
+
+
+def _run_plain(runs_case, kind, direction, fold, activation, x=None):
+    pt = packed_to_torch(runs_case["packs"][kind, direction, fold])
+    x = runs_case["x"][direction] if x is None else x
+    got = to_numpy(ops.cim_mvm_packed(to_torch(x), pt,
+                                      CIMConfig(activation=activation),
+                                      seed=SEED))
+    return got, pt
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("kind", RUN_PLANS)
+def test_scheduled_plain_matches_reference(runs_case, kind, activation):
+    """The scheduled executor (per-run partials folded in run order) on
+    raw-count packs: the counts rule."""
+    got, pt = _run_plain(runs_case, kind, "fwd", False, activation)
+    assert pt.route() == "cim_mvm_scheduled"
+    _assert_route_match(got, runs_case["outs"][kind, "fwd", False,
+                                               activation],
+                        runs_case["x"]["fwd"], pt, activation)
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("kind", RUN_PLANS)
+def test_transposed_plain_matches_reference(runs_case, kind, activation):
+    """The transposed executor (shared forward stack through tile_slot,
+    per-row normalizers, hash keyed on the stack position): the counts
+    rule."""
+    got, pt = _run_plain(runs_case, kind, "bwd", False, activation)
+    assert pt.route() == "cim_mvm_transposed"
+    _assert_route_match(got, runs_case["outs"][kind, "bwd", False,
+                                               activation],
+                        runs_case["x"]["bwd"], pt, activation)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("kind", RUN_PLANS)
+def test_runs_folded_match_reference(runs_case, kind, direction):
+    """Serving packs (fold_norm): a flipped count moves an output by its
+    tile's denorm; the rest agrees to f32 rounding of each run's sum and
+    of the fold (the reference may contract a multiply-add): two
+    executions, each at most n_terms adds of running sums below n_terms *
+    n_max * max(denorm), half an ulp each."""
+    got, pt = _run_plain(runs_case, kind, direction, True, "none")
+    want = runs_case["outs"][kind, direction, True, "none"]
+    hits = boundary_hits(runs_case["x"][direction], pt, 0.5)
+    den_max = float(pt.denorm_tiles.max())
+    n_terms = pt.n_run_ranks * pt.n_run_len + pt.n_run_ranks
+    n_max = CIMConfig().out_mag_levels
+    tol = hits * den_max + 2 * n_terms * 2.0 ** -24 * n_terms * n_max \
+        * den_max
+    assert np.all(np.abs(got - want) <= tol)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_stochastic_hash_rows_past_one_batch_block(runs_case, direction):
+    """At M = 300 the reference runs two batch blocks of 256 rows: the
+    hash's row and row-block salts follow them (the merged plan)."""
+    x = runs_case["x300"][direction]
+    got, pt = _run_plain(runs_case, "merged", direction, False,
+                         "stochastic", x=x)
+    assert_counts_match(got, runs_case["outs"]["merged", direction, "m300"],
+                        boundary_hits(x, pt, 0.5, "stochastic", SEED))
+
+
+def test_run_walk_of_single_pass_plan_is_the_packed_order(case):
+    """Forced onto a single-pass plan, the scheduled executor equals the
+    packed one exactly: one run per column block, the same sums."""
+    pt = packed_to_torch(case["packs"][True])
+    x = to_torch(case["x"])
+    for act in ACTS:
+        cfg = CIMConfig(activation=act)
+        assert torch.equal(ops.cim_mvm_packed(x, pt, cfg, seed=SEED),
+                           ops.cim_mvm_packed(x, pt, cfg, seed=SEED,
+                                              scheduled=True)), act
 
 
 @pytest.mark.cuda
@@ -146,10 +315,71 @@ def test_kernel_matches_plain_on_card(activation):
         p = chip.layers["m"].packed
         x = torch.randint(-7, 8, (m, r), generator=gen,
                           device=dev).to(torch.float32)
-        before = K.LAUNCHES
+        before = K.LAUNCHES["cim_mvm_packed"]
         cfg = CIMConfig(activation=activation)
-        got = ops.cim_mvm_packed(x, p, cfg)
-        want = ops.cim_mvm_packed(x, p, cfg, impl="plain")
+        got = ops.cim_mvm_packed(x, p, cfg, seed=SEED)
+        want = ops.cim_mvm_packed(x, p, cfg, seed=SEED, impl="plain")
         torch.cuda.synchronize()
-        assert K.LAUNCHES == before + 1
+        assert K.LAUNCHES["cim_mvm_packed"] == before + 1
         assert torch.equal(got, want), (r, c, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTS)
+def test_run_kernels_match_plain_on_card(activation):
+    """The scheduled and transposed CUDA kernels against their plain
+    versions on merged-core chips compiled with both directions (a ragged
+    layer, an IR-drop layer at bn = 47, and M across one and two hash
+    batch blocks): equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.core.types import NonIdealityConfig
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    for (r, c, cores, alpha, m) in ((300, 500, 4, 0.0, 5),
+                                    (1024, 700, 40, 2e-7, 37),
+                                    (3584, 2048, 200, 0.0, 300)):
+        ccfg = CIMConfig(activation=activation,
+                         nonideal=NonIdealityConfig(ir_drop_alpha=alpha))
+        w = {"m": torch.randn(r, c, generator=gen, device=dev) / r ** 0.5,
+             "s": torch.randn(100, 60, generator=gen, device=dev)}
+        chip = tcim.compile_chip(w, ccfg, CoreSpec(n_cores=cores), "ideal",
+                                 in_alpha=3.0, directions=("fwd", "bwd"),
+                                 generator=gen)
+        for d, width in (("fwd", r), ("bwd", c)):
+            p = chip.layers_for(d)["m"].packed
+            kernel = p.route()
+            assert kernel != "cim_mvm_packed", (r, c, d)
+            x = torch.randint(-7, 8, (m, width), generator=gen,
+                              device=dev).to(torch.float32)
+            before = K.LAUNCHES[kernel]
+            got = ops.cim_mvm_packed(x, p, ccfg, seed=SEED)
+            want = ops.cim_mvm_packed(x, p, ccfg, seed=SEED, impl="plain")
+            torch.cuda.synchronize()
+            assert K.LAUNCHES[kernel] == before + 1
+            assert torch.equal(got, want), (r, c, d, m)
+
+
+# ------------------------------------------------------------- hash PRNG
+
+HASH_CASES = [((4, 7), (0,)), ((256, 128), (12345, 3, 77)),
+              ((5, 300), (-7, 0, 2 ** 31 - 1)), ((3, 2, 9), (1, 2)),
+              ((1, 47), ())]
+
+
+@pytest.mark.parametrize("shape,salts", HASH_CASES)
+def test_hash_prng_matches_reference(shape, salts):
+    """hash_bits and hash_uniform equal the reference's bit for bit
+    (uint32 wraparound written in masked int64); hash_normal to a few
+    ulps: its log, sqrt and cos are other libraries' f32 approximations
+    of the same functions."""
+    jp = pytest.importorskip("repro.kernels.prng")
+    from repro_torch.kernels import prng as tp
+    np.testing.assert_array_equal(
+        to_numpy(tp.hash_bits(shape, *salts)),
+        np.asarray(jp.hash_bits(shape, *salts)).astype(np.int64))
+    np.testing.assert_array_equal(to_numpy(tp.hash_uniform(shape, *salts)),
+                                  np.asarray(jp.hash_uniform(shape, *salts)))
+    np.testing.assert_allclose(to_numpy(tp.hash_normal(shape, *salts)),
+                               np.asarray(jp.hash_normal(shape, *salts)),
+                               rtol=1e-6, atol=1e-6)

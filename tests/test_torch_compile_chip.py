@@ -150,9 +150,11 @@ def test_shared_memory_invariant_matches_kernel_tiling(monkeypatch):
     p = tcim.compile_chip({"m": torch.randn(300, 500)}, CIMConfig(),
                           in_alpha=3.0).layers["m"].packed
     for bm in (1, 4, 5, 32, 256, 4096):
-        assert K.shared_bytes(K.block_rows(bm)) <= K.SMEM_LIMIT
+        for kernel in K.KERNELS:
+            assert K.shared_bytes(kernel, K.block_rows(bm)) <= K.SMEM_LIMIT
         tverify.check_packed(p, bm=bm)
-    monkeypatch.setattr(tverify, "SMEM_LIMIT", K.shared_bytes(32) - 1)
+    monkeypatch.setattr(tverify, "SMEM_LIMIT",
+                        K.shared_bytes("cim_mvm_packed", 32) - 1)
     with pytest.raises(tverify.ChipVerifyError) as e:
         tverify.check_packed(p, bm=256)
     assert e.value.invariant == "shared-memory"
@@ -163,3 +165,160 @@ def test_compile_chip_rejects_unported_modes():
     for mode in ("relaxed", "writeverify"):
         with pytest.raises(NotImplementedError, match="A11"):
             tcim.compile_chip(w, CIMConfig(), mode=mode)
+
+
+# ------------------------------------------------- both directions, IR drop
+
+@pytest.fixture(scope="module")
+def bidir():
+    """The same weights compiled by both packages with directions=("fwd",
+    "bwd") from explicit calibration batches in each direction's input
+    space, and an IR-drop chip (alpha 2e-7: 47-column tiles)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core import cim as jcim
+    from repro.core.types import (CIMConfig as JCfg, CoreSpec as JSpec,
+                                  NonIdealityConfig as JNI)
+    from repro_torch.core.types import NonIdealityConfig
+    rng = np.random.default_rng(2)
+    w = {n: rng.normal(0, 0.1, s).astype(np.float32)
+         for n, s in SHAPES.items()}
+    x_cal = {n: (IN_ALPHA * rng.standard_normal((64, s[0]))
+                 ).astype(np.float32) for n, s in SHAPES.items()}
+    x_bwd = {n: (1.5 * rng.standard_normal((64, s[1]))).astype(np.float32)
+             for n, s in SHAPES.items()}
+    jw = {n: jnp.asarray(v) for n, v in w.items()}
+    tw = {n: to_torch(v) for n, v in w.items()}
+    kw_j = dict(in_alpha=IN_ALPHA,
+                x_cal={n: jnp.asarray(v) for n, v in x_cal.items()})
+    kw_t = dict(in_alpha=IN_ALPHA,
+                x_cal={n: to_torch(v) for n, v in x_cal.items()})
+    cj = jcim.compile_chip(
+        jax.random.PRNGKey(3), jw, JCfg(), JSpec(n_cores=5), "ideal",
+        directions=("fwd", "bwd"), in_alpha_bwd=1.5,
+        x_cal_bwd={n: jnp.asarray(v) for n, v in x_bwd.items()}, **kw_j)
+    ct = tcim.compile_chip(
+        tw, CIMConfig(), CoreSpec(n_cores=5), "ideal",
+        directions=("fwd", "bwd"), in_alpha_bwd=1.5,
+        x_cal_bwd={n: to_torch(v) for n, v in x_bwd.items()}, **kw_t)
+    alpha = 2e-7
+    ij = jcim.compile_chip(jax.random.PRNGKey(3), jw,
+                           JCfg(nonideal=JNI(ir_drop_alpha=alpha)), JSpec(),
+                           "ideal", **kw_j)
+    it = tcim.compile_chip(tw, CIMConfig(nonideal=NonIdealityConfig(
+        ir_drop_alpha=alpha)), CoreSpec(), "ideal", **kw_t)
+    return {"j": cj, "t": ct, "ir_j": ij, "ir_t": it}
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_bidirectional_chip_matches(bidir, name):
+    """Both directions of a merged-core chip: index maps equal, the bwd
+    pack sharing the fwd stack, per-tile bwd ADC steps and per-row
+    tensors to f32 rounding."""
+    for d in ("fwd", "bwd"):
+        lj = bidir["j"].layers_for(d)[name]
+        lt = bidir["t"].layers_for(d)[name]
+        for f in INDEX_MAPS + ("transpose",):
+            assert getattr(lt.packed, f) == getattr(lj.packed, f), (d, f)
+        for f in ("inv_norm_tiles", "v_decr_tiles", "denorm_tiles"):
+            np.testing.assert_allclose(to_numpy(getattr(lt.packed, f)),
+                                       np.asarray(getattr(lj.packed, f)),
+                                       rtol=5 * F32_RTOL, err_msg=(d, f))
+    assert bidir["t"].bwd_layers[name].packed.gd_tiles \
+        is bidir["t"].layers[name].packed.gd_tiles
+    assert any(p.packed.n_passes > 1 for p in bidir["t"].layers.values())
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_ir_drop_chip_matches(bidir, name):
+    """An IR-drop chip: the same 47-column plans, and the whole-matrix
+    calibration through the oracle's droop (`calibrate_layer`) equal to
+    the reference's v_decr to f32 rounding."""
+    lj, lt = bidir["ir_j"].layers[name], bidir["ir_t"].layers[name]
+    assert lt.packed.bn == lj.packed.bn <= 47
+    for f in INDEX_MAPS:
+        assert getattr(lt.packed, f) == getattr(lj.packed, f), f
+    np.testing.assert_allclose(float(lt.layer.v_decr), float(lj.layer.v_decr),
+                               rtol=1e-5)
+    np.testing.assert_allclose(to_numpy(lt.packed.v_decr_tiles),
+                               np.asarray(lj.packed.v_decr_tiles),
+                               rtol=5 * F32_RTOL)
+
+
+def test_ir_drop_oracle_droop_matches():
+    """`cim_mvm_ref` with IR drop: the droop scales every row's drive by
+    clip(1 - alpha * |x| @ gtot_row, 0.7, 1); charges to f32 rounding."""
+    import jax.numpy as jnp
+    from repro.core.types import CIMConfig as JCfg, NonIdealityConfig as JNI
+    from repro.kernels.cim_mvm.ref import cim_mvm_ref as jref
+    from repro_torch.core.types import NonIdealityConfig
+    from repro_torch.kernels.cim_mvm.ref import cim_mvm_ref as tref
+    rng = np.random.default_rng(3)
+    gp = rng.uniform(1, 40, (128, 60)).astype(np.float32)
+    gn = rng.uniform(1, 40, (128, 60)).astype(np.float32)
+    x = rng.integers(-7, 8, (16, 128)).astype(np.int32)
+    for alpha in (1e-6, 1e-4):            # partial droop, and the 0.7 clip
+        qj = np.asarray(jref(jnp.asarray(x), jnp.asarray(gp), jnp.asarray(gn),
+                             1.0, JCfg(nonideal=JNI(ir_drop_alpha=alpha)),
+                             bit_serial=False).q_analog)
+        qt = to_numpy(tref(to_torch(x), to_torch(gp), to_torch(gn), 1.0,
+                           CIMConfig(nonideal=NonIdealityConfig(
+                               ir_drop_alpha=alpha))).q_analog)
+        np.testing.assert_allclose(qt, qj, rtol=1e-5,
+                                   atol=1e-6 * np.abs(qj).max())
+
+
+def test_stochastic_calibration_reads_charge_only():
+    """A stochastic layer calibrates on the charge alone: `calibrate_layer`
+    gives the reference's v_decr, while the oracle itself refuses the
+    stochastic neuron, whose noise stream (jax.random) is not ported."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.calibration import calibrate_layer as jcal
+    from repro.core.types import CIMConfig as JCfg
+    from repro_torch.core.calibration import calibrate_layer as tcal
+    from repro_torch.kernels.cim_mvm.ref import cim_mvm_ref as tref
+    rng = np.random.default_rng(4)
+    gp = rng.uniform(1, 40, (128, 60)).astype(np.float32)
+    gn = rng.uniform(1, 40, (128, 60)).astype(np.float32)
+    x = rng.integers(-7, 8, (32, 128)).astype(np.int32)
+    vj = jcal(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(gp),
+              jnp.asarray(gn), JCfg(activation="stochastic")).v_decr
+    cfg = CIMConfig(activation="stochastic")
+    vt = tcal(to_torch(x), to_torch(gp), to_torch(gn), cfg).v_decr
+    np.testing.assert_allclose(float(vt), float(vj), rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="stochastic"):
+        tref(to_torch(x), to_torch(gp), to_torch(gn), 1.0, cfg)
+
+
+def _bwd_mutants(chip):
+    """(name, invariant, mutated chip) for the transpose direction."""
+    name = "a"
+    bwd = chip.bwd_layers[name]
+    copy = dataclasses.replace(bwd.packed,
+                               gd_tiles=bwd.packed.gd_tiles.clone())
+    yield "own-stack", "shared-stack", dataclasses.replace(
+        chip, bwd_layers={**chip.bwd_layers,
+                          name: tcim.PackedCIMLayer(bwd.layer, copy)})
+    ts = list(bwd.packed.tile_slot)
+    ts[0], ts[1] = ts[1], ts[0]
+    swapped = dataclasses.replace(bwd.packed, tile_slot=tuple(ts))
+    yield "tile-slot", "direction-agreement", dataclasses.replace(
+        chip, bwd_layers={**chip.bwd_layers,
+                          name: tcim.PackedCIMLayer(bwd.layer, swapped)})
+    stale = dataclasses.replace(bwd.packed)
+    stale.col_runs = stale.col_runs.flip(0)
+    yield "run-table", "run-offsets", dataclasses.replace(
+        chip, bwd_layers={**chip.bwd_layers,
+                          name: tcim.PackedCIMLayer(bwd.layer, stale)})
+    yield "missing", "direction-keys", dataclasses.replace(
+        chip, bwd_layers={n: p for n, p in chip.bwd_layers.items()
+                          if n != name})
+
+
+@pytest.mark.parametrize("mutant", range(4))
+def test_mutated_bwd_artifact_raises(bidir, mutant):
+    name, invariant, bad = list(_bwd_mutants(bidir["t"]))[mutant]
+    with pytest.raises(tverify.ChipVerifyError) as e:
+        tverify.verify_chip(bad)
+    assert e.value.invariant == invariant, name

@@ -48,7 +48,7 @@ def test_port_imports_without_triton_or_nvcc():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "from repro_torch.kernels.cim_mvm import kernel\n"
-        "assert kernel._lib is None and kernel.LAUNCHES == 0\n"
+        "assert not kernel._lib and not any(kernel.LAUNCHES.values())\n"
         "assert not any(m.startswith(('jax', 'repro.')) or m == 'repro'"
         " for m in sys.modules), 'JAX loaded'\n")
     env = dict(os.environ, PATH="/usr/bin:/bin",

@@ -175,3 +175,80 @@ def test_full_width_gemma_layer_is_single_pass():
     assert {(t.rows, t.cols) for t in plan.tiles} == {(128, 256)}
     for n in shapes:
         assert tmap.schedule_tiles(plan.tiles_for(n)).n_passes == 1
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+def test_transposed_pack_equal(kind, fold):
+    """The transpose view of each forward pack: index maps (tile_slot, the
+    fused run layout and the swapped block maps) exactly equal, per-row
+    tensors to f32 rounding, and the forward gd_tiles shared by identity,
+    not copied."""
+    reqs, pj, pt, target = _plans(kind)
+    r, c = next((r, c) for n, r, c, _ in reqs if n == target)
+    rng = np.random.default_rng(len(kind) + 7)
+    gp = rng.uniform(1, 40, (r, c)).astype(np.float32)
+    gn = rng.uniform(1, 40, (r, c)).astype(np.float32)
+    tj, tt = pj.tiles_for(target), pt.tiles_for(target)
+    vd = rng.uniform(0.001, 0.01, len(tj)).astype(np.float32)
+    sj, st = jmap.schedule_tiles(tj), tmap.schedule_tiles(tt)
+    fj = jmap.pack_tiles(tj, jnp.asarray(gp - gn), schedule=sj)
+    ft = tmap.pack_tiles(tt, to_torch(gp - gn), schedule=st)
+    kj = jmap.pack_tiles_transposed(tj, fj, gsum=jnp.asarray(gp + gn),
+                                    v_decr=jnp.asarray(vd), fold_norm=fold,
+                                    schedule=sj)
+    kt = tmap.pack_tiles_transposed(tt, ft, gsum=to_torch(gp + gn),
+                                    v_decr=to_torch(vd), fold_norm=fold,
+                                    schedule=st)
+    for f in INDEX_MAPS:
+        assert getattr(kt, f) == getattr(kj, f), f
+    assert kt.gd_tiles is ft.gd_tiles
+    assert kt.col_start is None
+    assert to_numpy(kt.tile_index).tolist() == list(kj.tile_slot)
+    np.testing.assert_array_equal(to_numpy(kt.v_decr_tiles),
+                                  np.asarray(kj.v_decr_tiles))
+    for f in ("inv_norm_tiles", "denorm_tiles"):
+        np.testing.assert_allclose(to_numpy(getattr(kt, f)),
+                                   np.asarray(getattr(kj, f)),
+                                   rtol=F32_RTOL, err_msg=f)
+
+
+def test_transpose_tiles_equal():
+    _, pj, pt, target = _plans("split")
+    want = [tuple(getattr(t, f) for f in TILE_FIELDS)
+            for t in jmap.transpose_tiles(pj.tiles_for(target))]
+    got = [tuple(getattr(t, f) for f in TILE_FIELDS)
+           for t in tmap.transpose_tiles(pt.tiles_for(target))]
+    assert got == want
+
+
+@pytest.mark.parametrize("n_units,n_cores", [(795, 7), (140, 2), (10, 3)])
+def test_interleave_assignment_equal(n_units, n_cores):
+    np.testing.assert_array_equal(
+        to_numpy(tmap.interleave_assignment(n_units, n_cores)),
+        np.asarray(jmap.interleave_assignment(n_units, n_cores)))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_run_tables_match_fused_layout(kind):
+    """The scheduled and transposed kernels' run tables, forward and
+    transposed: run_start holds each run's slots (out_slot), col_runs each
+    column block's live runs in run order (out_col, idle runs left out)."""
+    reqs, _, pt, target = _plans(kind)
+    r, c = next((r, c) for n, r, c, _ in reqs if n == target)
+    tiles = pt.tiles_for(target)
+    sched = tmap.schedule_tiles(tiles)
+    fwd = tmap.pack_tiles(tiles, to_torch(np.ones((r, c), np.float32)),
+                          schedule=sched)
+    bwd = tmap.pack_tiles_transposed(tiles, fwd, schedule=sched)
+    for p in (fwd, bwd):
+        run_start = to_numpy(p.run_start).tolist()
+        assert [r for r in range(len(p.out_col))
+                for _ in range(run_start[r + 1] - run_start[r])] \
+            == list(p.out_slot)
+        crs = to_numpy(p.col_run_start).tolist()
+        runs = to_numpy(p.col_runs).tolist()
+        for j in range(p.n_col_blocks):
+            assert runs[crs[j]:crs[j + 1]] == \
+                [r for r, b in enumerate(p.out_col) if b == j]
+        assert crs[-1] == sum(1 for b in p.out_col if b >= 0)

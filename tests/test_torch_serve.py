@@ -1,7 +1,10 @@
-"""Port parity, the slice as a whole: gemma2-9b SMOKE served with every
+"""Port parity, the slices as a whole: gemma2-9b SMOKE served with every
 dense-block projection on its compiled chip, by the JAX reference and by
 the port on the CPU, from the same params, calibration batches and
-prompts (batch 2, prompt 8, 4 generated tokens).
+prompts (batch 2, prompt 8, 4 generated tokens), on three chips: the
+default 48-core chip (single-pass plans, the packed kernel), a 4-core chip
+(`--cim-cores 4`: merged cores, the scheduled kernel) and an IR-drop chip
+(`--cim-ir-drop 2e-7`: 47-column tiles).
 
 The reference runs as `serve.py --cim --cim-mesh off` does
 (`cfg.cim_mesh=None`): on jax 0.9 the meshed path fails its cache update
@@ -39,14 +42,31 @@ B, S, GEN = 2, 8, 4
 LOGIT_ATOL = 1e-4
 
 
+CHIPS = {"default": {}, "cim_cores=4": {"cim_cores": 4},
+         "cim_ir_drop=2e-7": {"cim_ir_drop": 2e-7}}
+
+
 @pytest.fixture(scope="module")
 def served():
+    return _serve("default")
+
+
+@pytest.fixture(scope="module", params=["cim_cores=4", "cim_ir_drop=2e-7"])
+def served_chip(request):
+    return _serve(request.param)
+
+
+def _serve(chip_name):
+    chip = CHIPS[chip_name]
+    from repro.core.types import CoreSpec as JSpec
     cfg = jconfigs.get("gemma2-9b", smoke=True).replace(
-        cim_mode="packed", dtype=jnp.float32, cim_mesh=None)
+        cim_mode="packed", dtype=jnp.float32, cim_mesh=None,
+        cim_ir_drop=chip.get("cim_ir_drop", 0.0))
     sv = arch_serving(cfg)
     params = sv.init_params(jax.random.PRNGKey(0))
+    spec = JSpec(n_cores=chip["cim_cores"]) if "cim_cores" in chip else None
     deployed = jnn.deploy_transformer_cim(jax.random.PRNGKey(7), params, cfg,
-                                          mode="ideal")
+                                          mode="ideal", spec=spec)
     prompts = lm_tokens(jax.random.PRNGKey(1), B, S, cfg.vocab)
     prefill = jax.jit(sv.prefill)
     decode = jax.jit(make_decode_step(cfg))
@@ -61,23 +81,40 @@ def served():
     stacked = {n: pnp["layers"][n] for n in tnn.PACKED_PROJ_KEYS
                if n in pnp["layers"]}
     x_cal = reference_x_cal(jax.random.PRNGKey(7), stacked, 3.0)
-    launches = K.LAUNCHES
+    launches = sum(K.LAUNCHES.values())
     res = tserve.serve_static(
         "gemma2-9b", smoke=True, batch=B, prompt_len=S, gen=GEN, cim=True,
         device="cpu", params=params_from_numpy(pnp),
-        prompts=to_torch(np.asarray(prompts)).long(), x_cal=x_cal)
+        prompts=to_torch(np.asarray(prompts)).long(), x_cal=x_cal, **chip)
     return {"ref_tokens": np.asarray(jnp.concatenate(toks, axis=1)),
             "ref_logits": [np.asarray(v) for v in ref_logits],
             "ref_deployed": deployed, "res": res, "pnp": pnp,
-            "launches": K.LAUNCHES - launches}
+            "launches": sum(K.LAUNCHES.values()) - launches,
+            "chip": chip_name}
 
 
 def test_greedy_tokens_equal(served):
+    _assert_tokens_equal(served)
+
+
+def test_chip_greedy_tokens_equal(served_chip):
+    _assert_tokens_equal(served_chip)
+
+
+def _assert_tokens_equal(served):
     assert to_numpy(served["res"].out.tokens).tolist() == \
         served["ref_tokens"].tolist()
 
 
 def test_logits_allclose(served):
+    _assert_logits_allclose(served)
+
+
+def test_chip_logits_allclose(served_chip):
+    _assert_logits_allclose(served_chip)
+
+
+def _assert_logits_allclose(served):
     got = served["res"].out.logits
     assert len(got) == GEN
     for step, (g, want) in enumerate(zip(got, served["ref_logits"])):
@@ -91,6 +128,16 @@ def test_logits_allclose(served):
 def test_deployed_chips_match(served, name):
     """Every layer's chip for this projection: index maps equal, the
     programmed tiles equal, the calibrated tensors to f32 rounding."""
+    _assert_deployed_match(served, name)
+
+
+@pytest.mark.parametrize("name", ["wq", "wk", "wv", "wo", "w_g", "w_i",
+                                  "w_o"])
+def test_chip_deployed_chips_match(served_chip, name):
+    _assert_deployed_match(served_chip, name)
+
+
+def _assert_deployed_match(served, name):
     spl = served["ref_deployed"]["layers"][name + "_cim"]
     ours = served["res"].params["layers"][name + "_cim"]
     assert len(ours) == 2
@@ -110,6 +157,27 @@ def test_deployed_chips_match(served, name):
 def test_cpu_serve_launches_no_kernel(served):
     """On the CPU every projection took the plain version: no launch."""
     assert served["launches"] == 0
+
+
+def test_chip_cpu_serve_launches_no_kernel(served_chip):
+    assert served_chip["launches"] == 0
+
+
+def test_chips_exercise_their_routes(served, served_chip):
+    """The merged chip serves a multi-pass plan (the scheduled route), the
+    IR-drop chip 47-column tiles."""
+    from repro_torch.kernels.cim_mvm import ops
+    for s in (served, served_chip):
+        layers = s["res"].params["layers"]
+        routes = {layers[n + "_cim"][0].packed.route()
+                  for n in tnn.PACKED_PROJ_KEYS}
+        if s["chip"] == "cim_cores=4":
+            assert "cim_mvm_scheduled" in routes
+        else:
+            assert routes == {"cim_mvm_packed"}
+        if s["chip"] == "cim_ir_drop=2e-7":
+            assert {layers[n + "_cim"][0].packed.bn
+                    for n in tnn.PACKED_PROJ_KEYS} == {47}
 
 
 def test_lm_forward_float_path_matches():
@@ -136,8 +204,19 @@ def test_params_from_numpy_keeps_layout():
 
 
 def test_serve_cli_on_cpu():
+    _serve_cli([])
+
+
+@pytest.mark.parametrize("flags", [["--cim-cores", "4"],
+                                   ["--cim-ir-drop", "2e-7"]],
+                         ids=["merged", "ir-drop"])
+def test_serve_cli_on_cpu_other_chips(flags):
+    _serve_cli(flags)
+
+
+def _serve_cli(flags):
     out = tserve.main(["--smoke", "--cim", "--device", "cpu", "--batch",
-                       "2", "--prompt-len", "6", "--gen", "3"])
+                       "2", "--prompt-len", "6", "--gen", "3", *flags])
     assert tuple(out.shape) == (2, 3)
 
 
