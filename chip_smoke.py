@@ -36,7 +36,26 @@ the final result line:
                 labels, 120 hidden units), batch 64, 10 Gibbs cycles:
                 digital, stochastic and pixel-interleaved runs, launches
                 counted per run, a plain rerun from the same seeds
-  profile       a profiled decode window of each serve path, and the
+  chip-linear   the single-matrix kernel against its plain version at
+                every 7-layer CNN and ResNet-20 matrix shape at batch 256
+                (im2col rows M, K with the bias row, N), on relaxed
+                conductances, every activation including stochastic, bit
+                for bit; times and bounds per shape
+  cnn7          the 7-layer CNN at 28x28x1, batch 256 (random weights from
+                seed 0, 32 calibration images): deploy and chip inference,
+                relaxed and writeverify, 6 + 7 launches each; a plain
+                rerun's logits equal; top-1 agreement with the software
+                path (a check of the path, not an accuracy)
+  resnet20      ResNet-20 at 32x32x3, batch 256, relaxed: 21 + 22 launches,
+                plain rerun equal, top-1 agreement
+  noisy-matmul  the noise-injection training matmul at the 7-layer CNN's
+                conv5 and a gemma2-9b w_g in training (2 launches), then
+                against its plain version (NOISY_TOL), seed determinism,
+                sigma 0 against the plain product, and the reference
+                test's noise statistic; times beside a torch.matmul on the
+                materialised noisy weight ("matmul only")
+  profile       a profiled decode window of each serve path, three
+                profiled chip inferences of each CNN path, and the
                 transposed kernel's device time at the RBM's shape, after
                 every timed run
   kernels       one line per the contract below, then the result line
@@ -49,6 +68,10 @@ of the kernel runs and of the plain reruns must be equal too. The
 card-vs-CPU smoke comparison differs in the float ops around the kernel
 (attention, norms, matmuls on two devices): logits within SMOKE_ATOL and
 greedy tokens equal unless the top two logits lie within 2 * SMOKE_ATOL.
+The noisy matmul sums in f32 in another order than its plain version and
+draws eps with the same hash but possibly other logf / cosf roundings:
+NOISY_TOL, |kernel - plain| <= (2K + 8) * 2^-24 * (|x| @ (|w| + sigma *
+|eps|)) elementwise.
 """
 from __future__ import annotations
 
@@ -83,12 +106,37 @@ MERGED_ROUTES = {"cim_mvm_packed": 4, "cim_mvm_scheduled": 3}
 IRDROP_ROUTES = {"cim_mvm_scheduled": 7}
 RECOVER = ["--pixels", "784", "--labels", "10", "--hidden", "120",
            "--batch", "64", "--cycles", "10", "--mode", "ideal"]
-SOURCES = {k: f"src/repro_torch/kernels/cim_mvm/csrc/{k}.cu"
-           for k in ("cim_mvm_packed", "cim_mvm_scheduled",
-                     "cim_mvm_transposed")}
+SOURCES = {k: f"src/repro_torch/kernels/{v}"
+           for k, v in (("cim_mvm_packed", "cim_mvm/csrc/cim_mvm_packed.cu"),
+                        ("cim_mvm_scheduled",
+                         "cim_mvm/csrc/cim_mvm_scheduled.cu"),
+                        ("cim_mvm_transposed",
+                         "cim_mvm/csrc/cim_mvm_transposed.cu"),
+                        ("cim_mvm", "cim_mvm/csrc/cim_mvm.cu"),
+                        ("noisy_matmul",
+                         "noisy_matmul/csrc/noisy_matmul.cu"))}
 REPLACES = {"cim_mvm_packed": "src/repro/kernels/cim_mvm/kernel.py:238",
             "cim_mvm_scheduled": "src/repro/kernels/cim_mvm/kernel.py:351",
-            "cim_mvm_transposed": "src/repro/kernels/cim_mvm/kernel.py:466"}
+            "cim_mvm_transposed": "src/repro/kernels/cim_mvm/kernel.py:466",
+            "cim_mvm": "src/repro/kernels/cim_mvm/kernel.py:161",
+            "noisy_matmul": "src/repro/kernels/noisy_matmul/kernel.py:44"}
+FP32_FLOPS_PER_S = 67e12         # H100 SXM FP32 peak (CUDA cores, no TF32)
+CNN_BATCH, CNN_CAL = 256, 32     # images per inference; calibration images
+# every chip matrix of the two CNNs at batch 256: (rows M of the im2col'd
+# input, K weight rows with the one bias row untrained weights give, N)
+CNN7_SHAPES = {"conv0": (200704, 10, 16), "conv1": (200704, 145, 16),
+               "conv2": (50176, 145, 32), "conv3": (50176, 289, 32),
+               "conv4": (12544, 289, 64), "conv5": (12544, 577, 64),
+               "fc": (256, 577, 10)}
+RESNET20_SHAPES = {"stem": (262144, 28, 16),
+                   "s0 c1/c2 (x6)": (262144, 145, 16),
+                   "s1b0c1": (65536, 145, 32),
+                   "s1 c2, b1-2 c1 (x5)": (65536, 289, 32),
+                   "s1b0proj": (65536, 17, 32), "s2b0c1": (16384, 289, 64),
+                   "s2 c2, b1-2 c1 (x5)": (16384, 577, 64),
+                   "s2b0proj": (16384, 33, 64), "fc": (256, 65, 10)}
+NOISY_SHAPES = {"cnn7 conv5 training": (12544, 577, 64),
+                "gemma2-9b w_g training": (2048, 3584, 14336)}
 
 failures = []
 
@@ -156,9 +204,12 @@ def device_phase(torch):
 
 @phase("build")
 def build_phase(K, stopwatch):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.noisy_matmul import kernel as NK
     with stopwatch() as sw:
-        libs = K.build()
+        libs = build.build()
         K.load()
+        NK.load()
     return {"seconds": sw.s,
             "libraries": {k: str(v.relative_to(ROOT))
                           for k, v in libs.items()}}
@@ -523,6 +574,11 @@ def profile_phase(torch, dev, stats):
         out[path] = profile_decode(torch, res, dev)
         del res
         free(torch)
+    while stats["profile_cnn"]:
+        path, fn, ms = stats["profile_cnn"].pop(0)
+        out[path] = profile_inference(torch, fn, 3, ms)
+        del fn
+        free(torch)
     return out
 
 
@@ -536,6 +592,47 @@ def plan_summary(params):
                            "passes": p.n_passes, "runs": len(p.out_col),
                            "bn": p.bn}
     return out
+
+
+def device_us_by_kernel(prof):
+    """Device microseconds per kernel name of a torch.profiler window."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            key = e.name.replace("(anonymous namespace)::", "")
+            key = key.split("(")[0][:60]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    return by_name
+
+
+def profile_inference(torch, fn, reps, event_ms):
+    """Device time by kernel over `reps` calls of a CNN chip inference
+    (torch.profiler / CUPTI), and the device's busy share against the
+    profiled window and against the unprofiled CUDA-event time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs.clock import now
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = now()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = now() - t0
+    by_name = device_us_by_kernel(prof)
+    busy = sum(by_name.values())
+    if not busy:
+        return {"device_ms_per_inference": "not measured"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    cim = sum(v for k, v in by_name.items() if "cim_mvm" in k)
+    return {"reps": reps, "wall_ms_per_inference": wall * 1e3 / reps,
+            "device_ms_per_inference": busy / 1e3 / reps,
+            "device_busy_share": busy / 1e6 / wall,
+            "device_busy_share_of_event_time": busy / 1e3 / reps / event_ms,
+            "cim_kernel_share_of_device": cim / busy,
+            "top_kernels_ms_per_inference": {k: v / 1e3 / reps
+                                             for k, v in top}}
 
 
 def profile_decode(torch, res, dev):
@@ -565,12 +662,7 @@ def profile_decode(torch, res, dev):
             tok = torch.argmax(logits, -1)[:, None]
         torch.cuda.synchronize()
         wall = now() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            key = e.name.replace("(anonymous namespace)::", "")
-            key = key.split("(")[0][:60]
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    by_name = device_us_by_kernel(prof)
     busy = sum(by_name.values())
     if not busy:
         return {"device_ms_per_step": "not measured"}
@@ -631,8 +723,9 @@ def recover_phase(torch, K, dev, stats):
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)      # ... and ends here
         stats["launches"][f"recover-{mode}"] = launches
-        want = {"cim_mvm_packed": args.cycles, "cim_mvm_scheduled": 0,
-                "cim_mvm_transposed": args.cycles}
+        want = {k: 0 for k in K.LAUNCHES}
+        want.update(cim_mvm_packed=args.cycles,
+                    cim_mvm_transposed=args.cycles)
         if launches != want:
             raise AssertionError(f"recover {mode}: launches {launches}, "
                                  f"the path needs {want}")
@@ -656,6 +749,234 @@ def recover_phase(torch, K, dev, stats):
     return out
 
 
+def cim_mvm_bound(m, k, n):
+    """(bound ms, bound_by, bytes, flops) of one single-matrix launch: x,
+    gd, inv_norm and v_decr read once, the output written once; FP64
+    multiply-adds."""
+    nbytes = (m * k + k * n + n + 1 + m * n) * 4
+    flops = 2.0 * m * k * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP64_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+@phase("chip-linear")
+def chip_linear_phase(torch, K, cim, CIMConfig, dev, stats):
+    """The single-matrix kernel at every CNN matrix shape: bit for bit
+    against its plain version in every activation, then timed."""
+    gen = torch.Generator(dev).manual_seed(13)
+    flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB > L2
+    rows = {}
+    for model, shapes in (("cnn7", CNN7_SHAPES),
+                          ("resnet20", RESNET20_SHAPES)):
+        for name, (m, k, n) in shapes.items():
+            w = torch.randn(k, n, generator=gen, device=dev) / k ** 0.5
+            lay = cim.program(w, CIMConfig(), 3.0, mode="relaxed",
+                              generator=gen)
+            gd = (lay.g_pos - lay.g_neg).contiguous()
+            inv = (1.0 / lay.norm).contiguous()
+            x = torch.randint(-7, 8, (m, k), generator=gen,
+                              device=dev).to(torch.float32)
+            for act in ALL_ACTIVATIONS:
+                kw = dict(activation=act, seed=SEED)
+                a = K.cim_mvm(x, gd, inv, lay.v_decr, **kw)
+                b = K.cim_mvm(x, gd, inv, lay.v_decr, impl="plain", **kw)
+                check_equal(torch, a, b, f"{model} {name} {act}", stats,
+                            "cim_mvm")
+            run_k = lambda: K.cim_mvm(x, gd, inv, lay.v_decr)
+            run_p = lambda: K.cim_mvm(x, gd, inv, lay.v_decr, impl="plain")
+            run_k()
+            ms = median_ms(torch, run_k, 20, flush)
+            plain_ms = median_ms(torch, run_p, 5, flush)
+            b_ms, b_by, nbytes, flops = cim_mvm_bound(m, k, n)
+            row = {"kernel": "cim_mvm", "model": model, "matrix": name,
+                   "m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "flops": flops}
+            emit({"phase": "kernel-shape", **row})
+            rows[model, name] = row
+            del x, lay, gd, inv
+    # one 7-layer CNN chip inference at batch 256: its 7 launches, the
+    # bound of their bytes and operations together
+    cnn = [r for (mdl, _), r in rows.items() if mdl == "cnn7"]
+    t_bytes = sum(r["bytes"] for r in cnn) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(r["flops"] for r in cnn) / FP64_FLOPS_PER_S * 1e3
+    stats["time"]["cim_mvm"] = {
+        "ms": sum(r["ms"] for r in cnn),
+        "plain_ms": sum(r["plain_ms"] for r in cnn),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return {"shapes": len(rows), "max_abs_err": stats["err"]["cim_mvm"],
+            "cnn7_inference_launches": stats["time"]["cim_mvm"]}
+
+
+def cnn_path(torch, K, model, dev, stats, path, hw, channels, mode,
+             n_deploy, n_infer):
+    """Deploy `model` (init seeded 0) on CNN_CAL calibration images and run
+    chip inference on CNN_BATCH images, with the launch counts set to 0
+    just before the deploy and read after it and after the inference:
+    exactly n_deploy and n_deploy + n_infer single-matrix launches. Then
+    the plain rerun (equal logits) and the software path's top-1."""
+    from repro_torch.core.types import CIMConfig
+    from repro_torch.data import cluster_images
+    from repro_torch.obs.clock import stopwatch
+    cfg = CIMConfig(in_bits=4, out_bits=8)
+    gen = torch.Generator(dev).manual_seed(0)
+    x, labels = cluster_images(gen, CNN_CAL + CNN_BATCH, hw=hw,
+                               channels=channels)
+    x_cal, x = x[:CNN_CAL], x[CNN_CAL:]
+    params = (model.init_full(gen, x_cal[:2]) if hasattr(model, "init_full")
+              else model.init(gen, in_ch=channels))
+    want = {k: 0 for k in K.LAUNCHES}
+    reset_launches(K)                    # the path's run starts here
+    with stopwatch() as sw:
+        states = model.deploy(params, cfg, x_cal, mode=mode, generator=gen)
+        torch.cuda.synchronize()
+    after_deploy = dict(K.LAUNCHES)
+    logits = model.chip_apply(states, params, x, cfg)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)          # ... and ends here
+    stats["launches"][path] = launches
+    if after_deploy != dict(want, cim_mvm=n_deploy) or \
+            launches != dict(want, cim_mvm=n_deploy + n_infer):
+        raise AssertionError(f"{path}: launches {after_deploy} after deploy"
+                             f", {launches} after inference; the path needs "
+                             f"{n_deploy} + {n_infer} cim_mvm")
+    if tuple(logits.shape) != (CNN_BATCH, 10) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{path}: logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    plain = model.chip_apply(states, params, x, cfg, impl="plain")
+    if not torch.equal(plain, logits):
+        raise AssertionError(f"{path}: the plain rerun's logits differ by "
+                             f"{float((plain - logits).abs().max())}")
+    if dict(K.LAUNCHES) != launches:
+        raise AssertionError(f"{path}: the plain rerun launched a kernel")
+    infer = lambda: model.chip_apply(states, params, x, cfg)
+    ms = median_ms(torch, infer, 5)
+    # its device time by kernel is read in the profile phase
+    stats["profile_cnn"].append((path, infer, ms))
+    soft = model.apply(params, x)
+    soft = soft[0] if isinstance(soft, tuple) else soft
+    agree = float((soft.argmax(-1) == logits.argmax(-1)).float().mean())
+    return {"mode": mode, "images": [CNN_BATCH, hw, hw, channels],
+            "launches": launches, "deploy_s": sw.s, "inference_ms": ms,
+            "top1_agreement_chip_vs_software": agree,
+            "top1_vs_labels_untrained": float(
+                (logits.argmax(-1) == labels[CNN_CAL:]).float().mean()),
+            "layers": len(states)}
+
+
+@phase("cnn7")
+def cnn7_phase(torch, K, dev, stats):
+    from repro_torch.models import cnn7
+    out = {}
+    for mode in ("relaxed", "writeverify"):
+        out[mode] = cnn_path(torch, K, cnn7, dev, stats, f"cnn7-{mode}", 28,
+                             1, mode, 6, 7)
+        free(torch)
+    return out
+
+
+@phase("resnet20")
+def resnet20_phase(torch, K, dev, stats):
+    from repro_torch.models import resnet20
+    out = cnn_path(torch, K, resnet20, dev, stats, "resnet20-relaxed", 32, 3,
+                   "relaxed", 21, 22)
+    free(torch)
+    return out
+
+
+def noisy_tol(torch, NK, x, w, sigma_frac, seed):
+    """NOISY_TOL (module docstring) at the reference's default block."""
+    k, n = w.shape
+    sig = sigma_frac * w.abs().max()
+    eps = NK.weight_noise_eps(k, n, seed, min(256, k), min(256, n), w.device)
+    return (2 * k + 8) * 2.0 ** -24 * (x.abs() @ (w.abs() + sig * eps.abs()))
+
+
+@phase("noisy-matmul")
+def noisy_matmul_phase(torch, K, dev, stats):
+    from repro_torch.kernels.noisy_matmul import kernel as NK, ops as nops
+    gen = torch.Generator(dev).manual_seed(14)
+    data = {name: (torch.randn(m, k, generator=gen, device=dev),
+                   torch.randn(k, n, generator=gen, device=dev) / k ** 0.5)
+            for name, (m, k, n) in NOISY_SHAPES.items()}
+    reset_launches(K)                    # the path's run starts here
+    outs = {name: nops.noisy_matmul(x, w, 0.1, seed=3)
+            for name, (x, w) in data.items()}
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)          # ... and ends here
+    stats["launches"]["noisy-matmul"] = launches
+    if launches != dict({k: 0 for k in K.LAUNCHES}, noisy_matmul=2):
+        raise AssertionError(f"noisy-matmul: launches {launches}, the path "
+                             "needs 2 noisy_matmul")
+    err = stats["err"]
+    cases = dict(data, ragged=(torch.randn(50, 300, generator=gen,
+                                           device=dev),
+                               torch.randn(300, 70, generator=gen,
+                                           device=dev)))
+    for name, (x, w) in cases.items():
+        a = outs.get(name)
+        a = nops.noisy_matmul(x, w, 0.1, seed=3) if a is None else a
+        b = nops.noisy_matmul(x, w, 0.1, seed=3, impl="plain")
+        d = (a - b).abs()
+        err["noisy_matmul"] = max(err.get("noisy_matmul", 0.0),
+                                  float(d.max()))
+        if not bool((d <= noisy_tol(torch, NK, x, w, 0.1, 3)).all()):
+            raise AssertionError(f"noisy-matmul {name}: outside NOISY_TOL "
+                                 f"(max |err| {float(d.max())})")
+        if not torch.equal(a, nops.noisy_matmul(x, w, 0.1, seed=3)):
+            raise AssertionError(f"noisy-matmul {name}: not deterministic")
+        if torch.equal(a, nops.noisy_matmul(x, w, 0.1, seed=4)):
+            raise AssertionError(f"noisy-matmul {name}: seed 4 = seed 3")
+        z = nops.noisy_matmul(x, w, 0.0)
+        bound0 = (2 * x.shape[1] + 8) * 2.0 ** -24 * (x.abs() @ w.abs())
+        if not bool(((z - x @ w).abs() <= bound0).all()):
+            raise AssertionError(f"noisy-matmul {name}: sigma 0 is not x @ w")
+    # the reference test's statistic (tests/test_kernels.py)
+    x = torch.randn(64, 128, generator=gen, device=dev)
+    w = torch.randn(128, 64, generator=gen, device=dev)
+    d = nops.noisy_matmul(x, w, 0.1, seed=3, block=(64, 64, 64)) - x @ w
+    pred = 0.1 * float(w.abs().max()) * float(
+        torch.sqrt(torch.mean(torch.sum(x ** 2, dim=1))))
+    ratio = float(d.std()) / pred
+    if not 0.7 < ratio < 1.3:
+        raise AssertionError(f"noisy-matmul: noise std ratio {ratio}")
+    flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB > L2
+    rows = {}
+    for name, (m, k, n) in NOISY_SHAPES.items():
+        x, w = data[name]
+        sig = 0.1 * w.abs().max()
+        wn = w + sig * NK.weight_noise_eps(k, n, 3, min(256, k), min(256, n),
+                                           dev)
+        run_k = lambda: NK.noisy_matmul(x, w, sig, seed=3)
+        run_k()
+        ms = median_ms(torch, run_k, 20, flush)
+        plain_ms = median_ms(
+            torch, lambda: NK.noisy_matmul(x, w, sig, seed=3, impl="plain"),
+            5, flush)
+        mm_ms = median_ms(torch, lambda: torch.matmul(x, wn), 20, flush)
+        nbytes = (m * k + k * n + m * n + 1) * 4
+        flops = 2.0 * m * k * n
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        rows[name] = {"kernel": "noisy_matmul", "matrix": name, "m": m,
+                      "k": k, "n": n, "ms": ms, "plain_ms": plain_ms,
+                      "matmul_only_ms": mm_ms, "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "bytes": nbytes, "flops": flops}
+        emit({"phase": "kernel-shape", **rows[name]})
+        del wn
+    stats["time"]["noisy_matmul"] = {
+        k: rows["gemma2-9b w_g training"][k]
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "matmul_only_ms")}
+    free(torch)
+    return {"max_abs_err": err["noisy_matmul"], "noise_std_ratio": ratio,
+            "shapes": rows}
+
+
 def kernels_line(stats):
     """The contract's kernels line: launches on each kernel's path (with
     every path's count beside it), max |err| against the plain version,
@@ -667,10 +988,17 @@ def kernels_line(stats):
                                "decode step, 3072-core chip)",
           "cim_mvm_transposed": "the RBM's h->v launch at paper geometry, "
                                 "M = 64 (CUDA-event window, host work "
-                                "included; device_ms: the kernel alone)"}
+                                "included; device_ms: the kernel alone)",
+          "cim_mvm": "one 7-layer CNN chip inference at 28x28, batch 256: "
+                     "its 7 launches summed (relaxed conductances)",
+          "noisy_matmul": "a gemma2-9b w_g in training, M 2048, K 3584, "
+                          "N 14336 (matmul_only_ms: torch.matmul on the "
+                          "materialised noisy weight, no noise drawn)"}
     main_path = {"cim_mvm_packed": "serve",
                  "cim_mvm_scheduled": "serve-merged",
-                 "cim_mvm_transposed": "recover-digital"}
+                 "cim_mvm_transposed": "recover-digital",
+                 "cim_mvm": "cnn7-relaxed",
+                 "noisy_matmul": "noisy-matmul"}
     paths = stats["launches"]
     rows = []
     for kernel in SOURCES:
@@ -685,7 +1013,8 @@ def kernels_line(stats):
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": None, "at": at[kernel],
-            **{k: v for k, v in t.items() if k in ("device_ms", "w_g_bwd_ms")},
+            **{k: v for k, v in t.items()
+               if k in ("device_ms", "w_g_bwd_ms", "matmul_only_ms")},
             "ok": not failures})
     return {"kernels": rows}
 
@@ -709,7 +1038,8 @@ def main() -> int:
     from repro_torch.obs.clock import stopwatch
 
     dev = serve.resolve_device("cuda")
-    stats = {"err": {}, "time": {}, "launches": {}, "profile": []}
+    stats = {"err": {}, "time": {}, "launches": {}, "profile": [],
+             "profile_cnn": []}
     info = device_phase(torch)
     if build_phase(K, stopwatch) is None:
         return 1
@@ -722,6 +1052,11 @@ def main() -> int:
         phase(path)(serve_path)(torch, K, ops, serve, dev, stats, path, conf,
                                 routes, text)
     recover_phase(torch, K, dev, stats)
+    chip_linear_phase(torch, K, cim, CIMConfig, dev, stats)
+    free(torch)
+    cnn7_phase(torch, K, dev, stats)
+    resnet20_phase(torch, K, dev, stats)
+    noisy_matmul_phase(torch, K, dev, stats)
     profile_phase(torch, dev, stats)
 
     emit(kernels_line(stats))

@@ -1,9 +1,15 @@
-"""Weights carried across from the JAX reference.
+"""Weights and chip state carried across from the JAX reference.
 
 `params_from_numpy` takes the reference's params as the nested dict of
-numpy arrays that `jax.tree_util.tree_map(np.asarray, params)` gives and
-returns the port's params in the same layout (per-layer weights stacked
-(L, in, out) under 'layers').
+numpy arrays that `jax.tree_util.tree_map(np.asarray, params)` gives (the
+transformer's stacked layers, the CNNs' conv / fc / BN dicts and PACT clip
+vectors) and returns the port's params in the same layout.
+
+`chip_states_from_numpy` takes a dict of the reference's deployed
+`ChipLinear`s (`cnn7.deploy`, `resnet20.deploy`), their arrays as numpy,
+and returns the port's: the same programmed conductances, normalizers and
+ADC steps, which the two packages cannot draw alike for `relaxed` or
+`writeverify` programming.
 """
 from __future__ import annotations
 
@@ -21,3 +27,22 @@ def params_from_numpy(tree):
     if np.issubdtype(a.dtype, np.floating):
         a = a.astype(np.float32)
     return torch.from_numpy(a)
+
+
+def chip_states_from_numpy(states):
+    """name -> reference ChipLinear (fields layer, bias_rows, alpha,
+    signed; layer a CIMLayer whose arrays convert with np.asarray) -> name
+    -> the port's `models.nn.ChipLinear` of float32 CPU tensors."""
+    from .core.cim import CIMLayer
+    from .models.nn import ChipLinear
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    out = {}
+    for name, s in states.items():
+        layer = CIMLayer(*(f32(getattr(s.layer, f))
+                           for f in CIMLayer._fields))
+        out[name] = ChipLinear(layer, int(np.asarray(s.bias_rows)),
+                               f32(s.alpha), bool(np.asarray(s.signed)))
+    return out

@@ -1,12 +1,15 @@
 """High-level CIM API — the chip-compiler pipeline models deploy through
-(PyTorch port of `repro/core/cim.py`, ideal mode).
+(PyTorch port of `repro/core/cim.py`).
 
     plan  ->  schedule  ->  program  ->  calibrate  ->  pack
 
   * `plan_chip`      (mapping.plan_layers): matrices -> `Plan` of core tiles.
   * `schedule_chip`  (mapping.schedule_tiles): per-layer ordered passes.
-  * `program_chip`   : weights -> `CIMLayer` conductances ('ideal' encode)
-                       plus the whole-matrix calibration.
+  * `program_chip`   : weights -> `CIMLayer` conductances at one of three
+                       fidelities — 'ideal' (exact encode), 'relaxed'
+                       (+relaxation noise, 3 iterations), 'writeverify'
+                       (pulse-level simulation) — plus the whole-matrix
+                       calibration.
   * `calibrate_chip` : one ADC v_decr per tile and direction, measured on
                        that tile's own partial-sum distribution.
   * `pack_chip`      (mapping.pack_tiles / pack_tiles_transposed):
@@ -17,9 +20,18 @@
 the chip-IR verifier (`core.verify.verify_chip`) over it. `packed_forward`
 serves one packed layer: quantize, one kernel launch, rescale.
 
-Randomness (synthetic calibration batches) comes from an explicit
-`torch.Generator`; callers that must match the JAX reference pass the
-reference's calibration batches as `x_cal` / `x_cal_bwd` instead.
+`program` / `forward` are the per-matrix path (`models/nn.chip_linear` /
+`chip_conv`, the CNN deploys): one programmed matrix through the
+single-matrix kernel (`kernels/cim_mvm.cim_mvm`), returning the
+de-normalized digital output in x @ W units with measured ADC offsets
+cancelled. `program` runs the verifier's `exact-dot` check on every
+programmed matrix. Configurations that need the reference's bit-serial
+oracle (per-phase non-idealities, the oracle's stochastic neuron) raise.
+
+Randomness (programming noise, synthetic calibration batches) comes from
+an explicit `torch.Generator`; callers that must match the JAX reference
+pass the reference's calibration batches as `x_cal` / `x_cal_bwd`, or its
+programmed layers (`convert.chip_states_from_numpy`), instead.
 """
 from __future__ import annotations
 
@@ -29,14 +41,16 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from .calibration import calibrate_layer, quantile_linear
-from .conductance import weights_to_conductances
+from .conductance import program_conductances, weights_to_conductances
 from .mapping import (MatrixReq, PackedPlan, Plan, TileSchedule, block_view,
                       ir_drop_max_cols, pack_tiles, pack_tiles_transposed,
                       plan_layers, schedule_tiles)
 from .quant import quantize_to_int
 from .types import CIMConfig, CoreSpec
-from .verify import verify_chip
-from ..kernels.cim_mvm.ops import cim_mvm_packed
+from .verify import check_layer, verify_chip
+from .writeverify import iterative_program
+from ..kernels.cim_mvm.ops import cim_mvm, cim_mvm_packed
+from ..kernels.cim_mvm.ref import dequantize_output
 
 
 class CIMLayer(NamedTuple):
@@ -59,27 +73,73 @@ def synthetic_x_cal(rows: int, in_alpha: float, generator: torch.Generator):
     return in_alpha * x
 
 
-def program(w, cfg: CIMConfig, in_alpha=1.0, x_cal=None, mode: str = "ideal",
+def program(w, cfg: CIMConfig, in_alpha=1.0, x_cal=None,
+            mode: str = "relaxed",
             generator: Optional[torch.Generator] = None) -> CIMLayer:
-    """Program weight matrix w (R, C) onto the chip and calibrate it.
+    """Program weight matrix w (R, C) onto the chip at fidelity `mode`
+    ('ideal', 'relaxed' or 'writeverify') and calibrate it.
 
     x_cal: optional (B_cal, R) float calibration activations; None draws a
-    synthetic batch from `generator` (a fresh one seeded 0 if None).
+    synthetic batch. Programming noise, then the synthetic batch, are drawn
+    from `generator` (a fresh one seeded 0 on w's device if None). Runs the
+    verifier's per-matrix `exact-dot` check.
     """
-    if mode != "ideal":
-        raise NotImplementedError(
-            f"mode={mode!r}: relaxed and writeverify programming are not "
-            "ported yet (ROADMAP A11); use mode='ideal'")
-    c = weights_to_conductances(w, cfg.device)
+    gen = generator or torch.Generator(w.device).manual_seed(0)
+    if mode == "ideal":
+        c = weights_to_conductances(w, cfg.device)
+    elif mode == "relaxed":
+        c = program_conductances(gen, w, cfg.device, iterations=3)
+    elif mode == "writeverify":
+        ideal = weights_to_conductances(w, cfg.device)
+        g_pos = iterative_program(gen, ideal.g_pos, cfg.device)
+        g_neg = iterative_program(gen, ideal.g_neg, cfg.device)
+        c = type(ideal)(g_pos, g_neg, ideal.w_max,
+                        torch.sum(g_pos + g_neg, dim=0))
+    else:
+        raise ValueError(f"mode must be 'ideal', 'relaxed' or "
+                         f"'writeverify', got {mode!r}")
+    check_layer(c.g_pos, c.g_neg)
     if x_cal is None:
-        gen = generator or torch.Generator(w.device).manual_seed(0)
         x_cal = synthetic_x_cal(w.shape[0], in_alpha, gen)
     x_int_cal, _ = quantize_to_int(x_cal, in_alpha, cfg.in_bits, signed=True)
     cal = calibrate_layer(x_int_cal, c.g_pos, c.g_neg, cfg)
     return CIMLayer(c.g_pos, c.g_neg, c.w_max, c.norm, cal.v_decr,
                     cal.adc_offset,
-                    torch.tensor(in_alpha, dtype=torch.float32,
+                    torch.tensor(float(in_alpha), dtype=torch.float32,
                                  device=w.device))
+
+
+def forward(layer: CIMLayer, x, cfg: CIMConfig, *, seed: int = 0,
+            impl: str = "auto"):
+    """y ~= x @ W through the chip datapath of one programmed matrix. x:
+    (B, R) float. One launch of the single-matrix kernel; impl="plain"
+    forces its plain version (on-card comparison only)."""
+    if _needs_ref(cfg):
+        raise NotImplementedError(
+            "per-phase non-idealities and the oracle's stochastic neuron "
+            "need the reference's bit-serial oracle, which is not ported")
+    x_int, scale = quantize_to_int(x, layer.in_alpha, cfg.in_bits, signed=True)
+    counts = cim_mvm(x_int, layer.g_pos, layer.g_neg, layer.v_decr, cfg,
+                     seed=seed, norm=layer.norm, impl=impl)
+    # digital offset cancellation (offsets were measured during calibration)
+    off_counts = torch.round(layer.adc_offset / layer.v_decr)
+    if cfg.activation == "none":
+        counts = counts - off_counts[None, :]
+    return dequantize_output(counts, layer.v_decr, layer.norm, layer.w_max,
+                             scale, cfg)
+
+
+def _needs_ref(cfg: CIMConfig) -> bool:
+    """Per-phase non-idealities require the bit-serial oracle path."""
+    ni = cfg.nonideal
+    return (ni.ir_drop_alpha > 0 or ni.wire_r_alpha > 0
+            or ni.coupling_sigma > 0 or ni.adc_offset_sigma > 0
+            or cfg.activation == "stochastic")
+
+
+def effective_weight(layer: CIMLayer, cfg: CIMConfig):
+    """The weight the (noisy) array actually realizes."""
+    return (layer.g_pos - layer.g_neg) * layer.w_max / cfg.device.g_max
 
 
 class PackedCIMLayer(NamedTuple):
@@ -233,14 +293,18 @@ def program_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig, *,
                  generator: Optional[torch.Generator] = None):
     """Stage 3 (PROGRAM): conductances + whole-matrix calibration per
     matrix, in sorted name order. Returns (name -> CIMLayer, name ->
-    calibration batch); the same batch drives stage 4."""
+    calibration batch); the same batch drives stage 4. Programming noise
+    comes from `generator` (a fresh one seeded 0 if None)."""
     layers: Dict[str, CIMLayer] = {}
     batches: Dict[str, torch.Tensor] = {}
+    prog_gen = generator
     for name in sorted(weights):
         w = weights[name]
         xc = _batch(x_cal, name, w.shape[0], in_alpha, generator, w.device)
+        if prog_gen is None:
+            prog_gen = torch.Generator(w.device).manual_seed(0)
         layers[name] = program(w, cfg, in_alpha=in_alpha, x_cal=xc,
-                               mode=mode)
+                               mode=mode, generator=prog_gen)
         batches[name] = xc
     return layers, batches
 

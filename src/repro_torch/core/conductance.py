@@ -8,8 +8,9 @@ and the voltage-mode output is normalized by the total column conductance
 norm_j = sum_i (g_pos_ij + g_neg_ij), which the chip multiplies back
 digitally.
 
-Only the ideal encoding is ported; programming noise (`relaxed`) and the
-pulse-level `writeverify` simulation wait for ROADMAP A11.
+`program_conductances` adds the programming noise (write-verify residual
+plus conductance relaxation) drawn from a `torch.Generator`; the pulse-level
+write-verify simulation is `core/writeverify.py`.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from .noise import apply_relaxation
 from .types import DeviceConfig
 
 
@@ -36,3 +38,21 @@ def weights_to_conductances(w, dev: DeviceConfig) -> Conductances:
     g_neg = torch.clamp(-scaled, min=dev.g_min)
     norm = torch.sum(g_pos + g_neg, dim=0)
     return Conductances(g_pos, g_neg, w_max, norm)
+
+
+def program_conductances(generator: torch.Generator, w, dev: DeviceConfig,
+                         iterations: int = 3) -> Conductances:
+    """Encoding followed by programming noise (write-verify residual +
+    conductance relaxation): what sits in the array at inference time.
+    norm is recomputed from the actual (noisy) cells, since the chip
+    measures the programmed conductances. G+ is drawn before G-."""
+    ideal = weights_to_conductances(w, dev)
+    g_pos = apply_relaxation(generator, ideal.g_pos, dev, iterations)
+    g_neg = apply_relaxation(generator, ideal.g_neg, dev, iterations)
+    norm = torch.sum(g_pos + g_neg, dim=0)
+    return Conductances(g_pos, g_neg, ideal.w_max, norm)
+
+
+def conductances_to_weights(c: Conductances, dev: DeviceConfig):
+    """Decode: the effective weight realized by the (possibly noisy) array."""
+    return (c.g_pos - c.g_neg) * c.w_max / dev.g_max

@@ -11,10 +11,21 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class DeviceConfig:
-    """RRAM device-level parameters (paper Methods). The relaxation and
-    write-verify parameters of the reference arrive with ROADMAP A11."""
+    """RRAM device-level parameters (paper Methods, 'RRAM write-verify...')."""
     g_min: float = 1.0      # uS — low conductance state
     g_max: float = 40.0     # uS — 40 for CNNs, 30 for LSTM/RBM in the paper
+    # Conductance relaxation: Gaussian, sigma peaks ~3.87uS near 12uS state,
+    # ~2.8uS average after 1 programming iteration, ~2.0uS after 3 iterations.
+    relax_sigma_peak: float = 3.87      # uS
+    relax_sigma_peak_g: float = 12.0    # uS, conductance where sigma peaks
+    relax_sigma_floor: float = 0.5      # uS, sigma near g_min / g_max
+    # Write-verify programming (paper: 1.2V SET / 1.5V RESET, 0.1V increments,
+    # +-1uS acceptance, 30 polarity-reversal timeout).
+    accept_range: float = 1.0           # uS
+    max_reversals: int = 30
+    set_v0: float = 1.2
+    reset_v0: float = 1.5
+    v_increment: float = 0.1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,13 @@ stage, layer, tile/slot and invariant, before anything launches.
   schedule  permutation            non-idle slots cover the tiles once
             pass-shape             order length == n_passes * pass_len
             core-double-booking    no core fires twice within one pass
+  program   exact-dot              a per-matrix CIMLayer (the single-
+                                   matrix kernel's operand): every
+                                   conductance >= 1 uS, so G+ - G- lies on
+                                   the 2^-23 grid, and K rows of inputs up
+                                   to 127 keep the FP64 dot exact
+            shared-memory          one block of the single-matrix kernel
+                                   fits Hopper's shared memory
   plan      core-bounds            every tile sits on a real core
             tile-extent            tiles fit the physical core array
             ir-drop-cols           columns per core respect
@@ -119,6 +126,48 @@ def check_schedule(tiles: Sequence[Tile], schedule: TileSchedule, *,
                     f"core {core} fires twice in pass {p} (tiles "
                     f"{seen[core]} and {i})", layer=layer, tile=i)
             seen[core] = i
+
+
+# ------------------------------------------- stage 3: per-matrix program
+
+_EXACT_G_MIN = 1.0       # uS: every f32 >= 1 is a multiple of 2^-23
+
+
+def check_layer(g_pos, g_neg, *, bm: Optional[int] = None,
+                layer: Optional[str] = None) -> None:
+    """Verify one programmed matrix (a per-matrix CIMLayer's G+ and G-,
+    (K, N) uS) for the single-matrix kernel `cim_mvm`.
+
+    exact-dot: the kernel sums x @ (G+ - G-) in FP64 and rounds once, which
+    equals its plain version bit for bit only when the sum is exact. Every
+    f32 of magnitude >= 1 is a multiple of 2^-23, so with every conductance
+    >= 1 uS (relaxation and write-verify clip to g_min) G+ - G-, rounded to
+    f32, is one too; K rows of integer inputs up to 127 then stay below
+    2^53 grid steps while K * 127 * max|G+ - G-| < 2^30."""
+    g_lo = min(float(g_pos.min()), float(g_neg.min())) if g_pos.numel() \
+        else _EXACT_G_MIN
+    if g_lo < _EXACT_G_MIN:
+        raise ChipVerifyError(
+            "program", "exact-dot",
+            f"a conductance of {g_lo} uS lies below {_EXACT_G_MIN} uS: G+ - "
+            "G- may fall off the 2^-23 grid and the kernel's FP64 dot "
+            "could round", layer=layer)
+    k = int(g_pos.shape[0])
+    gd_max = float((g_pos - g_neg).abs().max()) if g_pos.numel() else 0.0
+    if k * _IN_MAX_LIMIT * gd_max >= 2.0 ** 30:
+        raise ChipVerifyError(
+            "program", "exact-dot",
+            f"|G+ - G-| reaches {gd_max}: a {k}-row dot of inputs up to "
+            f"{_IN_MAX_LIMIT} could reach 2^30 and round in FP64",
+            layer=layer)
+    bm_eff = block_rows(_DEFAULT_BM if bm is None else max(int(bm), 1))
+    need = shared_bytes("cim_mvm", bm_eff)
+    if need > SMEM_LIMIT:
+        raise ChipVerifyError(
+            "program", "shared-memory",
+            f"one CUDA block of cim_mvm needs {need} bytes of shared memory "
+            f"at {bm_eff} rows but a Hopper block has {SMEM_LIMIT}",
+            layer=layer)
 
 
 # ----------------------------------------------------------- stage 1: plan

@@ -1,5 +1,6 @@
-"""Synthetic data (PyTorch port of `repro/data/synthetic.py`: LM tokens
-and the RBM's binary patterns with their corruptions).
+"""Synthetic data (PyTorch port of `repro/data/synthetic.py`: LM tokens,
+the CNNs' cluster images, and the RBM's binary patterns with their
+corruptions).
 
 Every draw comes from an explicit `torch.Generator`, on its device; the
 reference's jax.random streams are not replayed, so the parity tests hand
@@ -14,6 +15,36 @@ def lm_tokens(generator: torch.Generator, batch: int, seq: int, vocab: int):
     """Uniform random token ids (int64, on the generator's device)."""
     return torch.randint(0, vocab, (batch, seq), generator=generator,
                          device=generator.device)
+
+
+def cluster_images(generator: torch.Generator, n: int, hw: int = 16,
+                   channels: int = 1, classes: int = 10, noise: float = 0.25,
+                   proto_seed: int = 7):
+    """Images = smoothed class prototype + pixel noise, in [0, 1]; shapes
+    mirror the paper's benchmarks (MNIST 28x28x1, CIFAR-10 32x32x3). The
+    prototypes come from their own generator seeded `proto_seed`, so sets
+    drawn from different generators share the task. Returns ((n, hw, hw,
+    channels) float32, (n,) int64 labels), on the generator's device."""
+    dev = generator.device
+    proto = torch.Generator(dev).manual_seed(proto_seed)
+    protos = torch.rand((classes, hw, hw, channels), generator=proto,
+                        device=dev)
+    labels = torch.randint(0, classes, (n,), generator=generator, device=dev)
+    eps = torch.randn((n, hw, hw, channels), generator=generator, device=dev)
+    return compose_images(protos, labels, eps, noise), labels
+
+
+def compose_images(protos, labels, eps, noise: float = 0.25):
+    """The deterministic half of `cluster_images`: smooth each (classes,
+    hw, hw, C) prototype channel with a 3x3 box filter at zero 'same'
+    padding (as `convolve2d(mode="same")` does), then image = clip(proto
+    [label] + noise * eps, 0, 1)."""
+    k, hw, _, c = protos.shape
+    planes = protos.permute(0, 3, 1, 2).reshape(k * c, 1, hw, hw)
+    box = torch.full((1, 1, 3, 3), 1.0 / 9.0, device=protos.device)
+    smooth = torch.nn.functional.conv2d(planes, box, padding=1)
+    smooth = smooth.reshape(k, c, hw, hw).permute(0, 2, 3, 1)
+    return torch.clamp(smooth[labels] + noise * eps, 0.0, 1.0)
 
 
 def binary_patterns(generator: torch.Generator, n: int, d: int = 784,

@@ -1,10 +1,11 @@
 // Shared device code of the NeuRRAM CIM MVM kernels for Hopper (sm_90a):
-// the ADC epilogue, the stochastic neuron with its hash PRNG, and the
-// forward tile dot. Included by cim_mvm_packed.cu, cim_mvm_scheduled.cu
-// and cim_mvm_transposed.cu.
+// the ADC epilogue, the stochastic neuron (its hash PRNG is
+// kernels/csrc/hash_prng.cuh), and the forward tile dot. Included by
+// cim_mvm_packed.cu, cim_mvm_scheduled.cu, cim_mvm_transposed.cu and
+// cim_mvm.cu.
 //
 // Ports repro/kernels/cim_mvm/kernel.py `_epilogue`, `_acc_weight` and
-// `_pwl_tanh`, and repro/kernels/prng.py `hash_bits` / `hash_uniform`.
+// `_pwl_tanh`.
 // Every f32 step is one IEEE rounding written out (__fmul_rn, __fadd_rn,
 // __fdiv_rn), so no multiply-add contracts and the results equal the
 // plain PyTorch versions in kernel.py bit for bit.
@@ -12,6 +13,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hash_prng.cuh"
 
 namespace cim {
 
@@ -29,26 +32,6 @@ struct Epilogue {
   uint32_t seed;                    // stochastic: the reference's seed salt
   int bm_ref;                       // stochastic: the reference's batch block
 };
-
-// Murmur3 finalizer (prng._mix), in uint32 wraparound.
-__device__ __forceinline__ uint32_t hash_mix(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  return h ^ (h >> 16);
-}
-
-// prng.hash_bits at (row, col) with three salts (seed, row block, tile).
-__device__ __forceinline__ uint32_t hash_bits(uint32_t row, uint32_t col,
-                                              uint32_t s0, uint32_t s1,
-                                              uint32_t s2) {
-  uint32_t h = row * 0x9E3779B9u + col * 0x7F4A7C15u;
-  h = hash_mix(h + s0 * 0x6C62272Eu);
-  h = hash_mix(h + s1 * 0x6C622730u);
-  h = hash_mix(h + s2 * 0x6C622732u);
-  return hash_mix(h);
-}
 
 // ADC charge-decrement count with the fused activation (not stochastic).
 __device__ __forceinline__ float adc(float q, float vd, const Epilogue& e) {
@@ -70,22 +53,32 @@ __device__ __forceinline__ float adc(float q, float vd, const Epilogue& e) {
   return __fmul_rn(sign, fminf(steps, e.n_max));
 }
 
+// The stochastic neuron: the comparator bit of q plus uniform noise in
+// +-(vd * n_max), the noise drawn by hash_uniform at the reference's
+// block-local (row, col) with salts (seed, s1, s2).
+__device__ __forceinline__ float stochastic_bit(float q, float vd,
+                                               uint32_t row, uint32_t col,
+                                               uint32_t s1, uint32_t s2,
+                                               const Epilogue& e) {
+  const float u01 = prng::to_uniform(prng::bits3(row, col, e.seed, s1, s2));
+  const float u = __fsub_rn(__fmul_rn(u01, 2.f), 1.f);
+  return __fadd_rn(q, __fmul_rn(u, __fmul_rn(vd, e.n_max))) > 0.f ? 1.f : 0.f;
+}
+
 // One tile's contribution to one output: the count times its digital
 // accumulation weight. row: the output's row in x; col: its column inside
 // the tile's output block; tile: the hash's tile salt (the slot, or the
-// stack position for the transposed kernel). The stochastic neuron emits
-// the comparator bit of q plus uniform noise in +-(vd * n_max), weighted
-// by the valid-column mask (inv > 0), as the reference's `_acc_weight`.
+// stack position for the transposed kernel). The stochastic neuron's bit
+// is weighted by the valid-column mask (inv > 0), as the reference's
+// `_acc_weight`, and hashed at (row % bm_ref, col) with salts (seed,
+// row / bm_ref, tile).
 __device__ __forceinline__ float tile_term(float q, float vd, float inv,
                                            float den, int row, int col,
                                            int tile, const Epilogue& e) {
   if (e.act != kStochastic) return __fmul_rn(adc(q, vd, e), den);
-  const uint32_t bits = hash_bits((uint32_t)(row % e.bm_ref), (uint32_t)col,
-                                  e.seed, (uint32_t)(row / e.bm_ref),
-                                  (uint32_t)tile);
-  const float u01 = __fmul_rn(__uint2float_rn(bits), 2.3283064365386963e-10f);
-  const float u = __fsub_rn(__fmul_rn(u01, 2.f), 1.f);
-  const float bit = __fadd_rn(q, __fmul_rn(u, __fmul_rn(vd, e.n_max))) > 0.f ? 1.f : 0.f;
+  const float bit = stochastic_bit(q, vd, (uint32_t)(row % e.bm_ref),
+                                   (uint32_t)col, (uint32_t)(row / e.bm_ref),
+                                   (uint32_t)tile, e);
   return inv > 0.f ? bit : 0.f;
 }
 

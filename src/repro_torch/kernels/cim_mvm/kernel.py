@@ -1,5 +1,11 @@
-"""The whole-layer CIM MVM kernels: hand-written CUDA kernels for Hopper and
-their plain PyTorch versions (port of `repro/kernels/cim_mvm/kernel.py`).
+"""The CIM MVM kernels: hand-written CUDA kernels for Hopper and their plain
+PyTorch versions (port of `repro/kernels/cim_mvm/kernel.py`).
+
+`cim_mvm` (replaces `cim_mvm_pallas`) runs ONE programmed matrix, the
+per-matrix path of `core/cim.forward`: q = (x @ gd) * v_read * inv_norm,
+then the epilogue, with the stochastic neuron hashed at the reference's
+block-local coordinates (row % bm_ref, col % bn_ref) and salts (seed,
+row // bm_ref, col // bn_ref) for the reference's block (bm_ref, bn_ref).
 
 Three kernels execute a packed tile plan (core/mapping.PackedPlan) in one
 launch each; for every output column block j and every tile t of j, in the
@@ -35,26 +41,24 @@ default batch block.
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel (`csrc/*.cu`) for a CUDA tensor, or raises — nothing falls back.
 The kernels are compiled with nvcc at first use into `build/kernels/`, one
-library per source, all built in parallel, and bound with ctypes (plain C
-entry points, no torch headers). `LAUNCHES` counts each kernel's launches,
-and only those.
+library per source, all built in parallel (`kernels/build.py`), and bound
+with ctypes (plain C entry points, no torch headers). `LAUNCHES` (shared
+by every kernel of the port) counts each kernel's launches, and only
+those.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict
 
 import torch
 
+from .. import build as _build
 from ..prng import bits_to_uniform, hash_bits_at
 
-KERNELS = ("cim_mvm_packed", "cim_mvm_scheduled", "cim_mvm_transposed")
-LAUNCHES = {name: 0 for name in KERNELS}   # kernel launches, per kernel
+KERNELS = ("cim_mvm_packed", "cim_mvm_scheduled", "cim_mvm_transposed",
+           "cim_mvm")
+LAUNCHES = _build.LAUNCHES                 # kernel launches, per kernel
 
 ACTIVATIONS = {"none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "identity": 4,
                "stochastic": 5}
@@ -64,12 +68,8 @@ THREADS = 128         # output columns per CUDA block
 BLOCK_ROWS = (4, 32)  # decode (M <= 4) and prefill row blocks
 SMEM_LIMIT = 232_448  # shared memory a Hopper block can use, bytes
 HASH_BM = 256         # the reference's default batch block (autotune.py)
+REF_BLOCK = (256, 256, 256)   # the reference cim_mvm's default (bm, bk, bn)
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("cim_epilogue.cuh",)
-_REPO = Path(__file__).resolve().parents[4]
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 _lib: Dict[str, ctypes.CDLL] = {}
 
 
@@ -83,7 +83,8 @@ def shared_bytes(kernel: str, bm: int) -> int:
     """Static shared memory of one block of `kernel` at `bm` rows: the
     staged x chunk, [chunk][bm + 2] doubles, and for the transposed kernel
     the staged tile chunk, [THREADS][T_CHUNK + 1] floats (checked against
-    the built kernels' own attributes when the libraries load)."""
+    the built kernels' own attributes when the libraries load). The
+    single-matrix `cim_mvm` stages x as the packed kernel does."""
     if kernel == "cim_mvm_transposed":
         return T_CHUNK * (bm + 2) * 8 + THREADS * (T_CHUNK + 1) * 4
     return K_CHUNK * (bm + 2) * 8
@@ -129,6 +130,32 @@ def _epilogue(q, vd, activation: str, n_max: int, u=None):
             out = torch.floor((out + n_max) * 0.5)
         return out
     return sign * torch.clamp(steps, max=float(n_max))
+
+
+def matrix_uniform(m: int, n: int, seed: int, bm_ref: int, bn_ref: int,
+                   device):
+    """The single-matrix kernel's stochastic draws, (m, n) in [0, 1]: the
+    reference's hash_uniform((bm_ref, bn_ref), seed, i, j) of each
+    (row block i, column block j) at block-local coordinates."""
+    rows = torch.arange(m, device=device)[:, None]
+    cols = torch.arange(n, device=device)[None, :]
+    return bits_to_uniform(hash_bits_at(rows % bm_ref, cols % bn_ref, seed,
+                                        rows // bm_ref, cols // bn_ref))
+
+
+def cim_mvm_plain(x, gd, inv_norm, v_decr, *, activation: str, n_max: int,
+                  v_read: float, seed: int = 0, bm_ref: int, bn_ref: int):
+    """The plain PyTorch version of the single-matrix kernel: the dot in
+    FP64 (exact for integer x and gd on the 2^-23 grid, so it is the
+    kernel's dot bit for bit) rounded once to f32, then q = acc * v_read *
+    inv_norm and the epilogue. Returns (M, N) f32."""
+    acc = (x.to(torch.float64) @ gd.to(torch.float64)).to(torch.float32)
+    q = acc * v_read * inv_norm
+    u = None
+    if activation == "stochastic":
+        u = matrix_uniform(q.shape[0], q.shape[1], seed, bm_ref, bn_ref,
+                           x.device)
+    return _epilogue(q, v_decr, activation, n_max, u)
 
 
 def _x_blocks(x, n_in_blocks: int, width: int):
@@ -270,6 +297,33 @@ def boundary_counts(x, gd_tiles, inv_norm_tiles, v_decr_tiles, in_index,
     return hits.permute(1, 0, 2).reshape(m, n_cb * out_w)
 
 
+def matrix_boundary_counts(x, gd, inv_norm, v_decr, *, v_read: float,
+                           activation: str = "none", n_max: int = 127,
+                           seed: int = 0, bm_ref: int = HASH_BM,
+                           bn_ref: int = HASH_BM):
+    """`boundary_counts` of the single-matrix kernel: for each output, 1
+    where two correct f32 executions of its K-term dot (the reference's
+    blocked f32 sum, the port's exact one) may decide differently, else 0.
+    The band is 2 * (K + 2) * 2^-24 * (|x| @ |gd|) * v_read * |inv|.
+    Returns int32 (M, N)."""
+    u32 = 2.0 ** -24
+    xd, gdd = x.double(), gd.double()
+    inv = inv_norm.double()
+    vd = torch.as_tensor(v_decr).double()
+    q = xd @ gdd * v_read * inv
+    band = 2 * (gd.shape[0] + 2) * u32 * (xd.abs() @ gdd.abs()) * v_read \
+        * inv.abs()
+    if activation == "stochastic":
+        u = matrix_uniform(q.shape[0], q.shape[1], seed, bm_ref, bn_ref,
+                           x.device).double()
+        noise = (u * 2.0 - 1.0) * (vd * n_max)
+        near = (q + noise).abs() <= band + 2 * u32 * noise.abs()
+    else:
+        v = q.abs() / vd
+        near = (v - (torch.floor(v) + 0.5)).abs() <= band / vd
+    return near.to(torch.int32)
+
+
 # ------------------------------------------------------------- CUDA kernels
 
 class Epilogue(ctypes.Structure):
@@ -283,67 +337,35 @@ class Epilogue(ctypes.Structure):
 
 
 def _epilogue_args(activation: str, n_max: int, v_read: float, seed: int,
-                   m: int) -> Epilogue:
+                   bm_ref: int) -> Epilogue:
     return Epilogue(ACTIVATIONS[activation], v_read, float(n_max),
                     4.0 * n_max, *pwl_knots(n_max), int(seed) & 0xFFFFFFFF,
-                    min(HASH_BM, m))
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
-                           "the CUDA toolkit")
-    return path
-
-
-def build() -> Dict[str, Path]:
-    """Compile every csrc/<kernel>.cu into its own shared library under
-    build/kernels/ (once per source and header content), all nvcc runs
-    started together; returns kernel name -> library path."""
-    common = b"".join((_CSRC / h).read_bytes() for h in _HEADERS) \
-        + " ".join(NVCC_FLAGS).encode()
-    out_dir = _REPO / "build" / "kernels"
-    libs, procs = {}, {}
-    for name in KERNELS:
-        src = _CSRC / f"{name}.cu"
-        tag = hashlib.sha1(src.read_bytes() + common).hexdigest()[:12]
-        libs[name] = lib = out_dir / f"{name}-{tag}.so"
-        if lib.exists():
-            continue
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    errors = []
-    for name, (tmp, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed on {name}.cu:\n{err}")
-        else:
-            os.replace(tmp, libs[name])
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return libs
+                    bm_ref)
 
 
 def load() -> Dict[str, ctypes.CDLL]:
-    """Build (at first use) and bind every kernel's C entry points; checks
-    each kernel's static shared memory against the verifier's model."""
+    """Build (at first use) and bind every CIM kernel's C entry points;
+    checks each kernel's static shared memory against the verifier's
+    model."""
     if _lib:
         return _lib
     p, i = ctypes.c_void_p, ctypes.c_int
     n_tables = {"cim_mvm_packed": 2, "cim_mvm_scheduled": 4,
                 "cim_mvm_transposed": 5}
     libs = {}
-    for name, path in build().items():
-        lib = ctypes.CDLL(str(path))
+    for name in KERNELS:
+        lib = _build.library(name)
         launch = getattr(lib, f"{name}_launch")
-        # x, M, K, gd, inv_norm, denorm, v_decr, the index tables,
-        # n_col_blocks, in width, out width, out, epilogue, bm, stream
-        launch.argtypes = ([p, i, i] + [p] * (4 + n_tables[name])
-                           + [i, i, i, p, ctypes.POINTER(Epilogue), i, p])
+        if name == "cim_mvm":
+            # x, M, K, gd, N, inv_norm, v_decr, bn_ref, out, epilogue, bm,
+            # stream
+            launch.argtypes = [p, i, i, p, i, p, p, i, p,
+                               ctypes.POINTER(Epilogue), i, p]
+        else:
+            # x, M, K, gd, inv_norm, denorm, v_decr, the index tables,
+            # n_col_blocks, in width, out width, out, epilogue, bm, stream
+            launch.argtypes = ([p, i, i] + [p] * (4 + n_tables[name])
+                               + [i, i, i, p, ctypes.POINTER(Epilogue), i, p])
         launch.restype = i
         smem = getattr(lib, f"{name}_shared_bytes")
         smem.argtypes, smem.restype = [i], i
@@ -398,7 +420,7 @@ def _launch(kernel: str, x, gd_tiles, tile_tensors, index_tensors, n_cb: int,
     out = torch.empty((m, n_cb * out_w), dtype=f32, device=dev)
     if m == 0:
         return out
-    epi = _epilogue_args(activation, n_max, v_read, seed, m)
+    epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
     err = getattr(lib, f"{kernel}_launch")(
         x.data_ptr(), m, k, gd_tiles.data_ptr(), inv.data_ptr(),
         den.data_ptr(), vd.data_ptr(), *(t.data_ptr() for t in index_tensors),
@@ -509,3 +531,51 @@ def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                    (inv_norm_tiles, denorm_tiles, v_decr_tiles),
                    (in_index, tile_index, *tables),
                    col_run_start.shape[0] - 1, bn_f, bk_f, **kw)
+
+
+def cim_mvm(x, gd, inv_norm, v_decr, *, activation: str = "none",
+            n_max: int = 127, v_read: float = 0.5, seed: int = 0,
+            block=REF_BLOCK, impl: str = "auto"):
+    """Single-matrix CIM MVM: ONE launch.
+
+    x: (M, K) f32 integer-valued activations; gd: (K, N) f32 G+ - G-;
+    inv_norm: (N,) f32; v_decr: 0-d f32 ADC step (read on the device);
+    seed: the stochastic neuron's salt; block: the reference's (bm, bk,
+    bn), which keys the stochastic draws (bm_ref = min(bm, M), bn_ref =
+    min(bn, N)). Returns (M, N) f32 counts (the raw charge for
+    'identity').
+
+    impl: "auto" runs the plain version on a CPU tensor and launches the
+    kernel on a CUDA tensor; "plain" forces the plain version (on-card
+    comparison only).
+    """
+    _check_args(activation, impl)
+    m, k = x.shape
+    if gd.shape[0] != k:
+        raise ValueError(f"x has {k} features, gd has {gd.shape[0]} rows")
+    n = gd.shape[1]
+    bm_ref, bn_ref = max(min(block[0], m), 1), max(min(block[2], n), 1)
+    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed)
+    if impl == "plain" or x.device.type == "cpu":
+        return cim_mvm_plain(x, gd, inv_norm, v_decr, bm_ref=bm_ref,
+                             bn_ref=bn_ref, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no cim_mvm kernel for device {x.device}")
+    dev, f32 = x.device, torch.float32
+    _check("x", x, f32, (m, k), dev)
+    _check("gd", gd, f32, (k, n), dev)
+    _check("inv_norm", inv_norm, f32, (n,), dev)
+    _check("v_decr", v_decr, f32, (), dev)
+    lib = load()["cim_mvm"]
+    out = torch.empty((m, n), dtype=f32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    epi = _epilogue_args(activation, n_max, v_read, seed, bm_ref)
+    err = lib.cim_mvm_launch(
+        x.data_ptr(), m, k, gd.data_ptr(), n, inv_norm.data_ptr(),
+        v_decr.data_ptr(), bn_ref, out.data_ptr(), ctypes.byref(epi),
+        block_rows(m), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cim_mvm launch failed: CUDA error {err}")
+    LAUNCHES["cim_mvm"] += 1
+    return out

@@ -1,5 +1,10 @@
-"""Public entry points of the packed CIM MVM (PyTorch port of
+"""Public entry points of the CIM MVM kernels (PyTorch port of
 `repro/kernels/cim_mvm/ops.py`).
+
+`cim_mvm` is the single-matrix path used by models in chip-sim mode
+(`core.cim.forward`): it forms the folded representation (differential
+conductance gd = G+ - G- and the per-column normalizer) as the reference
+does and returns signed ADC counts from one kernel launch.
 
 `cim_mvm_packed` executes a whole layer's TNSA tile plan
 (core/mapping.PackedPlan) in one kernel launch — the serving path behind
@@ -19,6 +24,26 @@ import torch
 
 from . import kernel as K
 from ...core.types import CIMConfig
+
+
+def cim_mvm(x_int, g_pos, g_neg, v_decr, cfg: CIMConfig, *, seed: int = 0,
+            norm=None, block=K.REF_BLOCK, impl: str = "auto"):
+    """CIM MVM returning signed ADC counts, shape (B, C) float32.
+
+    x_int: (B, R) integer-valued float or int tensor; g_pos / g_neg: (R, C)
+    conductances in uS; v_decr: the ADC step (0-d); norm: the per-column
+    normalizer (default: the column sums of G+ + G-). block: the
+    reference's (bm, bk, bn), which keys the stochastic neuron's draws.
+    impl="plain" forces the plain version (on-card comparison only)."""
+    gd = (g_pos - g_neg).to(torch.float32).contiguous()
+    if norm is None:
+        norm = torch.sum(g_pos + g_neg, dim=0)
+    inv_norm = (1.0 / norm.to(torch.float32)).contiguous()
+    vd = torch.as_tensor(v_decr, dtype=torch.float32, device=gd.device)
+    return K.cim_mvm(x_int.to(torch.float32).contiguous(), gd, inv_norm,
+                     vd.reshape(()), activation=cfg.activation,
+                     n_max=cfg.out_mag_levels, v_read=cfg.v_read, seed=seed,
+                     block=block, impl=impl)
 
 
 def packed_call(x, packed, *, activation: str, n_max: int, v_read: float,

@@ -4,8 +4,8 @@
 A Murmur3 finalizer over element coordinates plus integer salts: stateless
 and deterministic in (salts, row, column), the software analogue of the
 chip's spatially uncorrelated XOR'd LFSR chains. The CUDA kernels carry the
-same hash as device code (`cim_mvm/csrc/cim_epilogue.cuh`); these are its
-plain versions. uint32 wraparound is written out in int64 arithmetic masked
+same hash as device code (`csrc/hash_prng.cuh`); these are its plain
+versions. uint32 wraparound is written out in int64 arithmetic masked
 to 32 bits, with every product split so that it stays below 2^63.
 """
 from __future__ import annotations
@@ -71,8 +71,19 @@ def hash_uniform(shape, *salts, device=None):
     return bits_to_uniform(hash_bits(shape, *salts, device=device))
 
 
+def _box_muller(u1, u2):
+    u1 = torch.clamp(u1, min=1e-7)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+
+
 def hash_normal(shape, *salts, device=None):
     """Standard normal via Box-Muller on two hashed uniforms."""
-    u1 = torch.clamp(hash_uniform(shape, *salts, 1, device=device), min=1e-7)
-    u2 = hash_uniform(shape, *salts, 2, device=device)
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    return _box_muller(hash_uniform(shape, *salts, 1, device=device),
+                       hash_uniform(shape, *salts, 2, device=device))
+
+
+def hash_normal_at(rows, cols, *salts):
+    """`hash_normal` at broadcastable row and column coordinates, as
+    `hash_bits_at` takes them."""
+    return _box_muller(bits_to_uniform(hash_bits_at(rows, cols, *salts, 1)),
+                       bits_to_uniform(hash_bits_at(rows, cols, *salts, 2)))

@@ -152,7 +152,8 @@ def main(argv=None):
     ap.add_argument("--cim", action="store_true",
                     help="serve dense-block projections through the packed "
                          "CIM engine (programs the chip before serving)")
-    ap.add_argument("--cim-mode", default="ideal", choices=["ideal"],
+    ap.add_argument("--cim-mode", default="ideal",
+                    choices=["ideal", "relaxed", "writeverify"],
                     help="conductance programming fidelity for --cim")
     ap.add_argument("--cim-bits", type=int, default=0,
                     help="bit-serial input precision for --cim (1..8; 0 = "

@@ -1,5 +1,29 @@
-"""Packed CIM deploys (PyTorch port of the packed half of
+"""Neural-network substrate over the CIM core (PyTorch port of
 `repro/models/nn.py`).
+
+Every weight matrix has two execution paths:
+
+  * SOFTWARE path (float): PACT-quantized activations and, for
+    noise-resilient training (paper Fig. 3c), Gaussian weight noise
+    (`noisy_linear` / `noisy_conv`, drawn from a torch.Generator). The
+    training loop itself is not ported yet.
+  * CHIP path (inference, integer): the weight (with bias and folded batch
+    norm merged in, paper Fig. 4c) is programmed onto simulated RRAM with
+    the bias-as-rows scheme, calibrated (`deploy_linear`), and executed
+    through the single-matrix CIM kernel (`chip_linear` / `chip_conv`).
+
+Bias-as-rows (paper Methods): if the bias range is B times the weight
+range, the bias is split evenly over B appended rows driven with
+full-scale inputs.
+
+Tensors are NHWC, as in the reference (`max_pool` permutes to PyTorch's
+NCHW inside). `im2col` flattens each patch channel-major, (C, kh, kw),
+which is what the reference's `conv_general_dilated_patches` gives
+(its comment says kh*kw*C); the conv weights (kh, kw, cin, cout) are
+reshaped to (kh*kw*cin, cout) all the same, in both packages, so the port
+reproduces the reference's pairing of patch and weight entries. `SAME`
+padding is XLA's: total = max((out - 1) * s + k - in, 0), the smaller
+half before (asymmetric at stride 2).
 
 `deploy_transformer_cim` compiles each layer's dense projections onto one
 simulated chip (`core.cim.compile_chip`) and returns params augmented
@@ -13,13 +37,185 @@ one replicated ("none") stack; that is all the port does. Sharded deploys
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import math
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core import cim as cim_api
+from ..core.noise import weight_noise
+from ..core.quant import pact_quantize
 from ..core.types import CIMConfig, CoreSpec, NonIdealityConfig
 from ..core.verify import verify_deployed
+
+# ---------------------------------------------------------------- init utils
+
+def linear_init(generator: torch.Generator, n_in: int, n_out: int):
+    w = torch.randn((n_in, n_out), generator=generator,
+                    device=generator.device) * math.sqrt(2.0 / n_in)
+    return {"w": w, "b": torch.zeros((n_out,), device=generator.device)}
+
+
+def conv_init(generator: torch.Generator, kh: int, kw_: int, cin: int,
+              cout: int):
+    fan_in = kh * kw_ * cin
+    w = torch.randn((kh, kw_, cin, cout), generator=generator,
+                    device=generator.device) * math.sqrt(2.0 / fan_in)
+    return {"w": w, "b": torch.zeros((cout,), device=generator.device)}
+
+
+def bn_init(c: int, device=None):
+    return {"gamma": torch.ones((c,), device=device),
+            "beta": torch.zeros((c,), device=device),
+            "mean": torch.zeros((c,), device=device),
+            "var": torch.ones((c,), device=device)}
+
+
+# ------------------------------------------------------------ software path
+
+def quant_act(x, alpha, bits: int, signed: bool):
+    """PACT activation quantization with STE; identity if bits <= 0."""
+    if bits <= 0:
+        return x
+    return pact_quantize(x, alpha, bits, signed=signed)
+
+
+def noisy_linear(generator: Optional[torch.Generator], p, x,
+                 noise_frac: float):
+    w = p["w"]
+    if noise_frac > 0.0 and generator is not None:
+        w = weight_noise(generator, w, noise_frac)
+    return x @ w + p["b"]
+
+
+def _same_pads(size: int, k: int, stride: int):
+    """XLA's SAME padding of one spatial dim: (before, after)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def im2col(x, kh: int, kw_: int, stride: int = 1, padding: str = "SAME"):
+    """x: (B, H, W, C) -> patches (B, Ho, Wo, C*kh*kw), each patch
+    flattened channel-major (C, kh, kw) as the reference's
+    `conv_general_dilated_patches` flattens it. The windows are strided
+    views of the padded input (`Tensor.unfold`), gathered by one copy."""
+    b, h, w, c = x.shape
+    if padding == "SAME":
+        (pt, pb), (pl, pr) = _same_pads(h, kh, stride), \
+            _same_pads(w, kw_, stride)
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                         f"{padding!r}")
+    win = x.unfold(1, kh, stride).unfold(2, kw_, stride)  # (B,Ho,Wo,C,kh,kw)
+    return win.reshape(b, win.shape[1], win.shape[2], c * kh * kw_)
+
+
+def noisy_conv(generator: Optional[torch.Generator], p, x,
+               noise_frac: float, stride: int = 1, padding: str = "SAME"):
+    kh, kw_, cin, cout = p["w"].shape
+    cols = im2col(x, kh, kw_, stride, padding)      # (B, Ho, Wo, kh*kw*cin)
+    w2 = p["w"].reshape(kh * kw_ * cin, cout)
+    if noise_frac > 0.0 and generator is not None:
+        w2 = weight_noise(generator, w2, noise_frac)
+    return cols @ w2 + p["b"]
+
+
+def batch_norm(p, x, train: bool, momentum: float = 0.9, eps: float = 1e-5):
+    """Returns (y, updated bn params). Reduction over all but the last
+    axis."""
+    if train:
+        axes = tuple(range(x.ndim - 1))
+        mean = torch.mean(x, axes)
+        var = torch.var(x, axes, unbiased=False)
+        new_p = dict(p, mean=momentum * p["mean"] + (1 - momentum) * mean,
+                     var=momentum * p["var"] + (1 - momentum) * var)
+    else:
+        mean, var, new_p = p["mean"], p["var"], p
+    y = (x - mean) / torch.sqrt(var + eps) * p["gamma"] + p["beta"]
+    return y, new_p
+
+
+def fold_bn(conv_p, bn_p, eps: float = 1e-5):
+    """Merge BN into conv weights / bias (paper Fig. 4c) for chip
+    deployment."""
+    scale = bn_p["gamma"] / torch.sqrt(bn_p["var"] + eps)
+    w = conv_p["w"] * scale              # broadcast over output channel
+    b = (conv_p["b"] - bn_p["mean"]) * scale + bn_p["beta"]
+    return {"w": w, "b": b}
+
+
+def max_pool(x, window: int = 2, stride: int = 2):
+    """VALID max pooling of (B, H, W, C)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool_global(x):
+    return torch.mean(x, dim=(1, 2))
+
+
+# ------------------------------------------------------------- chip path
+
+class ChipLinear(NamedTuple):
+    """A linear / conv (flattened) layer programmed on the simulated chip."""
+    layer: cim_api.CIMLayer
+    bias_rows: int            # rows appended for the bias
+    alpha: torch.Tensor       # input PACT clip used at deploy time (0-d)
+    signed: bool
+
+
+def _augment_bias(w2, b, drive):
+    """Append bias rows: the bias split over B rows driven at full-scale
+    input `drive` (the PACT clip alpha: `chip_linear` drives them at
+    `cl.alpha`); B scales with bmax / (drive * wmax), so each row's
+    conductance stays within the weight range."""
+    wmax = torch.clamp(torch.max(torch.abs(w2)), min=1e-12)
+    bmax = torch.max(torch.abs(b))
+    n_rows = int(torch.clamp(torch.ceil(bmax / (drive * wmax)), min=1))
+    rows = (b / (n_rows * drive))[None, :].expand(n_rows, -1)
+    return torch.cat([w2, rows], dim=0), n_rows
+
+
+def deploy_linear(p, cfg: CIMConfig, alpha, x_cal=None, signed: bool = False,
+                  mode: str = "relaxed",
+                  generator: Optional[torch.Generator] = None) -> ChipLinear:
+    """Program one weight matrix (+ bias rows) onto simulated RRAM;
+    programming noise from `generator`."""
+    w2 = p["w"] if p["w"].ndim == 2 else p["w"].reshape(-1, p["w"].shape[-1])
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=w2.device)
+    w_aug, n_rows = _augment_bias(w2, p["b"], alpha)
+    if x_cal is not None:
+        ones = torch.full((x_cal.shape[0], n_rows), float(alpha),
+                          device=x_cal.device)
+        x_cal = torch.cat([x_cal.reshape(x_cal.shape[0], -1), ones], -1)
+    layer = cim_api.program(w_aug, cfg, in_alpha=float(alpha), x_cal=x_cal,
+                            mode=mode, generator=generator)
+    return ChipLinear(layer, n_rows, alpha, signed)
+
+
+def chip_linear(cl: ChipLinear, x, cfg: CIMConfig, seed: int = 0,
+                impl: str = "auto"):
+    """x: (B, n_in) float -> (B, n_out) float through the chip datapath:
+    one launch of the single-matrix kernel (impl="plain": its plain
+    version)."""
+    ones = cl.alpha.expand(x.shape[0], cl.bias_rows).to(x.dtype)
+    x_aug = torch.cat([x, ones], dim=-1)
+    return cim_api.forward(cl.layer, x_aug, cfg, seed=seed, impl=impl)
+
+
+def chip_conv(cl: ChipLinear, x, cfg: CIMConfig, kh: int, kw_: int,
+              stride: int = 1, padding: str = "SAME", seed: int = 0,
+              impl: str = "auto"):
+    cols = im2col(x, kh, kw_, stride, padding)
+    b, ho, wo, d = cols.shape
+    y = chip_linear(cl, cols.reshape(-1, d), cfg, seed=seed, impl=impl)
+    return y.reshape(b, ho, wo, -1)
+
+
+# --------------------------------------------- packed CIM serving (engine)
 
 # Dense-block projections the packed serving path covers (the reference's
 # shared-expert keys join with MoE, ROADMAP A7).

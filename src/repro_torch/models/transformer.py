@@ -83,8 +83,8 @@ def cim_linear(x, w, cfg: ArchConfig, *, packed=None):
     if cfg.cim_mode in ("off", "packed"):
         return x @ w
     raise NotImplementedError(
-        f"cim_mode={cfg.cim_mode!r} is not ported yet (noisy: ROADMAP "
-        "B5/A11; chipsim: ROADMAP A11)")
+        f"cim_mode={cfg.cim_mode!r} is not ported yet (noisy and chipsim "
+        "come with the training slice, ROADMAP A11)")
 
 
 def routed_linear(x, p, name: str, cfg: ArchConfig):

@@ -161,10 +161,19 @@ def test_shared_memory_invariant_matches_kernel_tiling(monkeypatch):
 
 
 def test_compile_chip_rejects_unported_modes():
+    """Every programming mode of the reference compiles (relaxed and
+    writeverify draw from the generator, deterministically, and pass the
+    verifier's exact-dot); an unknown mode raises."""
     w = {"m": torch.randn(64, 32)}
     for mode in ("relaxed", "writeverify"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            tcim.compile_chip(w, CIMConfig(), mode=mode)
+        a = tcim.compile_chip(w, CIMConfig(), mode=mode,
+                              generator=torch.Generator().manual_seed(1))
+        b = tcim.compile_chip(w, CIMConfig(), mode=mode,
+                              generator=torch.Generator().manual_seed(1))
+        assert a.mode == mode and torch.equal(
+            a.layers["m"].packed.gd_tiles, b.layers["m"].packed.gd_tiles)
+    with pytest.raises(ValueError, match="mode"):
+        tcim.compile_chip(w, CIMConfig(), mode="bogus")
 
 
 # ------------------------------------------------- both directions, IR drop

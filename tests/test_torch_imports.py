@@ -47,8 +47,12 @@ def test_port_imports_without_triton_or_nvcc():
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "from repro_torch.kernels import build\n"
         "from repro_torch.kernels.cim_mvm import kernel\n"
-        "assert not kernel._lib and not any(kernel.LAUNCHES.values())\n"
+        "from repro_torch.kernels.noisy_matmul import kernel as nk\n"
+        "assert not build._cdll and not kernel._lib and nk._lib is None\n"
+        "assert sorted(build.LAUNCHES) == sorted(build.SOURCES)\n"
+        "assert not any(build.LAUNCHES.values())\n"
         "assert not any(m.startswith(('jax', 'repro.')) or m == 'repro'"
         " for m in sys.modules), 'JAX loaded'\n")
     env = dict(os.environ, PATH="/usr/bin:/bin",

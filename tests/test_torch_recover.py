@@ -188,9 +188,19 @@ def test_recover_raises_without_cuda():
 
 
 def test_unported_programming_modes_raise():
-    with pytest.raises(NotImplementedError, match="A11"):
-        trecover.main(["--smoke", "--device", "cpu", "--train-steps", "1",
-                       "--mode", "relaxed"])
+    """relaxed and writeverify programming run (the smoke task's L2 check
+    is not asked of a 20-step chip); a mode the reference does not have
+    is refused."""
+    for mode in ("relaxed", "writeverify"):
+        args = trecover.parse_args(["--smoke", "--device", "cpu",
+                                    "--train-steps", "20", "--cycles", "2",
+                                    "--mode", mode])
+        setup = trecover.build(args, torch.device("cpu"))
+        assert setup.crbm.chip.mode == mode
+        traj = trecover.recover(setup, args)
+        assert bool(torch.isfinite(traj).all())
+    with pytest.raises(SystemExit):
+        trecover.parse_args(["--mode", "bogus"])
 
 
 def test_software_gibbs_recover_shapes():
