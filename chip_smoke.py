@@ -11,13 +11,19 @@ the final result line:
   device        the card (nvidia-smi name and power limit); no CUDA fails
   build         nvcc build of every kernel, from this checkout, in parallel
   kernel        the packed kernel against its plain PyTorch version at the
-                full-width gemma2-9b layer shapes (M = 4 decode rows,
-                M = 256 prefill rows), every activation, times and bounds
+                full-width gemma2-9b layer shapes, M = 1, 4, 16 (the split
+                route), 17 and 256 (the walk), every activation, with the
+                plan's denorm and with the valid-column mask; times and
+                bounds at M = 4, 16 and 256, and the walk's time at M = 4
+                in the same run (`walk_ms`, through the kernel module's
+                own `launch_walk`)
   kernel-runs   the scheduled kernel on the multi-pass w_g and w_o of a
-                full-width layer compiled on a 3072-core chip, the
-                scheduled kernel forced onto a single-pass plan against
-                the packed kernel (and timed beside it, kernel-level
-                line), and the transposed kernel on the bwd
+                full-width layer compiled on a 3072-core chip (M as the
+                kernel phase, both weightings, the walk timed at M = 4)
+                and on a 35-row IR-drop layer whose tiles are not 16-byte
+                multiples, the scheduled kernel forced onto a single-pass
+                plan against the packed kernel (and timed beside it,
+                kernel-level line), and the transposed kernel on the bwd
                 direction of that chip's w_g and w_o and at the RBM's
                 geometry (795 x 121, M = 64); every activation including
                 stochastic, bit for bit, with times and bounds
@@ -54,7 +60,9 @@ the final result line:
                 sigma 0 against the plain product, and the reference
                 test's noise statistic; times beside a torch.matmul on the
                 materialised noisy weight ("matmul only")
-  profile       a profiled decode window of each serve path, three
+  profile       a profiled decode window of each serve path (the split
+                route's term and fold kernels timed apart; a decode step
+                that launches a walk kernel fails), three
                 profiled chip inferences of each CNN path, and the
                 transposed kernel's device time at the RBM's shape, after
                 every timed run
@@ -86,6 +94,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_FLOPS_PER_S = 67e12         # H100 SXM FP64 peak (tensor cores; 34 on CUDA cores)
 SMOKE_ATOL = 1e-4                # smoke logits are O(1); f32 roundings
+SPIN_CYCLES = 1_000_000          # ~0.5 ms at 1.98 GHz: covers a wrapper's host time
 LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wo": (4096, 3584),
          "w_g": (3584, 14336), "w_o": (14336, 3584)}
 FULL_LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wv": (3584, 2048),
@@ -95,6 +104,8 @@ FULL_LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wv": (3584, 2048),
 PER_LAYER = {"wq": 1, "wk": 2, "wo": 1, "w_g": 2, "w_o": 1}
 ACTIVATIONS = ("none", "relu", "tanh", "sigmoid", "identity")
 ALL_ACTIVATIONS = ACTIVATIONS + ("stochastic",)
+COMPARE_ROWS = (1, 4, 16, 17, 256)   # split route up to 16 rows, walk above
+TIME_ROWS = (4, 16, 17, 256)  # decode, both sides of the route's edge, prefill
 SEED = 1234                      # the stochastic neuron's salt
 SERVE = dict(n_layers=4, batch=4, prompt_len=64, gen=32, cim_cores=6144)
 MERGED = dict(n_layers=4, batch=4, prompt_len=64, gen=8, cim_cores=3072)
@@ -164,12 +175,17 @@ def phase(name):
 
 
 def median_ms(torch, fn, reps, flush=None):
-    """Median CUDA-event time of `fn`, each run after an L2 flush (the
-    serving path finds every layer's conductances cold)."""
+    """Median CUDA-event time of `fn`. With `flush` (a kernel's time): each
+    run after an L2 flush (the serving path finds every layer's
+    conductances cold) and a spin of SPIN_CYCLES on the card, so the host
+    enqueues fn's launches while the card is still busy and the window
+    holds the device's time, not the wrapper's host latency. Without it
+    (an inference's time), host time counts."""
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -262,6 +278,18 @@ def check_equal(torch, a, b, what, stats, kernel):
                              f"from the plain version (max {float(d.max())})")
 
 
+def walk_call(K, p, x, kernel, den=None):
+    """p's launch through the walk at any M (the kernel module's own
+    launch function: the wrappers take the split route up to 16 rows)."""
+    tiles = (p.inv_norm_tiles, p.denorm_tiles if den is None else den,
+             p.v_decr_tiles)
+    tables = ((p.row_index, p.col_start) if kernel == "cim_mvm_packed"
+              else (p.row_index, p.run_start, p.col_run_start, p.col_runs))
+    return K.launch_walk(kernel, x, p.gd_tiles, tiles, tables,
+                         p.n_col_blocks, p.bk, p.bn, activation="none",
+                         n_max=127, v_read=0.5, seed=SEED)
+
+
 @phase("kernel")
 def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
     gen = torch.Generator(dev).manual_seed(11)
@@ -280,7 +308,7 @@ def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
         mask = (p.inv_norm_tiles > 0).to(torch.float32)
         kw = dict(n_row_blocks=p.n_row_blocks, n_ranks=p.n_ranks,
                   v_read=0.5, seed=SEED)
-        for m in (4, 256):
+        for m in COMPARE_ROWS:
             x = torch.randint(-7, 8, (m, r), generator=gen,
                               device=dev).to(torch.float32)
             for act in ALL_ACTIVATIONS:
@@ -291,6 +319,8 @@ def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
                                          activation=act, impl="plain", **kw)
                     check_equal(torch, a, b, f"{name} M={m} {act}", stats,
                                 "cim_mvm_packed")
+            if m not in TIME_ROWS:
+                continue
             run_k = lambda: K.cim_mvm_packed(x, *packed_args(p),
                                              activation="none", **kw)
             run_p = lambda: K.cim_mvm_packed(x, *packed_args(p),
@@ -301,24 +331,42 @@ def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
             plain_ms = median_ms(torch, run_p, 5, flush)
             b_ms, b_by, nbytes, flops = bound(p, m, "cim_mvm_packed")
             row = {"matrix": name, "shape": [r, c], "m": m,
-                   "tiles": p.n_tiles, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                   "flops": flops}
+                   "tiles": p.n_tiles, "route": route_name(K, m), "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes": nbytes, "flops": flops}
+            if m == 4:
+                row["walk_ms"] = time_walk(torch, K, p, x, "cim_mvm_packed",
+                                           run_k, flush, stats)
             emit({"phase": "kernel-shape", "kernel": "cim_mvm_packed", **row})
             rows.append(row)
     decode = [r for r in rows if r["m"] == 4]
     stats["time"]["cim_mvm_packed"] = {
         k: sum(PER_LAYER[r["matrix"]] * r[k] for r in decode)
-        for k in ("ms", "plain_ms", "bound_ms")}
+        for k in ("ms", "plain_ms", "bound_ms", "walk_ms")}
     stats["time"]["cim_mvm_packed"]["bound_by"] = "bytes"
     return {"shapes": len(rows),
             "max_abs_err": stats["err"]["cim_mvm_packed"],
             "decode_layer": stats["time"]["cim_mvm_packed"]}
 
 
-def time_route(torch, ops, p, x, flush, kernel, label, scheduled=None):
+def route_name(K, m):
+    return "split" if K.split_route(m) else "walk"
+
+
+def time_walk(torch, K, p, x, kernel, run_split, flush, stats):
+    """The walk's time on x (median of 20 after an L2 flush each), in the
+    same run as the split route's, after checking that the walk's output
+    equals the split route's bit for bit."""
+    check_equal(torch, walk_call(K, p, x, kernel), run_split(),
+                f"{p.layer} walk vs split M={x.shape[0]}", stats, kernel)
+    return median_ms(torch, lambda: walk_call(K, p, x, kernel), 20, flush)
+
+
+def time_route(torch, K, ops, p, x, flush, kernel, label, stats,
+               scheduled=None):
     """Kernel and plain times of plan p on x (activation none) with its
-    bound, emitted as one kernel-shape line."""
+    bound, and the walk's time where the scheduled kernel takes the split
+    route at M = 4; emitted as one kernel-shape line."""
     from repro_torch.core.types import CIMConfig
     cfg = CIMConfig()
     run_k = lambda: ops.cim_mvm_packed(x, p, cfg, scheduled=scheduled)
@@ -331,8 +379,13 @@ def time_route(torch, ops, p, x, flush, kernel, label, scheduled=None):
     row = {"kernel": kernel, "matrix": label, "m": x.shape[0],
            "slots": p.n_tiles, "live_tiles": len(live_slots(p)),
            "passes": p.n_passes, "runs": len(p.out_col), "bn": p.bn,
+           "route": (route_name(K, x.shape[0]) if kernel in K.SPLIT_KERNELS
+                     else "walk"),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "bytes": nbytes, "flops": flops}
+    if kernel == "cim_mvm_scheduled" and x.shape[0] == 4:
+        row["walk_ms"] = time_walk(torch, K, p, x, kernel, run_k, flush,
+                                   stats)
     emit({"phase": "kernel-shape", **row})
     return row
 
@@ -377,23 +430,30 @@ def profiled_ms(torch, fn, name, reps, flush):
 
 def compare_all(torch, K, ops, p, x, what, stats, kernel, scheduled=None,
                 against_packed=False):
-    """`kernel` at every activation against its plain version (or, with
+    """`kernel` at every activation, with the plan's denorm and with the
+    valid-column mask as the weight, against its plain version (or, with
     against_packed, against the packed kernel on the same plan)."""
+    import dataclasses
     from repro_torch.core.types import CIMConfig
-    for act in ALL_ACTIVATIONS:
-        cfg = CIMConfig(activation=act)
-        before = K.LAUNCHES[kernel]
-        a = ops.cim_mvm_packed(x, p, cfg, seed=SEED, scheduled=scheduled)
-        torch.cuda.synchronize()
-        if K.LAUNCHES[kernel] != before + 1:
-            raise AssertionError(f"{what} {act}: {kernel} did not launch")
-        if against_packed:
-            b = ops.cim_mvm_packed(x, p, cfg, seed=SEED, scheduled=False)
-        else:
-            b = ops.cim_mvm_packed(x, p, cfg, seed=SEED, scheduled=scheduled,
-                                   impl="plain")
-        check_equal(torch, a, b, f"{what} M={x.shape[0]} {act}", stats,
-                    kernel)
+    mask = (p.inv_norm_tiles > 0).to(torch.float32)
+    for plan in (p, dataclasses.replace(p, denorm_tiles=mask)):
+        for act in ALL_ACTIVATIONS:
+            cfg = CIMConfig(activation=act)
+            before = K.LAUNCHES[kernel]
+            a = ops.cim_mvm_packed(x, plan, cfg, seed=SEED,
+                                   scheduled=scheduled)
+            torch.cuda.synchronize()
+            if K.LAUNCHES[kernel] != before + 1:
+                raise AssertionError(f"{what} {act}: {kernel} did not "
+                                     "launch")
+            if against_packed:
+                b = ops.cim_mvm_packed(x, plan, cfg, seed=SEED,
+                                       scheduled=False)
+            else:
+                b = ops.cim_mvm_packed(x, plan, cfg, seed=SEED,
+                                       scheduled=scheduled, impl="plain")
+            check_equal(torch, a, b, f"{what} M={x.shape[0]} {act}", stats,
+                        kernel)
 
 
 @phase("kernel-runs")
@@ -416,26 +476,44 @@ def kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
             if p.route() != kernel or p.n_passes < 2:
                 raise AssertionError(f"{name} {d}: {p.n_passes} passes, "
                                      f"route {p.route()}")
-            for m in (4, 256):
+            for m in (COMPARE_ROWS if d == "fwd" else (4, 256)):
                 x = torch.randint(-7, 8, (m, p.n_rows), generator=gen,
                                   device=dev).to(torch.float32)
                 compare_all(torch, K, ops, p, x, f"{name} {d}", stats,
                             kernel)
-                rows[name, d, m] = time_route(torch, ops, p, x, flush,
-                                              kernel, f"{name} {d}")
+                if m in TIME_ROWS:
+                    rows[name, d, m] = time_route(torch, K, ops, p, x, flush,
+                                                  kernel, f"{name} {d}",
+                                                  stats)
     # the scheduled kernel forced onto a single-pass plan is the packed one
     single = chip.layers["wq"].packed
     if single.n_passes != 1:
         raise AssertionError("wq is not single-pass on the 3072-core chip")
-    for m in (4, 256):
+    for m in COMPARE_ROWS:
         x = torch.randint(-7, 8, (m, single.n_rows), generator=gen,
                           device=dev).to(torch.float32)
         compare_all(torch, K, ops, single, x, "wq forced scheduled", stats,
                     "cim_mvm_scheduled", scheduled=True, against_packed=True)
-        level = time_level(torch, ops, single, x, flush)
-        rows["wq", "level", x.shape[0]] = level
+        if m in (4, 256):
+            level = time_level(torch, ops, single, x, flush)
+            rows["wq", "level", x.shape[0]] = level
     del chip
     free(torch)
+    # 35-row IR-drop tiles (35 x 47 x 4 = 6,580 B): chunks off the 16-byte
+    # grid of the bulk copy, single-pass and scheduled
+    from repro_torch.core.types import NonIdealityConfig
+    ir = CIMConfig(nonideal=NonIdealityConfig(ir_drop_alpha=2e-7))
+    for cores in (48, 3):
+        w = {"m": torch.randn(35, 470, generator=gen, device=dev) / 6.0}
+        p = cim.compile_chip(w, ir, CoreSpec(n_cores=cores), "ideal",
+                             in_alpha=3.0, generator=gen).layers["m"].packed
+        if (p.bk * p.bn * 4) % 16 == 0:
+            raise AssertionError(f"35-row IR-drop tiles are {p.bk} x {p.bn}")
+        for m in COMPARE_ROWS[:-1]:
+            x = torch.randint(-7, 8, (m, 35), generator=gen,
+                              device=dev).to(torch.float32)
+            compare_all(torch, K, ops, p, x, f"35x470 ir-drop {cores} cores",
+                        stats, p.route())
     # the RBM's geometry: the augmented 795 x 121 array, 7 tiles
     w = {"rbm": torch.randn(795, 121, generator=gen, device=dev) * 0.3}
     rchip = cim.compile_chip(w, CIMConfig(in_bits=2), CoreSpec(), "ideal",
@@ -444,8 +522,9 @@ def kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
     x = torch.randint(0, 2, (64, p.n_rows), generator=gen,
                       device=dev).to(torch.float32)
     compare_all(torch, K, ops, p, x, "rbm bwd", stats, "cim_mvm_transposed")
-    rows["rbm", "bwd", 64] = time_route(torch, ops, p, x, flush,
-                                        "cim_mvm_transposed", "rbm bwd")
+    rows["rbm", "bwd", 64] = time_route(torch, K, ops, p, x, flush,
+                                        "cim_mvm_transposed", "rbm bwd",
+                                        stats)
     # its device time is read in the profile phase, after every timed run
     stats["kernel_profile"] = (
         "cim_mvm_transposed",
@@ -454,7 +533,7 @@ def kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
     # a merged decode layer runs w_g, w_i (= w_g's shape) and w_o scheduled
     stats["time"]["cim_mvm_scheduled"] = {
         k: 2 * rows["w_g", "fwd", 4][k] + rows["w_o", "fwd", 4][k]
-        for k in keys[:3]}
+        for k in keys[:3] + ("walk_ms",)}
     stats["time"]["cim_mvm_scheduled"]["bound_by"] = rows["w_o", "fwd",
                                                           4]["bound_by"]
     stats["time"]["cim_mvm_transposed"] = {
@@ -637,23 +716,32 @@ def profile_inference(torch, fn, reps, event_ms):
 
 def profile_decode(torch, res, dev):
     """Device time by kernel over as many decode steps as the serve run
-    took, after a prefill (torch.profiler / CUPTI). The device's busy
-    share is read twice: against the profiled window's wall time, and
-    against the unprofiled serve run's mean CUDA-event step time (no
-    profiler overhead on the host)."""
+    took, after a prefill and as many unprofiled steps, whose host time
+    (until decode() returns; median) is read first (torch.profiler /
+    CUPTI). The device's busy share is read twice: against the profiled
+    window's wall time, and against the unprofiled serve run's mean
+    CUDA-event step time (no profiler overhead on the host). The host's
+    busiest operators by self time come from the profiled window."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.steps import (arch_serving, make_decode_step,
                                           make_prefill_step)
     from repro_torch.obs.clock import now
     cfg, prompts = res.cfg, res.prompts
     steps = len(res.out.decode_s)
-    cache = arch_serving(cfg, dev).init_state(prompts.shape[0],
-                                              prompts.shape[1] + steps + 1)
+    cache = arch_serving(cfg, dev).init_state(
+        prompts.shape[0], prompts.shape[1] + 2 * steps + 1)
     decode = make_decode_step(cfg)
     logits, cache = make_prefill_step(cfg)(res.params, cache,
                                            {"tokens": prompts})
     tok = torch.argmax(logits, -1)[:, None]
     torch.cuda.synchronize()
+    host_s = []              # host time until decode() returns, unprofiled
+    for _ in range(steps):
+        t0 = now()
+        logits, cache = decode(res.params, cache, {"tokens": tok})
+        host_s.append(now() - t0)
+        tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = now()
@@ -667,14 +755,31 @@ def profile_decode(torch, res, dev):
     if not busy:
         return {"device_ms_per_step": "not measured"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    cim = sum(v for k, v in by_name.items() if "cim_mvm_" in k)
+    per_step = lambda *names: sum(
+        v for k, v in by_name.items() if any(n in k for n in names)) \
+        / 1e3 / steps
+    split = {"terms": per_step("cim_tile_terms"),
+             "fold": per_step("cim_fold_runs")}
+    walk = per_step("cim_mvm_packed_kernel", "cim_mvm_scheduled_kernel")
+    if walk or not (split["terms"] and split["fold"]):
+        raise AssertionError(f"decode at M = {prompts.shape[0]}: split route "
+                             f"{split} ms/step, walk {walk} ms/step")
+    cim = per_step("cim_mvm_", "cim_tile_terms", "cim_fold_runs")
     step_s = sum(res.out.decode_s) / steps
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type.name == "CPU"), key=lambda r: -r[1])[:10]
     return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "host_ms_per_step": statistics.median(host_s) * 1e3,
             "device_ms_per_step": busy / 1e3 / steps,
             "device_busy_share": busy / 1e6 / wall,
             "device_busy_share_of_serve_step": busy / 1e6 / steps / step_s,
-            "cim_kernel_share_of_device": cim / busy,
-            "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top}}
+            "cim_ms_per_step": cim, "split_ms_per_step": split,
+            "walk_ms_per_step": walk,
+            "cim_kernel_share_of_device": cim * 1e3 * steps / busy,
+            "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top},
+            "host_top_self_ms_per_step": {k: [us / 1e3 / steps, n / steps]
+                                          for k, us, n in host}}
 
 
 @phase("smoke")
@@ -982,10 +1087,12 @@ def kernels_line(stats):
     every path's count beside it), max |err| against the plain version,
     and the kernel, plain and bound times of the shape noted in `at`."""
     at = {"cim_mvm_packed": "one full-width layer's seven projections at "
-                            "M = 4 (a decode step, 6144-core chip)",
+                            "M = 4 (a decode step, 6144-core chip; the "
+                            "split route; walk_ms: the walk in this run)",
           "cim_mvm_scheduled": "a merged full-width layer's three scheduled "
                                "projections (w_g, w_i, w_o) at M = 4 (a "
-                               "decode step, 3072-core chip)",
+                               "decode step, 3072-core chip; the split "
+                               "route; walk_ms: the walk in this run)",
           "cim_mvm_transposed": "the RBM's h->v launch at paper geometry, "
                                 "M = 64 (CUDA-event window, host work "
                                 "included; device_ms: the kernel alone)",
@@ -1012,7 +1119,8 @@ def kernels_line(stats):
             "max_abs_err": stats["err"].get(kernel),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
-            "library_ms": None, "at": at[kernel],
+            "library_ms": None, "walk_ms": t.get("walk_ms"),
+            "at": at[kernel],
             **{k: v for k, v in t.items()
                if k in ("device_ms", "w_g_bwd_ms", "matmul_only_ms")},
             "ok": not failures})

@@ -244,6 +244,10 @@ class PackedPlan:
                       slots (out_slot is non-decreasing).
       col_run_start / col_runs: CSR of each output column block's live
                       runs, in run order (runs with out_col -1 left out).
+      live_slots:     (L,) int32 the slots of live runs, in slot order:
+                      the term blocks of the kernels' split route (idle
+                      slots, a pass's padding, are neither computed nor
+                      read).
       tile_index:     (T,) int32 tile_slot for transpose plans, else None.
 
     Static geometry (as in the reference): row_block / col_block (slot ->
@@ -273,6 +277,7 @@ class PackedPlan:
     run_start: torch.Tensor = dataclasses.field(init=False)
     col_run_start: torch.Tensor = dataclasses.field(init=False)
     col_runs: torch.Tensor = dataclasses.field(init=False)
+    live_slots: torch.Tensor = dataclasses.field(init=False)
     tile_index: Optional[torch.Tensor] = dataclasses.field(init=False)
 
     def __post_init__(self):
@@ -288,6 +293,7 @@ class PackedPlan:
         self.run_start = table(run_start)
         self.col_run_start = table(col_run_start)
         self.col_runs = table(col_runs)
+        self.live_slots = table(live_slots(self.out_slot, self.out_col))
         self.tile_index = table(self.tile_slot) if self.transpose else None
 
     def route(self, scheduled=None) -> str:
@@ -375,6 +381,12 @@ def run_tables(out_slot: Sequence[int], out_col: Sequence[int],
     for runs in per_col:
         col_run_start.append(col_run_start[-1] + len(runs))
     return run_start, col_run_start, [r for runs in per_col for r in runs]
+
+
+def live_slots(out_slot: Sequence[int], out_col: Sequence[int]
+               ) -> List[int]:
+    """The slots of live runs (out_col >= 0), in slot order."""
+    return [s for s, r in enumerate(out_slot) if out_col[r] >= 0]
 
 
 def _slot_order(tiles: Sequence[Tile], schedule: Optional[TileSchedule]

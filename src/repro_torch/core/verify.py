@@ -34,12 +34,24 @@ stage, layer, tile/slot and invariant, before anything launches.
                                    row_block / tile_slot
             run-offsets            run_start, col_run_start and col_runs
                                    (the run tables of the scheduled and
-                                   transposed kernels) match out_slot /
-                                   out_col
-            shared-memory          one CUDA block of the kernel the plan
-                                   routes to, at the tiling it picks for
-                                   the batch, fits Hopper's 232,448 bytes
-                                   of shared memory
+                                   transposed kernels) and live_slots (the
+                                   split route's term blocks) match
+                                   out_slot / out_col
+            shared-memory          one CUDA block of each route the plan
+                                   launches — the walk at the tiling it
+                                   picks for the batch, and for a forward
+                                   plan the split route of a decode batch
+                                   (<= 16 rows) — fits Hopper's 232,448
+                                   bytes of shared memory; the split
+                                   route's term pass has one thread per
+                                   tile column, at most 256
+            bulk-copy              a forward plan's chunk bytes (16 tile
+                                   rows) are a multiple of 16, so every
+                                   chunk of a tile sits at the tile's
+                                   offset mod 16 and the split route's
+                                   bulk copy (cp.async.bulk: 16-byte
+                                   multiples) of its aligned cover lands
+                                   at one fixed shift
             exact-dot              gd_tiles lie on the 2^-23 grid and are
                                    small enough that the kernel's FP64
                                    tile dot (of the route's length, bk) is
@@ -64,9 +76,14 @@ from typing import Optional, Sequence
 import torch
 
 from .mapping import (PackedPlan, Plan, Tile, TileSchedule,
-                      col_block_offsets, ir_drop_max_cols, run_tables)
+                      col_block_offsets, ir_drop_max_cols, live_slots,
+                      run_tables)
 from .types import CIMConfig, CoreSpec
-from ..kernels.cim_mvm.kernel import SMEM_LIMIT, block_rows, shared_bytes
+from ..kernels.cim_mvm.kernel import (SMEM_LIMIT, SPLIT_CHUNK_ROWS,
+                                      SPLIT_KERNELS, SPLIT_ROWS,
+                                      SPLIT_THREADS, block_rows,
+                                      shared_bytes, split_route, split_rows,
+                                      split_shared_bytes)
 
 # the largest batch block the serving path launches (prefill of 4 x 64)
 _DEFAULT_BM = 256
@@ -384,15 +401,45 @@ def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
                 "pack", "run-offsets",
                 f"{tname} disagrees with out_slot / out_col (expected "
                 f"{want_t})", layer=name)
+    want_live = live_slots(packed.out_slot, packed.out_col)
+    if _ints(packed.live_slots) != want_live:
+        raise ChipVerifyError(
+            "pack", "run-offsets",
+            f"live_slots disagrees with out_slot / out_col (expected "
+            f"{want_live})", layer=name)
 
+    # every route the plan launches: the batch's (the walk, or the split
+    # route at <= 16 rows) and, for a forward plan, the split route of a
+    # decode batch
     kernel = packed.route()
-    bm_eff = block_rows(_DEFAULT_BM if bm is None else max(int(bm), 1))
-    need = shared_bytes(kernel, bm_eff)
-    if need > SMEM_LIMIT:
+    rows = _DEFAULT_BM if bm is None else max(int(bm), 1)
+    batches = {rows, SPLIT_ROWS[-1]} if kernel in SPLIT_KERNELS else {rows}
+    for m in sorted(batches):
+        if kernel in SPLIT_KERNELS and split_route(m):
+            route, bm_eff = "split route", split_rows(m)
+            need = split_shared_bytes(bm_eff, packed.bk, packed.bn)
+        else:
+            route, bm_eff = "walk", block_rows(m)
+            need = shared_bytes(kernel, bm_eff)
+        if need > SMEM_LIMIT:
+            raise ChipVerifyError(
+                "pack", "shared-memory",
+                f"one CUDA block of {kernel} ({route}) needs {need} bytes of "
+                f"shared memory at {bm_eff} rows but a Hopper block has "
+                f"{SMEM_LIMIT}", layer=name)
+    if kernel in SPLIT_KERNELS and packed.bn > SPLIT_THREADS:
         raise ChipVerifyError(
             "pack", "shared-memory",
-            f"one CUDA block of {kernel} needs {need} bytes of shared "
-            f"memory at {bm_eff} rows but a Hopper block has {SMEM_LIMIT}",
+            f"the split route of {kernel} runs one thread per tile column, "
+            f"at most {SPLIT_THREADS}; the plan has bn={packed.bn}",
+            layer=name)
+    chunk = SPLIT_CHUNK_ROWS * packed.bn * 4
+    if kernel in SPLIT_KERNELS and chunk % 16:
+        raise ChipVerifyError(
+            "pack", "bulk-copy",
+            f"chunk bytes {chunk} ({SPLIT_CHUNK_ROWS} rows of bn="
+            f"{packed.bn}) are not a multiple of 16: the split route's "
+            "chunks of one tile would sit at different offsets mod 16",
             layer=name)
 
     # The kernel sums each tile's dot in FP64 and rounds once, which is

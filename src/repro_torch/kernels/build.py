@@ -29,7 +29,8 @@ SOURCES = {
     "cim_mvm": "cim_mvm/csrc/cim_mvm.cu",
     "noisy_matmul": "noisy_matmul/csrc/noisy_matmul.cu",
 }
-HEADERS = ("csrc/hash_prng.cuh", "cim_mvm/csrc/cim_epilogue.cuh")
+HEADERS = ("csrc/hash_prng.cuh", "cim_mvm/csrc/cim_epilogue.cuh",
+           "cim_mvm/csrc/cim_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-I", str(_PKG / "csrc"))

@@ -7,33 +7,43 @@
 //   counts = ADC epilogue of q (charge-decrement rounding + activation)
 //   out[:, col_block[t]] += counts * weight[t]      in slot order.
 //
-// What bounds it: at decode (M = 4 rows) every gd_tiles element is read
+// What bounds it: at decode (M <= 16 rows) every gd_tiles element is read
 // once and used for M multiply-adds, so the kernel is bound by the bytes
 // of gd_tiles (one full-width gemma2-9b layer holds 793 MB of them). At
 // prefill (M = 256) each element feeds 256 multiply-adds and the bound is
 // the card's FP64 rate (no TF32: the counts round at .5 boundaries).
 //
-// What the design does about it (simple and right first):
-//   * grid (row blocks of BM, output column blocks x column sub-blocks of
-//     128), BM = 4 for M <= 4 (decode) and 32 above: a block owns BM x 128
-//     outputs of one column block and loops over that block's tiles
-//     [col_start[j], col_start[j+1]) in slot order, the reference's
-//     accumulation order. The sum stays in registers and is written once:
-//     no zero-init pass, no atomics, no reduction across blocks.
-//   * one thread per output column; the tile dot (cim_epilogue.cuh
+// Two routes, picked by the wrapper from M (kernel.py `split_route`):
+//   * M <= 16, the split route (cim_split.cuh, `_split_launch` below): one
+//     block per tile streams it through shared memory with bulk copies and
+//     writes its terms counts * weight; a second kernel folds each column
+//     block's terms in slot order. All 132 SMs pull tiles at once, where a
+//     walk block per column block left most of the card idle at decode.
+//   * M > 16, the walk (this file's kernel, unchanged since it was first
+//     written), simple and right first:
+//   - grid (row blocks of BM = 32 rows, output column blocks x column
+//     sub-blocks of 128): a block owns BM x 128 outputs of one column block
+//     and loops over that block's tiles [col_start[j], col_start[j+1]) in
+//     slot order, the reference's accumulation order. The sum stays in
+//     registers and is written once: no zero-init pass, no atomics, no
+//     reduction across blocks. (A BM = 4 instantiation serves M <= 4.)
+//   - one thread per output column; the tile dot (cim_epilogue.cuh
 //     `fwd_tile_dot`) stages the x chunk in shared memory ([k][BM + 2]
 //     doubles: broadcast 16-byte reads, padded against bank conflicts on
 //     the transposing store) and reads gd straight from global memory.
+// Both routes:
 //   * the dot is EXACT in FP64 (see `fwd_tile_dot`), so its one rounding
 //     to f32 is the correctly rounded dot and the plain version (an FP64
 //     batched matmul) agrees bit for bit.
 //   * the epilogue and `out += counts * weight` follow the reference
 //     operation by operation (cim_epilogue.cuh `tile_term`).
-//   * ragged rows (M not a multiple of BM) and ragged columns (bn not a
-//     multiple of 128) are masked, not padded.
-// Shared memory per block: kChunk * (BM + 2) * 8 bytes, at most 34,816
-// (BM = 32): static, under the 48 KB default.
+//   * ragged rows (M not a multiple of BM) and ragged columns are masked,
+//     not padded.
+// Shared memory per walk block: kChunk * (BM + 2) * 8 bytes, at most 34,816
+// (BM = 32): static, under the 48 KB default. The split route's term block
+// takes dynamic shared memory (cim_split.cuh).
 #include "cim_epilogue.cuh"
+#include "cim_split.cuh"
 
 namespace {
 
@@ -123,6 +133,32 @@ int cim_mvm_packed_shared_bytes(int bm) {
     case 32: return cim::static_shared_bytes(cim_mvm_packed_kernel<32>);
     default: return -1;
   }
+}
+
+// The split route (cim_split.cuh) for M <= 16 rows at `bm` = 4 or 16: the
+// term pass over every slot (live = nullptr, n_live = the slot count),
+// then the fold. A single-pass plan's runs are its column blocks:
+// run_start = col_start, col_run_start = col_runs = nullptr. terms: a
+// (T, M, bn) scratch. Returns the first CUDA error (0 = launched).
+int cim_mvm_packed_split_launch(const float* x, int M, int K, const float* gd,
+                                const float* inv_norm, const float* denorm,
+                                const float* v_decr, const int* row_block,
+                                const int* run_start, const int* col_run_start,
+                                const int* col_runs, const int* live,
+                                int n_live, int n_col_blocks, int bk, int bn,
+                                float* terms, float* out,
+                                const cim::Epilogue* e, int bm, void* stream) {
+  const cim::SplitArgs a{x, M, K, gd, inv_norm, denorm, v_decr, row_block,
+                         live, bk, bn, terms, run_start, col_run_start,
+                         col_runs, n_col_blocks, out};
+  return cim::split_launch_bm(a, n_live, *e, bm,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory the split launch requests per term block (-1 for
+// an unsupported bm).
+int cim_mvm_packed_split_shared_bytes(int bm, int bk, int bn) {
+  return (bm == 4 || bm == 16) ? cim::split_shared_bytes(bm, bk, bn) : -1;
 }
 
 }  // extern "C"

@@ -18,16 +18,26 @@
 // work the function does not need: their runs (out_col == -1) are never
 // read.
 //
-// What the design does: a block owns BM rows x 128 columns of one output
-// column block j and walks j's live runs in run order (col_run_start /
-// col_runs), each run's slots in slot order (run_start), with the packed
-// kernel's exact FP64 tile dot (cim_epilogue.cuh). Each run sums into a
-// register partial from zero, which is added to the block's total: the
-// reference's grouping, one write per output, no atomics, no reduction
-// across blocks. Ragged columns (bn = 47 on the IR-drop chip leaves 81 of
-// 128 threads without a column) are masked.
-// Shared memory per block: kChunk * (BM + 2) * 8 bytes (static).
+// Two routes, picked by the wrapper from M (kernel.py `split_route`):
+//   * M <= 16, the split route (cim_split.cuh, `_split_launch` below): one
+//     block per LIVE slot (the plan's live-slot table) streams its tile
+//     through shared memory with bulk copies and writes its terms; a
+//     second kernel gives each output one thread that walks its column
+//     block's live runs in run order and each run's slots in slot order,
+//     summing each run from zero and folding the runs: the reference's
+//     grouping, without the walk's idle SMs.
+//   * M > 16, the walk (this file's kernel, unchanged): a block owns BM
+//     rows x 128 columns of one output column block j and walks j's live
+//     runs in run order (col_run_start / col_runs), each run's slots in
+//     slot order (run_start), with the packed kernel's exact FP64 tile dot
+//     (cim_epilogue.cuh). Each run sums into a register partial from zero,
+//     which is added to the block's total: one write per output, no
+//     atomics, no reduction across blocks. Ragged columns (bn = 47 on the
+//     IR-drop chip leaves 81 of 128 threads without a column) are masked.
+// Shared memory per walk block: kChunk * (BM + 2) * 8 bytes (static); the
+// split route's term block takes dynamic shared memory (cim_split.cuh).
 #include "cim_epilogue.cuh"
+#include "cim_split.cuh"
 
 namespace {
 
@@ -130,6 +140,33 @@ int cim_mvm_scheduled_shared_bytes(int bm) {
     case 32: return cim::static_shared_bytes(cim_mvm_scheduled_kernel<32>);
     default: return -1;
   }
+}
+
+// The split route (cim_split.cuh) for M <= 16 rows at `bm` = 4 or 16: the
+// term pass over the plan's n_live live slots (`live`, in slot order),
+// then the fold over each column block's live runs. terms: a (T, M, bn)
+// scratch. Returns the first CUDA error (0 = launched).
+int cim_mvm_scheduled_split_launch(const float* x, int M, int K,
+                                   const float* gd, const float* inv_norm,
+                                   const float* denorm, const float* v_decr,
+                                   const int* row_block, const int* run_start,
+                                   const int* col_run_start,
+                                   const int* col_runs, const int* live,
+                                   int n_live, int n_col_blocks, int bk,
+                                   int bn, float* terms, float* out,
+                                   const cim::Epilogue* e, int bm,
+                                   void* stream) {
+  const cim::SplitArgs a{x, M, K, gd, inv_norm, denorm, v_decr, row_block,
+                         live, bk, bn, terms, run_start, col_run_start,
+                         col_runs, n_col_blocks, out};
+  return cim::split_launch_bm(a, n_live, *e, bm,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory the split launch requests per term block (-1 for
+// an unsupported bm).
+int cim_mvm_scheduled_split_shared_bytes(int bm, int bk, int bn) {
+  return (bm == 4 || bm == 16) ? cim::split_shared_bytes(bm, bk, bn) : -1;
 }
 
 }  // extern "C"

@@ -38,6 +38,15 @@ block, salts (seed, r // bm_ref, j) with j the slot (the stack position
 for the transposed kernel) and bm_ref = min(256, M), the reference's
 default batch block.
 
+The packed and scheduled kernels have two routes on the card, picked from
+the batch rows M by `split_route`: at decode (M <= 16) the split route
+(`csrc/cim_split.cuh`) computes every live tile's terms counts * weight in
+parallel, one block per tile, into a scratch tensor, then folds each
+output's terms in the order above (`cim_terms_plain` and `cim_fold_plain`
+are its two kernels' plain versions); at prefill (M > 16) the walk, a block
+per output column block walking its tiles in that order. Both are the
+function of `cim_runs_plain`, bit for bit.
+
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel (`csrc/*.cu`) for a CUDA tensor, or raises — nothing falls back.
 The kernels are compiled with nvcc at first use into `build/kernels/`, one
@@ -65,7 +74,13 @@ ACTIVATIONS = {"none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "identity": 4,
 K_CHUNK = 128         # x columns staged per shared-memory pass (forward)
 T_CHUNK = 32          # tile columns staged per pass (transposed kernel)
 THREADS = 128         # output columns per CUDA block
-BLOCK_ROWS = (4, 32)  # decode (M <= 4) and prefill row blocks
+BLOCK_ROWS = (4, 32)  # the walk kernels' row blocks: M <= 4, and above
+SPLIT_KERNELS = ("cim_mvm_packed", "cim_mvm_scheduled")
+SPLIT_ROWS = (4, 16)  # the split route's row blocks (it takes M <= 16)
+SPLIT_THREADS = 256   # most tile columns of the split route (one thread each)
+SPLIT_CHUNK_ROWS = 16  # tile rows per bulk copy of the split route
+SPLIT_STAGES = 3      # bulk copies in flight per term block
+SPLIT_BARRIER_BYTES = 128  # the stages' mbarriers, padded
 SMEM_LIMIT = 232_448  # shared memory a Hopper block can use, bytes
 HASH_BM = 256         # the reference's default batch block (autotune.py)
 REF_BLOCK = (256, 256, 256)   # the reference cim_mvm's default (bm, bk, bn)
@@ -79,8 +94,33 @@ def block_rows(m: int) -> int:
     return next((b for b in BLOCK_ROWS if b >= m), BLOCK_ROWS[-1])
 
 
+def split_route(m: int) -> bool:
+    """Whether a packed or scheduled launch of m rows takes the split route
+    (term pass over the live tiles, then the fold) rather than the walk:
+    m <= 16, decode. At m = 16 the term pass's FP64 multiply-adds on the
+    CUDA cores take about 80% of the time its bytes take; above, prefill's
+    FP64 work keeps the walk."""
+    return m <= SPLIT_ROWS[-1]
+
+
+def split_rows(m: int) -> int:
+    """Rows of x per term block of the split route: 4 or 16."""
+    return next(b for b in SPLIT_ROWS if b >= m)
+
+
+def split_shared_bytes(bm: int, bk: int, bn: int) -> int:
+    """Dynamic shared memory of one term block of the split route at bm
+    rows of a (bk, bn) tile: the mbarriers, the ring of SPLIT_STAGES
+    chunks of SPLIT_CHUNK_ROWS tile rows (each with 16 bytes of slack: the
+    bulk copy moves a chunk's 16-byte-aligned cover), and the block's x
+    rows as doubles (checked against the built kernels when the libraries
+    load)."""
+    return (SPLIT_BARRIER_BYTES
+            + SPLIT_STAGES * (SPLIT_CHUNK_ROWS * bn * 4 + 16) + bk * bm * 8)
+
+
 def shared_bytes(kernel: str, bm: int) -> int:
-    """Static shared memory of one block of `kernel` at `bm` rows: the
+    """Static shared memory of one walk block of `kernel` at `bm` rows: the
     staged x chunk, [chunk][bm + 2] doubles, and for the transposed kernel
     the staged tile chunk, [THREADS][T_CHUNK + 1] floats (checked against
     the built kernels' own attributes when the libraries load). The
@@ -206,6 +246,19 @@ def _uniform(q_shape, m: int, slot_salt, seed: int, device):
     return bits_to_uniform(bits)
 
 
+def _term(q, inv, den, vd, salt, *, activation: str, n_max: int,
+          seed: int):
+    """counts * weight of n tile steps: q (n, M, w), inv / den (n, 1, w),
+    vd and the hash's tile salts (n,). The stochastic bit is weighted by
+    the valid-column mask (inv > 0), every other count by den."""
+    vd = vd[:, None, None]
+    if activation == "stochastic":
+        u = _uniform(q.shape, q.shape[1], salt, seed, q.device)
+        return _epilogue(q, vd, activation, n_max, u) \
+            * (inv > 0).to(torch.float32)
+    return _epilogue(q, vd, activation, n_max) * den
+
+
 def cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
                    in_index, run_start, col_run_start, col_runs, *,
                    tile_index=None, n_run_ranks: int, n_run_len: int,
@@ -234,19 +287,61 @@ def cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
             part = torch.zeros_like(total)
         q = _dot(xb, gd_tiles, in_index, slot, tile_index, transpose) \
             * v_read * inv_norm_tiles[slot]
-        vd = v_decr_tiles[slot][:, None, None]
-        if activation == "stochastic":
-            salt = tile_index[slot] if transpose else slot
-            u = _uniform(q.shape, m, salt, seed, x.device)
-            term = _epilogue(q, vd, activation, n_max, u) \
-                * (inv_norm_tiles[slot] > 0).to(torch.float32)
-        else:
-            term = _epilogue(q, vd, activation, n_max) * denorm_tiles[slot]
+        term = _term(q, inv_norm_tiles[slot], denorm_tiles[slot],
+                     v_decr_tiles[slot],
+                     tile_index[slot] if transpose else slot,
+                     activation=activation, n_max=n_max, seed=seed)
         part = torch.where(valid[:, None, None], part + term, part)
         if s == n_run_len - 1:
             total = torch.where(run_valid[:, None, None], total + part,
                                 total)
     return total.permute(1, 0, 2).reshape(m, n_cb * out_w)
+
+
+def cim_terms_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
+                    in_index, live_slots=None, *, activation: str,
+                    n_max: int, v_read: float, seed: int = 0):
+    """The plain version of the split route's term pass (forward plans):
+    terms[t] = counts * weight of tile t for every live slot t (None: every
+    slot), each tile dot in FP64 rounded once to f32 as the kernels do.
+    Returns (T, M, bn) f32, zero at idle slots (the kernel leaves them
+    unwritten; nothing reads them)."""
+    n_tiles, bk, bn = gd_tiles.shape
+    live = (torch.arange(n_tiles, device=x.device) if live_slots is None
+            else live_slots.long())
+    n_in = int(in_index.max()) + 1 if in_index.numel() else 1
+    xb = _x_blocks(x.to(torch.float64), max(n_in, -(-x.shape[1] // bk)), bk)
+    terms = torch.zeros((n_tiles, x.shape[0], bn), dtype=torch.float32,
+                        device=x.device)
+    if live.numel():
+        q = _dot(xb, gd_tiles, in_index, live, None, False) * v_read \
+            * inv_norm_tiles[live]
+        terms[live] = _term(q, inv_norm_tiles[live], denorm_tiles[live],
+                            v_decr_tiles[live], live, activation=activation,
+                            n_max=n_max, seed=seed)
+    return terms
+
+
+def cim_fold_plain(terms, run_start, col_run_start, col_runs, *,
+                   n_run_ranks: int, n_run_len: int):
+    """The plain version of the split route's fold: for each output column
+    block, each live run's terms summed from zero in slot order, the runs
+    folded from zero in run order (the walk's order, vectorised over
+    column blocks). terms: (T, M, bn). Returns (M, n_cb * bn)."""
+    _, m, bn = terms.shape
+    n_cb = col_run_start.shape[0] - 1
+    total = torch.zeros((n_cb, m, bn), dtype=torch.float32,
+                        device=terms.device)
+    part = total
+    tables = (run_start, col_run_start, col_runs)
+    for s, slot, valid, run_valid in _walk(tables, n_run_ranks, n_run_len):
+        if s == 0:
+            part = torch.zeros_like(total)
+        part = torch.where(valid[:, None, None], part + terms[slot], part)
+        if s == n_run_len - 1:
+            total = torch.where(run_valid[:, None, None], total + part,
+                                total)
+    return total.permute(1, 0, 2).reshape(m, n_cb * bn)
 
 
 def boundary_counts(x, gd_tiles, inv_norm_tiles, v_decr_tiles, in_index,
@@ -374,6 +469,25 @@ def load() -> Dict[str, ctypes.CDLL]:
                 raise RuntimeError(
                     f"{name} uses {smem(bm)} B of shared memory at bm={bm}, "
                     f"the verifier assumes {shared_bytes(name, bm)} B")
+        if name in SPLIT_KERNELS:
+            # x, M, K, gd, inv_norm, denorm, v_decr, row_block, run_start,
+            # col_run_start, col_runs, live, n_live, n_col_blocks, bk, bn,
+            # terms, out, epilogue, bm, stream
+            split = getattr(lib, f"{name}_split_launch")
+            split.argtypes = ([p, i, i] + [p] * 9 + [i, i, i, i, p, p,
+                                                     ctypes.POINTER(Epilogue),
+                                                     i, p])
+            split.restype = i
+            smem = getattr(lib, f"{name}_split_shared_bytes")
+            smem.argtypes, smem.restype = [i, i, i], i
+            for bm in SPLIT_ROWS:
+                for bk, bn in ((128, 256), (128, 47), (40, 30)):
+                    if smem(bm, bk, bn) != split_shared_bytes(bm, bk, bn):
+                        raise RuntimeError(
+                            f"{name}'s split route requests "
+                            f"{smem(bm, bk, bn)} B of shared memory at bm="
+                            f"{bm}, bk={bk}, bn={bn}, the verifier assumes "
+                            f"{split_shared_bytes(bm, bk, bn)} B")
         libs[name] = lib
     _lib.update(libs)
     return _lib
@@ -398,26 +512,42 @@ def _check_args(activation: str, impl: str):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
 
 
-def _launch(kernel: str, x, gd_tiles, tile_tensors, index_tensors, n_cb: int,
-            in_w: int, out_w: int, *, activation, n_max, v_read, seed):
-    """Check the plan's tensors, allocate the output and launch `kernel`
-    once on the current stream. tile_tensors: (inv_norm, denorm, v_decr);
-    index_tensors: the int32 tables in the C entry point's order."""
-    if x.device.type != "cuda":
-        raise ValueError(f"no {kernel} kernel for device {x.device}")
-    m, k = x.shape
+def _check_plan(x, gd_tiles, tile_tensors, index_tensors, out_w: int):
+    """Check x and a plan's tensors as a launch takes them: tile_tensors
+    (inv_norm, denorm, v_decr), index_tensors int32 tables (None: absent)."""
     n_tiles = gd_tiles.shape[0]
     dev, f32, i32 = x.device, torch.float32, torch.int32
     inv, den, vd = tile_tensors
-    _check("x", x, f32, (m, k), dev)
+    _check("x", x, f32, tuple(x.shape), dev)
     _check("gd_tiles", gd_tiles, f32, tuple(gd_tiles.shape), dev)
     _check("inv_norm_tiles", inv, f32, (n_tiles, 1, out_w), dev)
     _check("denorm_tiles", den, f32, (n_tiles, 1, out_w), dev)
     _check("v_decr_tiles", vd, f32, (n_tiles,), dev)
     for j, t in enumerate(index_tensors):
-        _check(f"index table {j}", t, i32, tuple(t.shape), dev)
+        if t is not None:
+            _check(f"index table {j}", t, i32, tuple(t.shape), dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch_walk(kernel: str, x, gd_tiles, tile_tensors, index_tensors,
+                n_cb: int, in_w: int, out_w: int, *, activation, n_max,
+                v_read, seed):
+    """Check the plan's tensors, allocate the output and launch `kernel`'s
+    walk once on the current stream (the transposed kernel's only route;
+    the packed and scheduled kernels' at M > 16). tile_tensors: (inv_norm,
+    denorm, v_decr); index_tensors: the int32 tables in the C entry
+    point's order."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {x.device}")
+    _check_plan(x, gd_tiles, tile_tensors, index_tensors, out_w)
+    m, k = x.shape
+    dev = x.device
+    inv, den, vd = tile_tensors
     lib = load()[kernel]
-    out = torch.empty((m, n_cb * out_w), dtype=f32, device=dev)
+    out = torch.empty((m, n_cb * out_w), dtype=torch.float32, device=dev)
     if m == 0:
         return out
     epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
@@ -432,11 +562,50 @@ def _launch(kernel: str, x, gd_tiles, tile_tensors, index_tensors, n_cb: int,
     return out
 
 
+def launch_split(kernel: str, x, gd_tiles, tile_tensors, row_index,
+                 run_tables, live_slots, n_cb: int, *, activation, n_max,
+                 v_read, seed):
+    """Check the plan's tensors, allocate the term scratch and the output,
+    and launch `kernel`'s split route (M <= 16) on the current stream: the
+    term pass over the live slots (live_slots None: every slot), then the
+    fold. run_tables: (run_start, col_run_start, col_runs); the packed
+    kernel passes (col_start, None, None), one run per column block."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {x.device}")
+    m, k = x.shape
+    if not split_route(m):
+        raise ValueError(f"the split route takes at most {SPLIT_ROWS[-1]} "
+                         f"rows, x has {m}")
+    n_tiles, bk, bn = gd_tiles.shape
+    _check_plan(x, gd_tiles, tile_tensors, (row_index, live_slots,
+                                            *run_tables), bn)
+    inv, den, vd = tile_tensors
+    lib = load()[kernel]
+    dev, f32 = x.device, torch.float32
+    out = torch.empty((m, n_cb * bn), dtype=f32, device=dev)
+    if m == 0:
+        return out
+    terms = torch.empty((n_tiles, m, bn), dtype=f32, device=dev)
+    n_live = n_tiles if live_slots is None else live_slots.numel()
+    epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
+    err = getattr(lib, f"{kernel}_split_launch")(
+        x.data_ptr(), m, k, gd_tiles.data_ptr(), inv.data_ptr(),
+        den.data_ptr(), vd.data_ptr(), row_index.data_ptr(),
+        *(_ptr(t) for t in run_tables), _ptr(live_slots), n_live, n_cb, bk,
+        bn, terms.data_ptr(), out.data_ptr(), ctypes.byref(epi),
+        split_rows(m), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} split launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+    return out
+
+
 def cim_mvm_packed(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
                    row_index, col_start, *, n_row_blocks: int, n_ranks: int,
                    activation: str = "none", n_max: int = 127,
                    v_read: float = 0.5, seed: int = 0, impl: str = "auto"):
-    """Whole-layer packed CIM MVM of a single-pass plan: ONE launch.
+    """Whole-layer packed CIM MVM of a single-pass plan: ONE launch (the
+    split route's two kernels at M <= 16, the walk above).
 
     x: (M, K) f32 integer-valued activations; gd_tiles: (T, bk, bn);
     inv_norm_tiles / denorm_tiles: (T, 1, bn); v_decr_tiles: (T,);
@@ -468,27 +637,32 @@ def cim_mvm_packed(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
     if x.shape[1] > n_row_blocks * bk:
         raise ValueError(f"x has {x.shape[1]} features, the plan covers "
                          f"{n_row_blocks * bk}")
-    return _launch("cim_mvm_packed", x, gd_tiles,
-                   (inv_norm_tiles, denorm_tiles, v_decr_tiles),
-                   (row_index, col_start), col_start.shape[0] - 1, bk, bn,
-                   activation=activation, n_max=n_max, v_read=v_read,
-                   seed=seed)
+    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed)
+    tiles = (inv_norm_tiles, denorm_tiles, v_decr_tiles)
+    n_cb = col_start.shape[0] - 1
+    if split_route(x.shape[0]):
+        return launch_split("cim_mvm_packed", x, gd_tiles, tiles, row_index,
+                            (col_start, None, None), None, n_cb, **kw)
+    return launch_walk("cim_mvm_packed", x, gd_tiles, tiles,
+                       (row_index, col_start), n_cb, bk, bn, **kw)
 
 
 def cim_mvm_scheduled(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                       v_decr_tiles, row_index, run_start, col_run_start,
-                      col_runs, *, n_run_ranks: int, n_run_len: int,
-                      activation: str = "none", n_max: int = 127,
-                      v_read: float = 0.5, seed: int = 0,
+                      col_runs, live_slots, *, n_run_ranks: int,
+                      n_run_len: int, activation: str = "none",
+                      n_max: int = 127, v_read: float = 0.5, seed: int = 0,
                       impl: str = "auto"):
-    """Whole-layer scheduled CIM MVM of a merged-core plan: ONE launch.
+    """Whole-layer scheduled CIM MVM of a merged-core plan: ONE launch (the
+    split route's two kernels at M <= 16, the walk above).
 
     Tensors as `cim_mvm_packed` over the pass-major fused slot order, plus
     the run tables: run_start (n_runs + 1,) CSR slots of each run;
     col_run_start (n_cb + 1,) / col_runs: each column block's live runs
-    in run order. n_run_ranks / n_run_len: the most live runs of one
-    column block and the most slots of one run (the plain version's
-    loops). Returns (M, n_cb * bn)."""
+    in run order; live_slots: the slots of live runs, in slot order (the
+    split route's term blocks). n_run_ranks / n_run_len: the most live
+    runs of one column block and the most slots of one run (the plain
+    version's loops). Returns (M, n_cb * bn)."""
     _check_args(activation, impl)
     tables = (run_start, col_run_start, col_runs)
     kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed)
@@ -498,10 +672,13 @@ def cim_mvm_scheduled(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                               n_run_ranks=n_run_ranks, n_run_len=n_run_len,
                               **kw)
     _, bk, bn = gd_tiles.shape
-    return _launch("cim_mvm_scheduled", x, gd_tiles,
-                   (inv_norm_tiles, denorm_tiles, v_decr_tiles),
-                   (row_index, *tables), col_run_start.shape[0] - 1, bk, bn,
-                   **kw)
+    tiles = (inv_norm_tiles, denorm_tiles, v_decr_tiles)
+    n_cb = col_run_start.shape[0] - 1
+    if split_route(x.shape[0]):
+        return launch_split("cim_mvm_scheduled", x, gd_tiles, tiles,
+                            row_index, tables, live_slots, n_cb, **kw)
+    return launch_walk("cim_mvm_scheduled", x, gd_tiles, tiles,
+                       (row_index, *tables), n_cb, bk, bn, **kw)
 
 
 def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
@@ -527,10 +704,10 @@ def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                               tile_index=tile_index, n_run_ranks=n_run_ranks,
                               n_run_len=n_run_len, **kw)
     _, bk_f, bn_f = gd_tiles.shape
-    return _launch("cim_mvm_transposed", x, gd_tiles,
-                   (inv_norm_tiles, denorm_tiles, v_decr_tiles),
-                   (in_index, tile_index, *tables),
-                   col_run_start.shape[0] - 1, bn_f, bk_f, **kw)
+    return launch_walk("cim_mvm_transposed", x, gd_tiles,
+                        (inv_norm_tiles, denorm_tiles, v_decr_tiles),
+                        (in_index, tile_index, *tables),
+                        col_run_start.shape[0] - 1, bn_f, bk_f, **kw)
 
 
 def cim_mvm(x, gd, inv_norm, v_decr, *, activation: str = "none",

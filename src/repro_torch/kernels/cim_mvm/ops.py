@@ -74,7 +74,8 @@ def packed_call(x, packed, *, activation: str, n_max: int, v_read: float,
     elif kernel == "cim_mvm_scheduled":
         out = K.cim_mvm_scheduled(
             x, *tiles, packed.row_index, packed.run_start,
-            packed.col_run_start, packed.col_runs, **runs, **kw)
+            packed.col_run_start, packed.col_runs, packed.live_slots, **runs,
+            **kw)
     else:
         out = K.cim_mvm_packed(
             x, *tiles, packed.row_index, packed.col_start,

@@ -360,6 +360,62 @@ def test_run_kernels_match_plain_on_card(activation):
             assert torch.equal(got, want), (r, c, d, m)
 
 
+SPLIT_CASES = ((3584, 2048, 4096, 0.0), (300, 500, 4, 0.0),
+               (1024, 700, 40, 2e-7), (35, 300, 48, 2e-7),
+               (35, 470, 5, 2e-7))
+
+
+def _plan_call(x, p, den, **kw):
+    """p's own kernel (packed or scheduled) with `den` as its weight."""
+    tiles = (p.gd_tiles, p.inv_norm_tiles, den, p.v_decr_tiles)
+    if p.route() == "cim_mvm_packed":
+        return K.cim_mvm_packed(x, *tiles, p.row_index, p.col_start,
+                                n_row_blocks=p.n_row_blocks,
+                                n_ranks=p.n_ranks, **kw)
+    return K.cim_mvm_scheduled(x, *tiles, p.row_index, p.run_start,
+                               p.col_run_start, p.col_runs, p.live_slots,
+                               n_run_ranks=p.n_run_ranks,
+                               n_run_len=p.n_run_len, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTS)
+def test_split_route_matches_plain_on_card(activation):
+    """The packed and scheduled kernels at decode batches (M = 1, 4, 16:
+    the split route) and one row past it (M = 17: the walk) against their
+    plain versions, with the plan's denorm and with the valid-column mask:
+    a full-width single-pass wk, the ragged layer merged onto 4 cores
+    (idle slots), an IR-drop layer at bn = 47 scheduled, and 35-row
+    IR-drop layers whose 6,580-byte tiles are not multiples of 16 bytes
+    (single-pass and scheduled). Equal bit for bit, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.core.types import NonIdealityConfig
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(1)
+    for (r, c, cores, alpha) in SPLIT_CASES:
+        ccfg = CIMConfig(nonideal=NonIdealityConfig(ir_drop_alpha=alpha))
+        w = {"m": torch.randn(r, c, generator=gen, device=dev) / r ** 0.5,
+             "s": torch.randn(100, 60, generator=gen, device=dev)}
+        p = tcim.compile_chip(w, ccfg, CoreSpec(n_cores=cores), "ideal",
+                              in_alpha=3.0,
+                              generator=gen).layers["m"].packed
+        kernel = p.route()
+        mask = (p.inv_norm_tiles > 0).to(torch.float32)
+        for m in (1, 4, 16, 17):
+            x = torch.randint(-7, 8, (m, r), generator=gen,
+                              device=dev).to(torch.float32)
+            for den in (p.denorm_tiles, mask):
+                kw = dict(activation=activation, seed=SEED)
+                before = K.LAUNCHES[kernel]
+                got = _plan_call(x, p, den, **kw)
+                want = _plan_call(x, p, den, impl="plain", **kw)
+                torch.cuda.synchronize()
+                assert K.LAUNCHES[kernel] == before + 1
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (r, c, m)
+
+
 # ------------------------------------------------------------- hash PRNG
 
 HASH_CASES = [((4, 7), (0,)), ((256, 128), (12345, 3, 77)),

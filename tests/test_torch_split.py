@@ -1,0 +1,275 @@
+"""The split route of the packed and scheduled CIM kernels (decode, M <= 16
+rows): its two kernels' plain versions, `cim_terms_plain` (every live
+tile's counts * weight) and `cim_fold_plain` (each output's terms summed
+in slot order inside a run and folded in run order), composed as the
+wrappers launch them, against `cim_runs_plain` (the walk's plain version)
+and against the reference's Pallas kernels; the route function, the
+plan's live-slot table and the verifier's split-route invariants.
+
+Rules: the composition equals `cim_runs_plain` bit for bit (int32 views,
+so the sign of zero counts): the same exact FP64 tile dots rounded once,
+the same f32 operations in the same order. Against the reference the
+counts rule of `_torch_parity` holds (equal except where a tile's |q| /
+v_decr lies within rounding of a .5 boundary). The CUDA kernels are held
+against these plain versions on the card (`tests/test_torch_cim_mvm.py`,
+`chip_smoke.py`).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (assert_counts_match, boundary_hits,
+                           packed_to_torch, to_numpy, to_torch)
+
+from repro_torch.core import cim as tcim
+from repro_torch.core import verify as tverify
+from repro_torch.core.mapping import MatrixReq, pack_tiles, plan_layers
+from repro_torch.core.types import CIMConfig, CoreSpec, NonIdealityConfig
+from repro_torch.kernels.cim_mvm import kernel as K
+from repro_torch.launch import serve as tserve
+
+ACTS = ("none", "relu", "tanh", "sigmoid", "identity", "stochastic")
+ROWS = (1, 4, 5, 16)            # decode batches of the split route
+SEED = 91                       # the stochastic neuron's salt
+PLAN_SETS = ("single-pass", "merged-core", "ir-drop")
+
+
+def _smoke_plans(**chip):
+    """Layer 0's seven projection plans of the gemma2-9b SMOKE model as
+    `serve_static` deploys them on `chip`."""
+    res = tserve.serve_static("gemma2-9b", smoke=True, cim=True,
+                              device="cpu", batch=1, prompt_len=2, gen=1,
+                              **chip)
+    layers = res.params["layers"]
+    return {k[:-4]: v[0].packed for k, v in sorted(layers.items())
+            if k.endswith("_cim")}
+
+
+def _layer_plan(r, c, cores, alpha, seed):
+    """One r x c layer (and a 100 x 60 neighbour that shares its cores)
+    compiled on a `cores`-core chip at IR-drop alpha."""
+    gen = torch.Generator().manual_seed(seed)
+    w = {"m": torch.randn(r, c, generator=gen) / r ** 0.5,
+         "s": torch.randn(100, 60, generator=gen)}
+    cfg = CIMConfig(nonideal=NonIdealityConfig(ir_drop_alpha=alpha))
+    return tcim.compile_chip(w, cfg, CoreSpec(n_cores=cores), "ideal",
+                             in_alpha=3.0, generator=gen).layers["m"].packed
+
+
+@pytest.fixture(scope="module")
+def plans():
+    """The three plan sets: the SMOKE model's default chip (single-pass,
+    the packed kernel), its 4-core chip (a two-pass scheduled w_o) with a
+    300 x 500 layer merged onto 4 cores (idle slots, column blocks split
+    over runs), and its IR-drop chip (47-column tiles) with a 1024 x 700
+    layer scheduled on 40 IR-drop cores."""
+    return {
+        "single-pass": _smoke_plans(),
+        "merged-core": {**_smoke_plans(cim_cores=4),
+                        "m300x500": _layer_plan(300, 500, 4, 0.0, 1)},
+        "ir-drop": {**_smoke_plans(cim_ir_drop=2e-7),
+                    "m1024x700": _layer_plan(1024, 700, 40, 2e-7, 2)}}
+
+
+def _route_tables(p):
+    """The run tables, live-slot table and loop bounds the wrapper of
+    p's route hands the split launch: the packed kernel's one run per
+    column block (col_start, an arange, every slot live), the scheduled
+    kernel's plan tables."""
+    if p.route() == "cim_mvm_packed":
+        ar = torch.arange(p.n_col_blocks + 1, dtype=torch.int32)
+        return (p.col_start, ar, ar[:-1]), None, 1, p.n_ranks
+    return ((p.run_start, p.col_run_start, p.col_runs), p.live_slots,
+            p.n_run_ranks, p.n_run_len)
+
+
+def split_plain(x, p, den, **kw):
+    """The split route's plain composition: terms, then the fold."""
+    tables, live, ranks, run_len = _route_tables(p)
+    terms = K.cim_terms_plain(x, p.gd_tiles, p.inv_norm_tiles, den,
+                              p.v_decr_tiles, p.row_index, live, **kw)
+    return K.cim_fold_plain(terms, *tables, n_run_ranks=ranks,
+                            n_run_len=run_len)
+
+
+def walk_plain(x, p, den, **kw):
+    """The wrapper's own plain version (a CPU tensor) of p's route."""
+    tiles = (p.gd_tiles, p.inv_norm_tiles, den, p.v_decr_tiles)
+    if p.route() == "cim_mvm_packed":
+        return K.cim_mvm_packed(x, *tiles, p.row_index, p.col_start,
+                                n_row_blocks=p.n_row_blocks,
+                                n_ranks=p.n_ranks, **kw)
+    return K.cim_mvm_scheduled(x, *tiles, p.row_index, p.run_start,
+                               p.col_run_start, p.col_runs, p.live_slots,
+                               n_run_ranks=p.n_run_ranks,
+                               n_run_len=p.n_run_len, **kw)
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("plan_set", PLAN_SETS)
+def test_split_composition_equals_walk_bitwise(plans, plan_set, activation):
+    """terms then fold equal cim_runs_plain bit for bit on every plan of
+    the set, with the plan's denorm and with the valid-column mask as the
+    accumulation weight, at every decode batch of the split route."""
+    rng = np.random.default_rng(3)
+    routes = set()
+    for name, p in plans[plan_set].items():
+        routes.add(p.route())
+        mask = (p.inv_norm_tiles > 0).to(torch.float32)
+        for den in (p.denorm_tiles, mask):
+            for m in ROWS:
+                x = torch.from_numpy(rng.integers(
+                    -7, 8, (m, p.n_rows)).astype(np.float32))
+                kw = dict(activation=activation, n_max=127, v_read=0.5,
+                          seed=SEED)
+                got = split_plain(x, p, den, **kw)
+                want = walk_plain(x, p, den, **kw)
+                assert got.shape == want.shape
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (name, m)
+    assert "cim_mvm_scheduled" in routes or plan_set == "single-pass"
+    if plan_set == "ir-drop":
+        assert {p.bn for p in plans[plan_set].values()} == {47}
+
+
+# ----------------------------------------------- against the reference
+
+R, C, M = 300, 500, 4
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The 300 x 500 layer packed by the reference single-pass and merged
+    onto 4 cores (scheduled), raw counts, and ONE reference run of each
+    (Pallas interpret mode, batch block 256) at M = 4."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core import mapping as jm
+    from repro.core.conductance import weights_to_conductances
+    from repro.core.types import CIMConfig as JCfg, CoreSpec as JSpec
+    from repro.kernels.cim_mvm.ops import cim_mvm_packed
+
+    rng = np.random.default_rng(5)
+    w = rng.normal(0, 0.1, (R, C)).astype(np.float32)
+    x = rng.integers(-7, 8, (M, R)).astype(np.float32)
+    cond = weights_to_conductances(jnp.asarray(w), JCfg().device)
+    gd, gs = cond.g_pos - cond.g_neg, cond.g_pos + cond.g_neg
+    packs, outs = {}, {}
+    for kind, spec in (("packed", JSpec()), ("scheduled", JSpec(n_cores=4))):
+        tiles = jm.plan_layers([jm.MatrixReq("m", R, C),
+                                jm.MatrixReq("s", 100, 60)],
+                               spec).tiles_for("m")
+        sched = jm.schedule_tiles(tiles) if kind == "scheduled" else None
+        vd = jnp.asarray(rng.uniform(0.02, 0.05, len(tiles)), jnp.float32)
+        pj = jm.pack_tiles(tiles, gd, gsum=gs, v_decr=vd, fold_norm=False,
+                           schedule=sched)
+        packs[kind] = pj
+        outs[kind] = np.asarray(cim_mvm_packed(
+            jnp.asarray(x), pj, JCfg(), seed=SEED, bm=256, interpret=True))
+    return {"x": x, "packs": packs, "outs": outs}
+
+
+@pytest.mark.parametrize("kind", ("packed", "scheduled"))
+def test_split_composition_matches_reference(reference, kind):
+    """The composition on the reference's own plan against the
+    reference's packed / scheduled kernel: the counts rule."""
+    pt = packed_to_torch(reference["packs"][kind])
+    assert pt.route() == f"cim_mvm_{kind}"
+    got = to_numpy(split_plain(to_torch(reference["x"]), pt,
+                               pt.denorm_tiles, activation="none",
+                               n_max=CIMConfig().out_mag_levels,
+                               v_read=CIMConfig().v_read,
+                               seed=SEED))[:, :pt.n_cols]
+    assert_counts_match(got, reference["outs"][kind],
+                        boundary_hits(reference["x"], pt, 0.5))
+
+
+# ------------------------------------------------ route, tables, verifier
+
+def test_route_picks_split_up_to_16_rows():
+    """M <= 16 takes the split route (4- and 16-row term blocks), M > 16
+    the walk; neither launch function takes a CPU tensor."""
+    assert K.split_route(16) and not K.split_route(17)
+    assert K.split_route(1) and not K.split_route(256)
+    assert [K.split_rows(m) for m in (1, 4, 5, 16)] == [4, 4, 16, 16]
+    assert K.block_rows(17) == 32
+    p = pack_tiles(plan_layers([MatrixReq("m", 40, 32)]).tiles_for("m"),
+                   torch.ones(40, 32))
+    x = torch.ones(4, 40)
+    tiles = (p.inv_norm_tiles, p.denorm_tiles, p.v_decr_tiles)
+    kw = dict(activation="none", n_max=127, v_read=0.5, seed=0)
+    with pytest.raises(ValueError, match="device"):
+        K.launch_split("cim_mvm_packed", x, p.gd_tiles, tiles, p.row_index,
+                       (p.col_start, None, None), None, 1, **kw)
+    with pytest.raises(ValueError, match="device"):
+        K.launch_walk("cim_mvm_packed", x, p.gd_tiles, tiles,
+                      (p.row_index, p.col_start), 1, 40, 32, **kw)
+
+
+def test_live_slots_skip_idle_slots(plans):
+    """The live-slot table lists the slots of live runs in slot order; the
+    merged plan has idle slots, and the fold never reads them (NaN terms
+    there leave its output unchanged)."""
+    p = plans["merged-core"]["m300x500"]
+    live = [s for s in range(p.n_tiles) if p.out_col[p.out_slot[s]] >= 0]
+    assert p.live_slots.tolist() == live
+    assert 0 < len(live) < p.n_tiles
+    single = plans["single-pass"]["w_o"]
+    assert single.live_slots.tolist() == list(range(single.n_tiles))
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        -7, 8, (4, p.n_rows)).astype(np.float32))
+    kw = dict(activation="none", n_max=127, v_read=0.5, seed=0)
+    terms = K.cim_terms_plain(x, p.gd_tiles, p.inv_norm_tiles,
+                              p.denorm_tiles, p.v_decr_tiles, p.row_index,
+                              p.live_slots, **kw)
+    idle = torch.ones(p.n_tiles, dtype=torch.bool)
+    idle[p.live_slots.long()] = False
+    poisoned = terms.clone()
+    poisoned[idle] = float("nan")
+    fold = dict(n_run_ranks=p.n_run_ranks, n_run_len=p.n_run_len)
+    tables = (p.run_start, p.col_run_start, p.col_runs)
+    assert torch.equal(K.cim_fold_plain(poisoned, *tables, **fold),
+                       K.cim_fold_plain(terms, *tables, **fold))
+    stale = dataclasses.replace(p)
+    stale.live_slots = stale.live_slots[1:]
+    with pytest.raises(tverify.ChipVerifyError) as e:
+        tverify.check_packed(stale)
+    assert e.value.invariant == "run-offsets"
+
+
+def test_verifier_models_the_split_route(plans, monkeypatch):
+    """`shared-memory` checks the split route's dynamic bytes at a decode
+    batch (and beside the walk at a prefill batch); `bulk-copy` refuses
+    tile bytes that are not a multiple of 16. Every plan here passes."""
+    for plan_set in plans.values():
+        for p in plan_set.values():
+            for bm in (1, 4, 16, 17, 256):
+                tverify.check_packed(p, bm=bm)
+    p = plans["single-pass"]["w_g"]
+    assert (p.bk, p.bn) == (128, 256)
+    assert K.split_shared_bytes(4, 128, 256) == 53424
+    assert K.split_shared_bytes(16, 128, 256) == 65712
+    assert K.split_shared_bytes(16, 128, 47) == 128 + 3 * (16 * 47 * 4 + 16) \
+        + 128 * 16 * 8
+    # a limit the walk fits but the split route does not
+    monkeypatch.setattr(tverify, "SMEM_LIMIT",
+                        K.split_shared_bytes(16, p.bk, p.bn) - 1)
+    for bm in (4, 256):
+        with pytest.raises(tverify.ChipVerifyError) as e:
+            tverify.check_packed(p, bm=bm)
+        assert e.value.invariant == "shared-memory"
+        assert "split route" in str(e.value)
+    monkeypatch.undo()
+    # tiles whose bytes are not a multiple of 16 (the bulk copy moves the
+    # aligned cover of each chunk) pass; a chunk of another length would
+    # shift the chunks of one tile against each other
+    odd = pack_tiles(plan_layers([MatrixReq("m", 5, 3)]).tiles_for("m"),
+                     torch.ones(5, 3))
+    assert odd.bk * odd.bn * 4 % 16
+    tverify.check_packed(odd)
+    monkeypatch.setattr(tverify, "SPLIT_CHUNK_ROWS", 3)
+    with pytest.raises(tverify.ChipVerifyError) as e:
+        tverify.check_packed(odd)
+    assert e.value.invariant == "bulk-copy"
