@@ -44,9 +44,15 @@ the final result line:
                 counted per run, a plain rerun from the same seeds
   chip-linear   the single-matrix kernel against its plain version at
                 every 7-layer CNN and ResNet-20 matrix shape at batch 256
-                (im2col rows M, K with the bias row, N), on relaxed
-                conductances, every activation including stochastic, bit
-                for bit; times and bounds per shape
+                (im2col rows M, K with the bias row, N) and at ragged
+                shapes (M = 1, 3, 257; N = 10), on relaxed conductances,
+                every activation including stochastic, bit for bit; times
+                and bounds per shape; and per CNN shape the fused forward
+                (core.cim.forward: float patches in, the bias row, float
+                out) against forward(impl="plain") in every activation it
+                takes, bit for bit, timed beside its own bound; at the
+                ragged shapes the fused forward with two bias rows; the
+                wrappers' host us per call
   cnn7          the 7-layer CNN at 28x28x1, batch 256 (random weights from
                 seed 0, 32 calibration images): deploy and chip inference,
                 relaxed and writeverify, 6 + 7 launches each; a plain
@@ -63,7 +69,9 @@ the final result line:
   profile       a profiled decode window of each serve path (the split
                 route's term and fold kernels timed apart; a decode step
                 that launches a walk kernel fails), three
-                profiled chip inferences of each CNN path, and the
+                profiled chip inferences of each CNN path (the
+                single-matrix kernel's and the glue's device ms: the
+                elementwise and concatenation kernels), and the
                 transposed kernel's device time at the RBM's shape, after
                 every timed run
   kernels       one line per the contract below, then the result line
@@ -87,6 +95,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 import traceback
 from pathlib import Path
 
@@ -146,6 +155,10 @@ RESNET20_SHAPES = {"stem": (262144, 28, 16),
                    "s1b0proj": (65536, 17, 32), "s2b0c1": (16384, 289, 64),
                    "s2 c2, b1-2 c1 (x5)": (16384, 577, 64),
                    "s2b0proj": (16384, 33, 64), "fc": (256, 65, 10)}
+# ragged batches and widths, held against the plain version only
+RAGGED_SHAPES = {"M 1": (1, 577, 10), "M 3": (3, 145, 16),
+                 "M 257": (257, 289, 10), "M 257, N 64": (257, 33, 64),
+                 "N 500": (5, 300, 500)}
 NOISY_SHAPES = {"cnn7 conv5 training": (12544, 577, 64),
                 "gemma2-9b w_g training": (2048, 3584, 14336)}
 
@@ -194,6 +207,20 @@ def median_ms(torch, fn, reps, flush=None):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def host_us(torch, fn, reps=20):
+    """Host microseconds per call of `fn` (the wrapper's own time): reps
+    calls enqueued behind a 10 ms spin of the card, so none waits on the
+    device; their wall time over reps."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20 * SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def reset_launches(K):
@@ -705,8 +732,12 @@ def profile_inference(torch, fn, reps, event_ms):
         return {"device_ms_per_inference": "not measured"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     cim = sum(v for k, v in by_name.items() if "cim_mvm" in k)
+    glue = sum(v for k, v in by_name.items()
+               if "elementwise" in k or "CatArrayBatchedCopy" in k)
     return {"reps": reps, "wall_ms_per_inference": wall * 1e3 / reps,
             "device_ms_per_inference": busy / 1e3 / reps,
+            "cim_kernel_ms_per_inference": cim / 1e3 / reps,
+            "glue_ms_per_inference": glue / 1e3 / reps,
             "device_busy_share": busy / 1e6 / wall,
             "device_busy_share_of_event_time": busy / 1e3 / reps / event_ms,
             "cim_kernel_share_of_device": cim / busy,
@@ -854,11 +885,15 @@ def recover_phase(torch, K, dev, stats):
     return out
 
 
-def cim_mvm_bound(m, k, n):
-    """(bound ms, bound_by, bytes, flops) of one single-matrix launch: x,
-    gd, inv_norm and v_decr read once, the output written once; FP64
-    multiply-adds."""
-    nbytes = (m * k + k * n + n + 1 + m * n) * 4
+def cim_mvm_bound(m, k, n, k_x=None):
+    """(bound ms, bound_by, bytes, flops) of one single-matrix launch: x
+    (k_x columns; k for the unfused entry), gd, inv_norm and v_decr read
+    once, the output written once; the fused forward also reads norm, the
+    offset counts and three scalars. FP64 multiply-adds."""
+    if k_x is None:
+        nbytes = (m * k + k * n + n + 1 + m * n) * 4
+    else:
+        nbytes = (m * k_x + k * n + 3 * n + 4 + m * n) * 4
     flops = 2.0 * m * k * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP64_FLOPS_PER_S * 1e3
@@ -869,18 +904,21 @@ def cim_mvm_bound(m, k, n):
 @phase("chip-linear")
 def chip_linear_phase(torch, K, cim, CIMConfig, dev, stats):
     """The single-matrix kernel at every CNN matrix shape: bit for bit
-    against its plain version in every activation, then timed."""
+    against its plain version in every activation, then timed (device ms,
+    and the wrapper's host us per call); the fused forward the same at
+    every CNN shape; ragged shapes compared only, the fused forward there
+    with two bias rows."""
     gen = torch.Generator(dev).manual_seed(13)
     flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB > L2
     rows = {}
     for model, shapes in (("cnn7", CNN7_SHAPES),
-                          ("resnet20", RESNET20_SHAPES)):
+                          ("resnet20", RESNET20_SHAPES),
+                          ("ragged", RAGGED_SHAPES)):
         for name, (m, k, n) in shapes.items():
             w = torch.randn(k, n, generator=gen, device=dev) / k ** 0.5
             lay = cim.program(w, CIMConfig(), 3.0, mode="relaxed",
                               generator=gen)
-            gd = (lay.g_pos - lay.g_neg).contiguous()
-            inv = (1.0 / lay.norm).contiguous()
+            gd, inv = lay.gd, lay.inv_norm
             x = torch.randint(-7, 8, (m, k), generator=gen,
                               device=dev).to(torch.float32)
             for act in ALL_ACTIVATIONS:
@@ -889,31 +927,96 @@ def chip_linear_phase(torch, K, cim, CIMConfig, dev, stats):
                 b = K.cim_mvm(x, gd, inv, lay.v_decr, impl="plain", **kw)
                 check_equal(torch, a, b, f"{model} {name} {act}", stats,
                             "cim_mvm")
+            g, grid = K.mvm_launch_geometry(m, k, n, k, False, dev)
+            geo = {**g.as_dict(), "grid": grid}
+            if model == "ragged":
+                # the fused forward with two bias rows: where K is split,
+                # they fall into the last slice, apart from the patches
+                xf = torch.randn(m, k - 2, generator=gen, device=dev) * 2.0
+                for act in ACTIVATIONS:
+                    cfg = CIMConfig(activation=act)
+                    a = cim.forward(lay, xf, cfg, bias=lay.in_alpha,
+                                    bias_rows=2)
+                    b = cim.forward(lay, xf, cfg, bias=lay.in_alpha,
+                                    bias_rows=2, impl="plain")
+                    check_equal(torch, a, b,
+                                f"{model} {name} forward 2 bias rows {act}",
+                                stats, "cim_mvm")
+                g, grid = K.mvm_launch_geometry(m, k, n, k - 2, True, dev)
+                emit({"phase": "kernel-shape", "kernel": "cim_mvm",
+                      "model": model, "matrix": name, "m": m, "k": k,
+                      "n": n, "compared": list(ALL_ACTIVATIONS),
+                      "fused_compared": list(ACTIVATIONS), "bias_rows": 2,
+                      "geometry": geo,
+                      "fused_geometry": {**g.as_dict(), "grid": grid}})
+                del x, xf, lay
+                continue
             run_k = lambda: K.cim_mvm(x, gd, inv, lay.v_decr)
             run_p = lambda: K.cim_mvm(x, gd, inv, lay.v_decr, impl="plain")
             run_k()
             ms = median_ms(torch, run_k, 20, flush)
             plain_ms = median_ms(torch, run_p, 5, flush)
+            k_host_us = host_us(torch, run_k)
             b_ms, b_by, nbytes, flops = cim_mvm_bound(m, k, n)
+            # the fused forward: float patches (K - 1 columns, past the
+            # clip too) and the bias row
+            del x
+            xf = torch.randn(m, k - 1, generator=gen, device=dev) * 2.0
+            for act in ACTIVATIONS:      # the fused forward: no stochastic
+                cfg = CIMConfig(activation=act)
+                a = cim.forward(lay, xf, cfg, bias=lay.in_alpha, bias_rows=1)
+                b = cim.forward(lay, xf, cfg, bias=lay.in_alpha, bias_rows=1,
+                                impl="plain")
+                check_equal(torch, a, b, f"{model} {name} forward {act}",
+                            stats, "cim_mvm")
+            cfg = CIMConfig()
+            run_f = lambda: cim.forward(lay, xf, cfg, bias=lay.in_alpha,
+                                        bias_rows=1)
+            run_fp = lambda: cim.forward(lay, xf, cfg, bias=lay.in_alpha,
+                                         bias_rows=1, impl="plain")
+            fused_ms = median_ms(torch, run_f, 20, flush)
+            fused_plain_ms = median_ms(torch, run_fp, 5, flush)
+            g, grid = K.mvm_launch_geometry(m, k, n, k - 1, True, dev)
+            f_ms, f_by, f_bytes, _ = cim_mvm_bound(m, k, n, k - 1)
             row = {"kernel": "cim_mvm", "model": model, "matrix": name,
                    "m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                   "flops": flops}
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / ms, "bytes": nbytes,
+                   "flops": flops, "fused_ms": fused_ms,
+                   "fused_plain_ms": fused_plain_ms, "fused_bound_ms": f_ms,
+                   "fused_bound_by": f_by, "fused_bound_share": f_ms / fused_ms,
+                   "fused_bytes": f_bytes, "geometry": geo,
+                   "fused_geometry": {**g.as_dict(), "grid": grid},
+                   "host_us": k_host_us,
+                   "fused_host_us": host_us(torch, run_f)}
             emit({"phase": "kernel-shape", **row})
             rows[model, name] = row
-            del x, lay, gd, inv
+            del xf, lay
     # one 7-layer CNN chip inference at batch 256: its 7 launches, the
     # bound of their bytes and operations together
     cnn = [r for (mdl, _), r in rows.items() if mdl == "cnn7"]
     t_bytes = sum(r["bytes"] for r in cnn) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(r["flops"] for r in cnn) / FP64_FLOPS_PER_S * 1e3
+    f_bytes = sum(r["fused_bytes"] for r in cnn) / HBM_BYTES_PER_S * 1e3
     stats["time"]["cim_mvm"] = {
         "ms": sum(r["ms"] for r in cnn),
         "plain_ms": sum(r["plain_ms"] for r in cnn),
         "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    return {"shapes": len(rows), "max_abs_err": stats["err"]["cim_mvm"],
-            "cnn7_inference_launches": stats["time"]["cim_mvm"]}
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "fused_ms": sum(r["fused_ms"] for r in cnn),
+        "fused_plain_ms": sum(r["fused_plain_ms"] for r in cnn),
+        "fused_bound_ms": max(f_bytes, t_ops),
+        "fused_host_us": sum(r["fused_host_us"] for r in cnn)}
+    res = [r for (mdl, _), r in rows.items() if mdl == "resnet20"]
+    return {"shapes": len(rows), "ragged": len(RAGGED_SHAPES),
+            "max_abs_err": stats["err"]["cim_mvm"],
+            "cnn7_inference_launches": stats["time"]["cim_mvm"],
+            "resnet20_inference_launches_ms": sum(
+                r["ms"] * (6 if "x6" in r["matrix"] else 5 if "x5" in
+                           r["matrix"] else 1) for r in res),
+            "resnet20_inference_fused_ms": sum(
+                r["fused_ms"] * (6 if "x6" in r["matrix"] else 5 if "x5" in
+                                 r["matrix"] else 1) for r in res)}
 
 
 def cnn_path(torch, K, model, dev, stats, path, hw, channels, mode,
@@ -1097,7 +1200,9 @@ def kernels_line(stats):
                                 "M = 64 (CUDA-event window, host work "
                                 "included; device_ms: the kernel alone)",
           "cim_mvm": "one 7-layer CNN chip inference at 28x28, batch 256: "
-                     "its 7 launches summed (relaxed conductances)",
+                     "its 7 launches summed (relaxed conductances; "
+                     "fused_host_us: the fused wrapper's host time for "
+                     "them)",
           "noisy_matmul": "a gemma2-9b w_g in training, M 2048, K 3584, "
                           "N 14336 (matmul_only_ms: torch.matmul on the "
                           "materialised noisy weight, no noise drawn)"}
@@ -1122,7 +1227,9 @@ def kernels_line(stats):
             "library_ms": None, "walk_ms": t.get("walk_ms"),
             "at": at[kernel],
             **{k: v for k, v in t.items()
-               if k in ("device_ms", "w_g_bwd_ms", "matmul_only_ms")},
+               if k in ("device_ms", "w_g_bwd_ms", "matmul_only_ms",
+                        "fused_ms", "fused_plain_ms", "fused_bound_ms",
+                        "fused_host_us")},
             "ok": not failures})
     return {"kernels": rows}
 

@@ -9,7 +9,7 @@ vectors) and returns the port's params in the same layout.
 `ChipLinear`s (`cnn7.deploy`, `resnet20.deploy`), their arrays as numpy,
 and returns the port's: the same programmed conductances, normalizers and
 ADC steps, which the two packages cannot draw alike for `relaxed` or
-`writeverify` programming.
+`writeverify` programming, prepared for the kernel (`core.cim.prepare`).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ def chip_states_from_numpy(states):
     """name -> reference ChipLinear (fields layer, bias_rows, alpha,
     signed; layer a CIMLayer whose arrays convert with np.asarray) -> name
     -> the port's `models.nn.ChipLinear` of float32 CPU tensors."""
-    from .core.cim import CIMLayer
+    from .core.cim import LAYER_FIELDS, CIMLayer, prepare
     from .models.nn import ChipLinear
 
     def f32(a):
@@ -41,8 +41,8 @@ def chip_states_from_numpy(states):
 
     out = {}
     for name, s in states.items():
-        layer = CIMLayer(*(f32(getattr(s.layer, f))
-                           for f in CIMLayer._fields))
+        layer = prepare(CIMLayer(*(f32(getattr(s.layer, f))
+                                   for f in LAYER_FIELDS)))
         out[name] = ChipLinear(layer, int(np.asarray(s.bias_rows)),
                                f32(s.alpha), bool(np.asarray(s.signed)))
     return out

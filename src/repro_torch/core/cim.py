@@ -21,11 +21,14 @@ the chip-IR verifier (`core.verify.verify_chip`) over it. `packed_forward`
 serves one packed layer: quantize, one kernel launch, rescale.
 
 `program` / `forward` are the per-matrix path (`models/nn.chip_linear` /
-`chip_conv`, the CNN deploys): one programmed matrix through the
-single-matrix kernel (`kernels/cim_mvm.cim_mvm`), returning the
-de-normalized digital output in x @ W units with measured ADC offsets
-cancelled. `program` runs the verifier's `exact-dot` check on every
-programmed matrix. Configurations that need the reference's bit-serial
+`chip_conv`, the CNN deploys): one programmed matrix through ONE launch
+of the single-matrix kernel with the glue fused in
+(`kernels/cim_mvm.kernel.cim_forward`: float patches in, bias rows as a
+constant, quantized on load; the de-normalized digital output in x @ W
+units with measured ADC offsets cancelled). `program` runs the verifier's
+`exact-dot` check on every programmed matrix and `prepare`s it: gd = G+ -
+G-, the normalizer's inverse and the integer offset counts are formed
+once, not per call. Configurations that need the reference's bit-serial
 oracle (per-phase non-idealities, the oracle's stochastic neuron) raise.
 
 Randomness (programming noise, synthetic calibration batches) comes from
@@ -49,12 +52,18 @@ from .quant import quantize_to_int
 from .types import CIMConfig, CoreSpec
 from .verify import check_layer, verify_chip
 from .writeverify import iterative_program
-from ..kernels.cim_mvm.ops import cim_mvm, cim_mvm_packed
-from ..kernels.cim_mvm.ref import dequantize_output
+from ..kernels.cim_mvm import kernel as _K
+from ..kernels.cim_mvm.ops import cim_mvm_packed
+
+# the programmed state of a CIMLayer, as the reference's CIMLayer has it
+LAYER_FIELDS = ("g_pos", "g_neg", "w_max", "norm", "v_decr", "adc_offset",
+                "in_alpha")
 
 
 class CIMLayer(NamedTuple):
-    """One weight matrix programmed onto (simulated) RRAM cores."""
+    """One weight matrix programmed onto (simulated) RRAM cores; the last
+    three fields are what the single-matrix kernel reads, formed once by
+    `prepare` (None until then)."""
     g_pos: torch.Tensor
     g_neg: torch.Tensor
     w_max: torch.Tensor
@@ -62,6 +71,21 @@ class CIMLayer(NamedTuple):
     v_decr: torch.Tensor
     adc_offset: torch.Tensor
     in_alpha: torch.Tensor     # PACT input clip
+    gd: Optional[torch.Tensor] = None          # G+ - G-, (K, N) f32
+    inv_norm: Optional[torch.Tensor] = None    # 1 / norm, (N,) f32
+    off_counts: Optional[torch.Tensor] = None  # round(adc_offset / v_decr)
+
+
+def prepare(layer: CIMLayer) -> CIMLayer:
+    """The layer with its kernel operands formed: gd = G+ - G-, 1 / norm
+    and the ADC offsets in counts, each contiguous f32 on the layer's
+    device."""
+    f32 = torch.float32
+    return layer._replace(
+        gd=(layer.g_pos - layer.g_neg).to(f32).contiguous(),
+        inv_norm=(1.0 / layer.norm.to(f32)).contiguous(),
+        off_counts=torch.round(layer.adc_offset / layer.v_decr).to(f32)
+        .contiguous())
 
 
 def synthetic_x_cal(rows: int, in_alpha: float, generator: torch.Generator):
@@ -103,30 +127,31 @@ def program(w, cfg: CIMConfig, in_alpha=1.0, x_cal=None,
         x_cal = synthetic_x_cal(w.shape[0], in_alpha, gen)
     x_int_cal, _ = quantize_to_int(x_cal, in_alpha, cfg.in_bits, signed=True)
     cal = calibrate_layer(x_int_cal, c.g_pos, c.g_neg, cfg)
-    return CIMLayer(c.g_pos, c.g_neg, c.w_max, c.norm, cal.v_decr,
-                    cal.adc_offset,
-                    torch.tensor(float(in_alpha), dtype=torch.float32,
-                                 device=w.device))
+    return prepare(CIMLayer(
+        c.g_pos, c.g_neg, c.w_max, c.norm, cal.v_decr, cal.adc_offset,
+        torch.tensor(float(in_alpha), dtype=torch.float32, device=w.device)))
 
 
-def forward(layer: CIMLayer, x, cfg: CIMConfig, *, seed: int = 0,
-            impl: str = "auto"):
-    """y ~= x @ W through the chip datapath of one programmed matrix. x:
-    (B, R) float. One launch of the single-matrix kernel; impl="plain"
-    forces its plain version (on-card comparison only)."""
+def forward(layer: CIMLayer, x, cfg: CIMConfig, *, bias=None,
+            bias_rows: int = 0, seed: int = 0, impl: str = "auto"):
+    """y ~= x @ W through the chip datapath of one prepared matrix. x:
+    (B, R - bias_rows) float; the last bias_rows weight rows are driven
+    with `bias` (0-d). One launch of the single-matrix kernel, the input
+    quantization, the digital offset cancellation (offsets measured during
+    calibration) and the dequantization fused in; impl="plain" forces its
+    plain version (on-card comparison only). seed: the reference's salt
+    of the stochastic neuron, which this path refuses."""
     if _needs_ref(cfg):
         raise NotImplementedError(
             "per-phase non-idealities and the oracle's stochastic neuron "
             "need the reference's bit-serial oracle, which is not ported")
-    x_int, scale = quantize_to_int(x, layer.in_alpha, cfg.in_bits, signed=True)
-    counts = cim_mvm(x_int, layer.g_pos, layer.g_neg, layer.v_decr, cfg,
-                     seed=seed, norm=layer.norm, impl=impl)
-    # digital offset cancellation (offsets were measured during calibration)
-    off_counts = torch.round(layer.adc_offset / layer.v_decr)
-    if cfg.activation == "none":
-        counts = counts - off_counts[None, :]
-    return dequantize_output(counts, layer.v_decr, layer.norm, layer.w_max,
-                             scale, cfg)
+    if layer.gd is None:
+        raise ValueError("the layer is not prepared: pass it through "
+                         "core.cim.prepare once after programming")
+    return _K.cim_forward(
+        x.contiguous(), layer.gd, layer.inv_norm, layer.v_decr,
+        layer.off_counts, layer.norm, layer.w_max, layer.in_alpha, cfg,
+        bias=bias, bias_rows=bias_rows, impl=impl)
 
 
 def _needs_ref(cfg: CIMConfig) -> bool:

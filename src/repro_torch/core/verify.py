@@ -81,7 +81,9 @@ from .mapping import (PackedPlan, Plan, Tile, TileSchedule,
 from .types import CIMConfig, CoreSpec
 from ..kernels.cim_mvm.kernel import (SMEM_LIMIT, SPLIT_CHUNK_ROWS,
                                       SPLIT_KERNELS, SPLIT_ROWS,
-                                      SPLIT_THREADS, block_rows,
+                                      SPLIT_THREADS, H100_SMS, block_rows,
+                                      mvm_geometry, mvm_shared_bytes,
+                                      one_block,
                                       shared_bytes, split_route, split_rows,
                                       split_shared_bytes)
 
@@ -160,7 +162,10 @@ def check_layer(g_pos, g_neg, *, bm: Optional[int] = None,
     f32 of magnitude >= 1 is a multiple of 2^-23, so with every conductance
     >= 1 uS (relaxation and write-verify clip to g_min) G+ - G-, rounded to
     f32, is one too; K rows of integer inputs up to 127 then stay below
-    2^53 grid steps while K * 127 * max|G+ - G-| < 2^30."""
+    2^53 grid steps while K * 127 * max|G+ - G-| < 2^30.
+
+    shared-memory: the kernel's tiling of bm rows (default 256) of this
+    (K, N) matrix (`mvm_geometry`) fits a Hopper block's shared memory."""
     g_lo = min(float(g_pos.min()), float(g_neg.min())) if g_pos.numel() \
         else _EXACT_G_MIN
     if g_lo < _EXACT_G_MIN:
@@ -177,14 +182,20 @@ def check_layer(g_pos, g_neg, *, bm: Optional[int] = None,
             f"|G+ - G-| reaches {gd_max}: a {k}-row dot of inputs up to "
             f"{_IN_MAX_LIMIT} could reach 2^30 and round in FP64",
             layer=layer)
-    bm_eff = block_rows(_DEFAULT_BM if bm is None else max(int(bm), 1))
-    need = shared_bytes("cim_mvm", bm_eff)
-    if need > SMEM_LIMIT:
-        raise ChipVerifyError(
-            "program", "shared-memory",
-            f"one CUDA block of cim_mvm needs {need} bytes of shared memory "
-            f"at {bm_eff} rows but a Hopper block has {SMEM_LIMIT}",
-            layer=layer)
+    rows = _DEFAULT_BM if bm is None else max(int(bm), 1)
+    n = int(g_pos.shape[1])
+    if k and n:
+        # a tiling that fits: which of them the card runs fastest is the
+        # launch's question, not the verifier's
+        geo = mvm_geometry(rows, k, n, occupancy=one_block, n_sm=H100_SMS)
+        need = mvm_shared_bytes(geo, k)
+        if need > SMEM_LIMIT:
+            raise ChipVerifyError(
+                "program", "shared-memory",
+                f"one CUDA block of cim_mvm needs {need} bytes of shared "
+                f"memory at {rows} rows of a ({k}, {n}) matrix (geometry "
+                f"{geo.as_dict()}) but a Hopper block has {SMEM_LIMIT}",
+                layer=layer)
 
 
 # ----------------------------------------------------------- stage 1: plan

@@ -30,7 +30,7 @@ SOURCES = {
     "noisy_matmul": "noisy_matmul/csrc/noisy_matmul.cu",
 }
 HEADERS = ("csrc/hash_prng.cuh", "cim_mvm/csrc/cim_epilogue.cuh",
-           "cim_mvm/csrc/cim_split.cuh")
+           "cim_mvm/csrc/bulk_copy.cuh", "cim_mvm/csrc/cim_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-I", str(_PKG / "csrc"))

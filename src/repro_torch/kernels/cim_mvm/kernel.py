@@ -1,11 +1,18 @@
 """The CIM MVM kernels: hand-written CUDA kernels for Hopper and their plain
 PyTorch versions (port of `repro/kernels/cim_mvm/kernel.py`).
 
-`cim_mvm` (replaces `cim_mvm_pallas`) runs ONE programmed matrix, the
-per-matrix path of `core/cim.forward`: q = (x @ gd) * v_read * inv_norm,
-then the epilogue, with the stochastic neuron hashed at the reference's
-block-local coordinates (row % bm_ref, col % bn_ref) and salts (seed,
-row // bm_ref, col // bn_ref) for the reference's block (bm_ref, bn_ref).
+`cim_mvm` (replaces `cim_mvm_pallas`) runs ONE programmed matrix: q =
+(x @ gd) * v_read * inv_norm, then the epilogue, with the stochastic
+neuron hashed at the reference's block-local coordinates (row % bm_ref,
+col % bn_ref) and salts (seed, row // bm_ref, col // bn_ref) for the
+reference's block (bm_ref, bn_ref). `cim_forward` is the same kernel with
+the per-matrix path's glue fused in (`core/cim.forward`): float patches in
+(bias rows appended as a constant), quantized on load; offset cancellation
+and dequantization in the epilogue; float out. Its plain version,
+`cim_forward_plain`, is the composition quantize_to_int -> cim_mvm_plain
+-> offset -> dequantize_output. Both run on the FP64 tensor cores over a
+persistent grid; `mvm_launch_geometry` picks the tiling by the runtime's
+occupancy of each candidate (`mvm_geometry`, `csrc/cim_mvm.cu`).
 
 Three kernels execute a packed tile plan (core/mapping.PackedPlan) in one
 launch each; for every output column block j and every tile t of j, in the
@@ -58,12 +65,15 @@ those.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Callable, Dict
 
 import torch
 
 from .. import build as _build
 from ..prng import bits_to_uniform, hash_bits_at
+from ...core.quant import quantize_to_int
+from .ref import dequantize_output
 
 KERNELS = ("cim_mvm_packed", "cim_mvm_scheduled", "cim_mvm_transposed",
            "cim_mvm")
@@ -82,10 +92,23 @@ SPLIT_CHUNK_ROWS = 16  # tile rows per bulk copy of the split route
 SPLIT_STAGES = 3      # bulk copies in flight per term block
 SPLIT_BARRIER_BYTES = 128  # the stages' mbarriers, padded
 SMEM_LIMIT = 232_448  # shared memory a Hopper block can use, bytes
+H100_SMS = 132        # SMs of an H100 SXM (the verifier's geometry)
+MVM_WARPS = 4         # warps of a single-matrix block
+MVM_BARRIER_BYTES = 128  # its stages' mbarriers, padded
+MVM_STAGES = (4, 3, 2)   # ring depths tried, deepest first
+# the warp layouts (wc warps across the tile's columns, rf 8-row fragments
+# per warp, in pairs for m16n8k4) `mvm_geometry` chooses from, by the
+# 8-column groups of a tile
+MVM_LAYOUTS = {1: ((1, 4), (1, 2)), 2: ((1, 4), (1, 2), (2, 2)),
+               4: ((1, 2), (2, 2), (4, 2)), 8: ((2, 2), (4, 2))}
 HASH_BM = 256         # the reference's default batch block (autotune.py)
 REF_BLOCK = (256, 256, 256)   # the reference cim_mvm's default (bm, bk, bn)
 
 _lib: Dict[str, ctypes.CDLL] = {}
+# (m, k, n) launches whose geometry's shared memory is checked against the
+# built kernel at load: both ring layouts, every column tiling
+_MVM_CHECK_SHAPES = ((200704, 145, 16), (12544, 577, 64), (256, 577, 10),
+                     (1, 300, 500), (4096, 9000, 8), (257, 33, 32))
 
 
 def block_rows(m: int) -> int:
@@ -120,14 +143,185 @@ def split_shared_bytes(bm: int, bk: int, bn: int) -> int:
 
 
 def shared_bytes(kernel: str, bm: int) -> int:
-    """Static shared memory of one walk block of `kernel` at `bm` rows: the
-    staged x chunk, [chunk][bm + 2] doubles, and for the transposed kernel
-    the staged tile chunk, [THREADS][T_CHUNK + 1] floats (checked against
-    the built kernels' own attributes when the libraries load). The
-    single-matrix `cim_mvm` stages x as the packed kernel does."""
+    """Static shared memory of one walk block of `kernel` (packed,
+    scheduled or transposed) at `bm` rows: the staged x chunk, [chunk][bm +
+    2] doubles, and for the transposed kernel the staged tile chunk,
+    [THREADS][T_CHUNK + 1] floats (checked against the built kernels' own
+    attributes when the libraries load). The single-matrix kernel's is
+    `mvm_shared_bytes`."""
+    if kernel == "cim_mvm":
+        raise ValueError("cim_mvm sizes its shared memory by its geometry: "
+                         "mvm_shared_bytes(mvm_geometry(m, k, n), k)")
     if kernel == "cim_mvm_transposed":
         return T_CHUNK * (bm + 2) * 8 + THREADS * (T_CHUNK + 1) * 4
     return K_CHUNK * (bm + 2) * 8
+
+
+# ------------------------------------------- single-matrix kernel geometry
+
+class MvmGeometry(ctypes.Structure):
+    """The single-matrix kernel's tiling (csrc/cim_mvm.cu `Geometry`, field
+    for field). A block's 4 warps cover a chunk of cr rows and a column
+    tile of bn = 8 * gf * wc columns: wc warps split the tile's 8-column
+    groups (gf each), 4 / wc warp rows take rf row fragments of 8 rows
+    each. K runs in slices of bk rows (a multiple of 16); the n_slices
+    slices form n_ks splits of spb slices, each its own work item. A
+    contiguous geometry has one slice, whose stage is one copy of the
+    chunk's whole rows; otherwise each row's slice is a copy. kg = 2 adds
+    a second group of 4 warps taking every other 16-row block of K."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "gf", "wc", "rf", "bn", "n_ct", "cr", "n_rc", "bk", "n_slices",
+        "spb", "n_ks", "stages", "contiguous", "kg")]
+
+    def as_dict(self):
+        return {f: getattr(self, f) for f, _ in self._fields_}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round16(v: int) -> int:
+    return _cdiv(v, 16) * 16
+
+
+def mvm_stage_bytes(g: MvmGeometry, k_x: int) -> int:
+    """Bytes of one ring stage: the chunk's rows of x (k_x columns) as one
+    16-byte aligned cover, or one cover per row of a slice; with two warp
+    groups at least the second group's FP64 sums (8 bytes per output of
+    the chunk), which an item's last stage carries to the first."""
+    x = (_round16(g.cr * k_x * 4) + 16 if g.contiguous
+         else g.cr * (g.bk * 4 + 16))
+    return max(x, MVM_WARPS * 32 * g.rf * g.gf * 2 * 8) if g.kg == 2 else x
+
+
+def mvm_shared_bytes(g: MvmGeometry, k_x: int) -> int:
+    """Dynamic shared memory of one block: the mbarriers, gd's slice (bk x
+    bn f32) and the ring (checked against the built kernel at load)."""
+    return MVM_BARRIER_BYTES + g.bk * g.bn * 4 \
+        + g.stages * mvm_stage_bytes(g, k_x)
+
+
+Occupancy = Callable[[MvmGeometry, int], int]
+
+
+def one_block(g: MvmGeometry, k_x: int) -> int:
+    """The occupancy taken where no card is asked (the verifier, the
+    load-time check): every tiling that fits counts as one resident
+    block, so the geometry is one that fits."""
+    return 1
+
+
+def mvm_geometry(m: int, k: int, n: int, k_x=None, *,
+                 occupancy: Occupancy, n_sm: int) -> MvmGeometry:
+    """The single-matrix kernel's tiling of an (m, k) x (k, n) launch whose
+    x has k_x <= k columns (the rest are the fused forward's bias rows), on
+    a card of n_sm SMs. occupancy(g, k_x): blocks of tiling g resident on
+    one SM (0: it cannot launch) — on the card the runtime's own count for
+    the instantiation g selects (`mvm_launch_geometry`).
+
+    The column tile is the smallest of 8, 16, 32, 64 columns covering n
+    (64-column tiles past that). gd stays resident (one slice of all k)
+    when it and at least two stages of whole-row chunks fit; of the warp
+    layouts (MVM_LAYOUTS) and ring depths that fit, the one with the most
+    blocks resident per SM is taken (the kernel hides its latencies with
+    warps), then the fewest warps sharing a row, the most rows per warp
+    and the shallowest ring. A launch with fewer than n_sm / 2 work items
+    (small m) or whose chunks do not fit splits k instead, into slices
+    copied row by row, and spreads the slices over the SMs as separate
+    items. Where one block fills an SM, a second warp group joins it."""
+    k_x = k if k_x is None else k_x
+    if not (m >= 1 and n >= 1 and k >= 1 and 0 <= k_x <= k):
+        raise ValueError(f"no geometry for m={m}, k={k}, n={n}, k_x={k_x}")
+    groups = 1
+    while groups * 8 < n and groups < 8:
+        groups *= 2
+    bn = 8 * groups
+
+    def make(layout, bk, contiguous, stages, splits):
+        wc, rf = layout
+        cr = (MVM_WARPS // wc) * 8 * rf
+        n_slices = _cdiv(k, bk)
+        spb = _cdiv(n_slices, min(n_slices, splits))
+        return MvmGeometry(groups // wc, wc, rf, bn, _cdiv(n, bn), cr,
+                           _cdiv(m, cr), bk, n_slices, spb,
+                           _cdiv(n_slices, spb), stages, contiguous, 1)
+
+    def resident(g):
+        return occupancy(g, k_x) if mvm_shared_bytes(g, k_x) <= SMEM_LIMIT \
+            else 0
+
+    layouts = MVM_LAYOUTS[groups]
+    fits = [(resident(g), g) for g in (make(lay, _round16(k), 1, s, 1)
+                                       for lay in layouts
+                                       for s in MVM_STAGES)]
+    fits = [(b, g) for b, g in fits if b >= 1]
+    if fits:
+        blocks, whole = max(fits, key=lambda bg: (
+            bg[0], -bg[1].wc, bg[1].rf, -bg[1].stages))
+        if whole.n_ct * whole.n_rc >= n_sm // 2 or k <= 16:
+            return _two_groups(whole, blocks, resident)
+    # split k: the layout of fewest rows, slices as large as the items
+    # allow and the shared memory holds
+    lay = layouts[-1]
+    base = make(lay, 16, 0, 2, 1)
+    items = base.n_ct * base.n_rc
+    splits = _cdiv(n_sm, items) if items < n_sm // 2 else 1
+    bk = _round16(_cdiv(k, splits))
+    while bk > 16 and mvm_shared_bytes(make(lay, bk, 0, 2, 1), k_x) \
+            > SMEM_LIMIT:
+        bk -= 16
+    stages = next((s for s in MVM_STAGES
+                   if mvm_shared_bytes(make(lay, bk, 0, s, 1), k_x)
+                   <= SMEM_LIMIT), 2)
+    g = make(lay, bk, 0, stages, splits)
+    return _two_groups(g, resident(g), resident)
+
+
+def _two_groups(g: MvmGeometry, blocks: int, resident) -> MvmGeometry:
+    """g with a second warp group where only one block of g is resident
+    per SM: twice the warps hide the latencies."""
+    if blocks > 1:
+        return g
+    two = MvmGeometry(*(getattr(g, f) for f, _ in g._fields_[:-1]), 2)
+    return two if resident(two) >= 1 else g
+
+
+def mvm_units(g: MvmGeometry, grid: int, block: int):
+    """The (column tile, row chunk, slice) units that `block` of a
+    `grid`-block launch runs, in its order (the kernel's walk: items
+    block, block + grid, ...; each item's slices in order)."""
+    out = []
+    for item in range(block, g.n_ct * g.n_rc * g.n_ks, grid):
+        ct, r = divmod(item, g.n_rc * g.n_ks)
+        rc, ks = divmod(r, g.n_ks)
+        for s in range(min(g.spb, g.n_slices - ks * g.spb)):
+            out.append((ct, rc, ks * g.spb + s))
+    return out
+
+
+def mvm_copies(g: MvmGeometry, m: int, k_x: int, rc: int, sl: int,
+               base: int = 0):
+    """The bulk copies of unit (row chunk rc, slice sl) for x at byte
+    address `base`: (source byte, bytes, stage offset, offset of the first
+    wanted byte in the stage) each, as the kernel makes them."""
+    r0 = rc * g.cr
+    rows = min(g.cr, m - r0)
+    if g.contiguous:
+        spans = [(base + r0 * k_x * 4, rows * k_x * 4, 0)]
+    else:
+        k0 = sl * g.bk
+        n = min(g.bk, k_x - k0)
+        spans = [] if n <= 0 else [
+            (base + ((r0 + r) * k_x + k0) * 4, n * 4, r * (g.bk * 4 + 16))
+            for r in range(rows)]
+    out = []
+    for src, nbytes, dst in spans:
+        lo = src & ~15
+        hi = (src + nbytes + 15) & ~15
+        if hi > lo:
+            out.append((lo, hi - lo, dst, dst + src - lo))
+    return out
 
 
 def pwl_knots(n_max: int):
@@ -196,6 +390,27 @@ def cim_mvm_plain(x, gd, inv_norm, v_decr, *, activation: str, n_max: int,
         u = matrix_uniform(q.shape[0], q.shape[1], seed, bm_ref, bn_ref,
                            x.device)
     return _epilogue(q, v_decr, activation, n_max, u)
+
+
+def cim_forward_plain(x, gd, inv_norm, v_decr, off_counts, norm, w_max,
+                      in_alpha, cfg, bias=None, *, bias_rows: int = 0):
+    """The plain PyTorch version of the fused per-matrix forward under
+    `cfg` (a CIMConfig): the bias rows appended (`bias` in every row),
+    quantize_to_int, the single-matrix plain version, offset cancellation
+    for activation 'none', and dequantize_output. Returns (M, N) f32 in
+    x @ W units (neuron units for tanh / sigmoid). The stochastic neuron,
+    the only reader of the hash block, is not taken (`cim_forward`)."""
+    if bias_rows:
+        x = torch.cat([x, bias.expand(x.shape[0], bias_rows).to(x.dtype)],
+                      dim=-1)
+    x_int, scale = quantize_to_int(x, in_alpha, cfg.in_bits, signed=True)
+    counts = cim_mvm_plain(x_int.to(torch.float32), gd, inv_norm, v_decr,
+                           activation=cfg.activation,
+                           n_max=cfg.out_mag_levels, v_read=cfg.v_read,
+                           bm_ref=1, bn_ref=1)
+    if cfg.activation == "none":
+        counts = counts - off_counts[None, :]
+    return dequantize_output(counts, v_decr, norm, w_max, scale, cfg)
 
 
 def _x_blocks(x, n_in_blocks: int, width: int):
@@ -431,6 +646,25 @@ class Epilogue(ctypes.Structure):
                 ("seed", ctypes.c_uint32), ("bm_ref", ctypes.c_int)]
 
 
+class MvmArgs(ctypes.Structure):
+    """The single-matrix kernel's arguments (csrc/cim_mvm.cu `Args`)."""
+    _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _fields_ = [("x", _p), ("M", _i), ("K", _i), ("Kx", _i), ("N", _i),
+                ("gd", _p), ("inv_norm", _p), ("v_decr", _p),
+                ("bn_ref", _i), ("out", _p), ("partial", _p),
+                ("arrived", _p), ("in_alpha", _p), ("bias", _p),
+                ("levels", _f), ("inv_levels", _f), ("off_counts", _p),
+                ("norm", _p), ("w_max", _p), ("inv_out_div", _f)]
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_inverse(v: float) -> float:
+    """1 / v in f32, as PyTorch's CUDA division by a Python scalar forms
+    it (the reciprocal of the f32 scalar, then a multiply)."""
+    one = torch.tensor(1.0, dtype=torch.float32)
+    return float(one / torch.tensor(v, dtype=torch.float32))
+
+
 def _epilogue_args(activation: str, n_max: int, v_read: float, seed: int,
                    bm_ref: int) -> Epilogue:
     return Epilogue(ACTIVATIONS[activation], v_read, float(n_max),
@@ -452,10 +686,13 @@ def load() -> Dict[str, ctypes.CDLL]:
         lib = _build.library(name)
         launch = getattr(lib, f"{name}_launch")
         if name == "cim_mvm":
-            # x, M, K, gd, N, inv_norm, v_decr, bn_ref, out, epilogue, bm,
-            # stream
-            launch.argtypes = [p, i, i, p, i, p, p, i, p,
-                               ctypes.POINTER(Epilogue), i, p]
+            # args, geometry, epilogue, fused, grid, stream
+            launch.argtypes = [ctypes.POINTER(MvmArgs),
+                               ctypes.POINTER(MvmGeometry),
+                               ctypes.POINTER(Epilogue), i, i, p]
+            occ = lib.cim_mvm_occupancy      # geometry, k_x, fused
+            occ.argtypes, occ.restype = [ctypes.POINTER(MvmGeometry), i,
+                                         i], i
         else:
             # x, M, K, gd, inv_norm, denorm, v_decr, the index tables,
             # n_col_blocks, in width, out width, out, epilogue, bm, stream
@@ -463,7 +700,23 @@ def load() -> Dict[str, ctypes.CDLL]:
                                + [i, i, i, p, ctypes.POINTER(Epilogue), i, p])
         launch.restype = i
         smem = getattr(lib, f"{name}_shared_bytes")
-        smem.argtypes, smem.restype = [i], i
+        smem.restype = i
+        if name == "cim_mvm":
+            smem.argtypes = [ctypes.POINTER(MvmGeometry), i]
+            for m, k, n in _MVM_CHECK_SHAPES:
+                for k_x in (k, k - 1):
+                    g = mvm_geometry(m, k, n, k_x, occupancy=one_block,
+                                     n_sm=H100_SMS)
+                    if smem(ctypes.byref(g), k_x) != \
+                            mvm_shared_bytes(g, k_x):
+                        raise RuntimeError(
+                            f"cim_mvm requests {smem(ctypes.byref(g), k_x)}"
+                            f" B of shared memory at m={m}, k={k}, k_x="
+                            f"{k_x}, n={n}, the verifier assumes "
+                            f"{mvm_shared_bytes(g, k_x)} B")
+            libs[name] = lib
+            continue
+        smem.argtypes = [i]
         for bm in BLOCK_ROWS:        # the verifier's shared-memory model
             if smem(bm) != shared_bytes(name, bm):
                 raise RuntimeError(
@@ -710,6 +963,77 @@ def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                         col_run_start.shape[0] - 1, bn_f, bk_f, **kw)
 
 
+@functools.lru_cache(maxsize=None)
+def _launch_plan(m: int, k: int, n: int, k_x: int, fused: bool,
+                 index: int):
+    """mvm_launch_geometry on card `index`, memoized: it depends on the
+    shape alone."""
+    lib = load()["cim_mvm"]
+    with torch.cuda.device(index):
+        n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+
+        def occupancy(g, kx):
+            blocks = lib.cim_mvm_occupancy(ctypes.byref(g), kx, int(fused))
+            if blocks < 0:
+                raise RuntimeError(f"cim_mvm occupancy query failed: CUDA "
+                                   f"error {-blocks}")
+            return blocks
+        g = mvm_geometry(m, k, n, k_x, occupancy=occupancy, n_sm=n_sm)
+        blocks = occupancy(g, k_x)
+    if blocks < 1:
+        raise RuntimeError(f"cim_mvm cannot launch geometry {g.as_dict()}: "
+                           f"no block of it fits an SM")
+    return g, min(g.n_ct * g.n_rc * g.n_ks, n_sm * blocks)
+
+
+def mvm_launch_geometry(m: int, k: int, n: int, k_x: int, fused: bool,
+                        device):
+    """The tiling and the persistent grid of the single-matrix kernel's
+    (m, k) x (k, n) launch (x of k_x columns; fused: the forward's entry)
+    on CUDA `device`: `mvm_geometry` ranked by the runtime's occupancy of
+    each candidate, the grid its blocks per SM times the SMs, at most one
+    block per work item."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    return _launch_plan(m, k, n, k_x, bool(fused), index)
+
+
+def _launch_mvm(args: MvmArgs, x, k: int, n: int, epi: Epilogue,
+                fused: bool):
+    """Allocate the output (and the K splits' zeroed scratch) of an (M, k)
+    x (k, n) launch on x's card and launch the single-matrix kernel once on
+    the current stream."""
+    m, k_x = x.shape
+    dev = x.device
+    lib = load()["cim_mvm"]
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    g, grid = mvm_launch_geometry(m, k, n, k_x, fused, dev)
+    scratch = None
+    if g.n_ks > 1:
+        # (m, n) FP64 partial sums, then n_ct * n_rc int32 counters
+        words = m * n + _cdiv(g.n_ct * g.n_rc, 2)
+        scratch = torch.zeros(words, dtype=torch.float64, device=dev)
+        args.partial = scratch.data_ptr()
+        args.arrived = scratch.data_ptr() + m * n * 8
+    args.x, args.M, args.K, args.Kx, args.N = x.data_ptr(), m, k, k_x, n
+    args.out = out.data_ptr()
+    err = lib.cim_mvm_launch(ctypes.byref(args), ctypes.byref(g),
+                             ctypes.byref(epi), int(fused), grid,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cim_mvm launch failed: CUDA error {err} "
+                           f"(geometry {g.as_dict()}, grid {grid})")
+    LAUNCHES["cim_mvm"] += 1
+    return out
+
+
+def _ref_block(m: int, n: int, block):
+    return max(min(block[0], m), 1), max(min(block[2], n), 1)
+
+
 def cim_mvm(x, gd, inv_norm, v_decr, *, activation: str = "none",
             n_max: int = 127, v_read: float = 0.5, seed: int = 0,
             block=REF_BLOCK, impl: str = "auto"):
@@ -731,7 +1055,7 @@ def cim_mvm(x, gd, inv_norm, v_decr, *, activation: str = "none",
     if gd.shape[0] != k:
         raise ValueError(f"x has {k} features, gd has {gd.shape[0]} rows")
     n = gd.shape[1]
-    bm_ref, bn_ref = max(min(block[0], m), 1), max(min(block[2], n), 1)
+    bm_ref, bn_ref = _ref_block(m, n, block)
     kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed)
     if impl == "plain" or x.device.type == "cpu":
         return cim_mvm_plain(x, gd, inv_norm, v_decr, bm_ref=bm_ref,
@@ -743,16 +1067,59 @@ def cim_mvm(x, gd, inv_norm, v_decr, *, activation: str = "none",
     _check("gd", gd, f32, (k, n), dev)
     _check("inv_norm", inv_norm, f32, (n,), dev)
     _check("v_decr", v_decr, f32, (), dev)
-    lib = load()["cim_mvm"]
-    out = torch.empty((m, n), dtype=f32, device=dev)
-    if m == 0 or n == 0:
-        return out
+    args = MvmArgs(gd=gd.data_ptr(), inv_norm=inv_norm.data_ptr(),
+                   v_decr=v_decr.data_ptr(), bn_ref=bn_ref)
     epi = _epilogue_args(activation, n_max, v_read, seed, bm_ref)
-    err = lib.cim_mvm_launch(
-        x.data_ptr(), m, k, gd.data_ptr(), n, inv_norm.data_ptr(),
-        v_decr.data_ptr(), bn_ref, out.data_ptr(), ctypes.byref(epi),
-        block_rows(m), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"cim_mvm launch failed: CUDA error {err}")
-    LAUNCHES["cim_mvm"] += 1
-    return out
+    return _launch_mvm(args, x, k, n, epi, fused=False)
+
+
+def cim_forward(x, gd, inv_norm, v_decr, off_counts, norm, w_max, in_alpha,
+                cfg, *, bias=None, bias_rows: int = 0, impl: str = "auto"):
+    """The per-matrix forward in ONE launch of the single-matrix kernel,
+    under `cfg` (a CIMConfig): float x (M, K - bias_rows) quantized on
+    load (bias_rows more columns hold `bias`), the dot against gd (K, N),
+    the ADC epilogue, offset cancellation (off_counts (N,), activation
+    'none') and the dequantization by v_decr, norm (N,), w_max and the
+    input scale of in_alpha (0-d each). Returns (M, N) f32 in x @ W units
+    (neuron units for tanh / sigmoid). The stochastic neuron is not taken
+    (the reference's forward needs its oracle for it).
+
+    impl: "auto" runs the plain version (`cim_forward_plain`) on a CPU
+    tensor and launches the kernel on a CUDA tensor; "plain" forces the
+    plain version (on-card comparison only)."""
+    act = cfg.activation
+    _check_args(act, impl)
+    if act == "stochastic":
+        raise ValueError("the fused forward does not take the stochastic "
+                         "neuron")
+    m, k_x = x.shape
+    k, n = gd.shape
+    if k_x + bias_rows != k:
+        raise ValueError(f"x has {k_x} features and {bias_rows} bias rows, "
+                         f"gd has {k} rows")
+    tensors = (gd, inv_norm, v_decr, off_counts, norm, w_max, in_alpha)
+    if impl == "plain" or x.device.type == "cpu":
+        return cim_forward_plain(x, *tensors, cfg, bias, bias_rows=bias_rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"no cim_mvm kernel for device {x.device}")
+    dev, f32 = x.device, torch.float32
+    if bias is None:
+        bias = in_alpha
+    for name, t, shape in (("x", x, (m, k_x)), ("gd", gd, (k, n)),
+                           ("inv_norm", inv_norm, (n,)),
+                           ("v_decr", v_decr, ()),
+                           ("off_counts", off_counts, (n,)),
+                           ("norm", norm, (n,)), ("w_max", w_max, ()),
+                           ("in_alpha", in_alpha, ()), ("bias", bias, ())):
+        _check(name, t, f32, shape, dev)
+    levels = max((1 << (cfg.in_bits - 1)) - 1, 1)   # quantize_to_int's n
+    # the hash block and seed: read only by the stochastic neuron
+    args = MvmArgs(gd=gd.data_ptr(), inv_norm=inv_norm.data_ptr(),
+                   v_decr=v_decr.data_ptr(), bn_ref=1,
+                   in_alpha=in_alpha.data_ptr(), bias=bias.data_ptr(),
+                   levels=float(levels), inv_levels=_f32_inverse(levels),
+                   off_counts=off_counts.data_ptr(), norm=norm.data_ptr(),
+                   w_max=w_max.data_ptr(),
+                   inv_out_div=_f32_inverse(cfg.v_read * cfg.device.g_max))
+    epi = _epilogue_args(act, cfg.out_mag_levels, cfg.v_read, 0, 1)
+    return _launch_mvm(args, x, k, n, epi, fused=True)

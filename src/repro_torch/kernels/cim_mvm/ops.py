@@ -1,10 +1,11 @@
 """Public entry points of the CIM MVM kernels (PyTorch port of
 `repro/kernels/cim_mvm/ops.py`).
 
-`cim_mvm` is the single-matrix path used by models in chip-sim mode
-(`core.cim.forward`): it forms the folded representation (differential
-conductance gd = G+ - G- and the per-column normalizer) as the reference
-does and returns signed ADC counts from one kernel launch.
+`cim_mvm` is the unfused single-matrix entry: it forms the folded
+representation (differential conductance gd = G+ - G- and the per-column
+normalizer) as the reference does and returns signed ADC counts from one
+kernel launch. The models' per-matrix path (`core.cim.forward`) calls the
+fused `kernel.cim_forward` on a prepared layer instead.
 
 `cim_mvm_packed` executes a whole layer's TNSA tile plan
 (core/mapping.PackedPlan) in one kernel launch — the serving path behind

@@ -199,11 +199,10 @@ def deploy_linear(p, cfg: CIMConfig, alpha, x_cal=None, signed: bool = False,
 def chip_linear(cl: ChipLinear, x, cfg: CIMConfig, seed: int = 0,
                 impl: str = "auto"):
     """x: (B, n_in) float -> (B, n_out) float through the chip datapath:
-    one launch of the single-matrix kernel (impl="plain": its plain
-    version)."""
-    ones = cl.alpha.expand(x.shape[0], cl.bias_rows).to(x.dtype)
-    x_aug = torch.cat([x, ones], dim=-1)
-    return cim_api.forward(cl.layer, x_aug, cfg, seed=seed, impl=impl)
+    one launch of the single-matrix kernel, the bias rows driven at
+    `cl.alpha` inside it (impl="plain": its plain version)."""
+    return cim_api.forward(cl.layer, x, cfg, bias=cl.alpha,
+                           bias_rows=cl.bias_rows, seed=seed, impl=impl)
 
 
 def chip_conv(cl: ChipLinear, x, cfg: CIMConfig, kh: int, kw_: int,

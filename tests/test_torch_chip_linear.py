@@ -282,8 +282,8 @@ def test_forward_matches_reference(relaxed_layer):
     carried across: the port's forward equals the reference's except
     where a count sits on a .5 boundary (one ADC step there)."""
     from repro_torch.core.quant import quantize_to_int
-    lay = tcim.CIMLayer(*(to_torch(np.asarray(a, np.float32))
-                          for a in relaxed_layer["layer"]))
+    lay = tcim.prepare(tcim.CIMLayer(*(to_torch(np.asarray(a, np.float32))
+                                       for a in relaxed_layer["layer"])))
     x = to_torch(relaxed_layer["x"])
     cfg = CIMConfig(in_bits=4, out_bits=8)
     got = to_numpy(tcim.forward(lay, x, cfg))

@@ -276,21 +276,21 @@ def test_deploy_ideal_matches_reference(ref_models):
                                                    ("resnet20", 21, 22)])
 def test_single_matrix_launches_per_path(name, deploy_n, infer_n,
                                          monkeypatch):
-    """The per-matrix path's kernel calls: deploy runs a chip layer after
-    each convolution it programs (not after the fc; calibration runs the
-    oracle), inference one per layer."""
+    """The per-matrix path's kernel calls (the fused forward): deploy runs a
+    chip layer after each convolution it programs (not after the fc;
+    calibration runs the oracle), inference one per layer."""
     model, ch = MODELS[name]
     gen = torch.Generator().manual_seed(0)
     x, _ = cluster_images(gen, 2 * BATCH, hw=HW, channels=ch)
     params = (cnn7.init_full(gen, x[:BATCH]) if name == "cnn7"
               else resnet20.init(gen))
     n = [0]
-    real = K.cim_mvm
+    real = K.cim_forward
 
     def count(*a, **kw):
         n[0] += 1
         return real(*a, **kw)
-    monkeypatch.setattr(K, "cim_mvm", count)
+    monkeypatch.setattr(K, "cim_forward", count)
     states = model.deploy(params, CFG, x[:BATCH], generator=gen)
     assert n[0] == deploy_n and len(states) == infer_n
     n[0] = 0

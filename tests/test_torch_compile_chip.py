@@ -145,13 +145,20 @@ def test_mutated_artifact_raises(chips, mutant):
 
 def test_shared_memory_invariant_matches_kernel_tiling(monkeypatch):
     """The verifier's shared-memory check uses the kernel's own tiling: at
-    every batch the bytes fit Hopper's 232,448, and a limit below the
+    every batch the bytes fit Hopper's 232,448 (the walk kernels' static
+    layout, the single-matrix kernel's geometry), and a limit below the
     kernel's need is reported as `shared-memory`."""
     p = tcim.compile_chip({"m": torch.randn(300, 500)}, CIMConfig(),
                           in_alpha=3.0).layers["m"].packed
     for bm in (1, 4, 5, 32, 256, 4096):
         for kernel in K.KERNELS:
-            assert K.shared_bytes(kernel, K.block_rows(bm)) <= K.SMEM_LIMIT
+            if kernel == "cim_mvm":
+                need = K.mvm_shared_bytes(K.mvm_geometry(
+                    bm, 300, 500, occupancy=K.one_block, n_sm=K.H100_SMS),
+                    300)
+            else:
+                need = K.shared_bytes(kernel, K.block_rows(bm))
+            assert need <= K.SMEM_LIMIT
         tverify.check_packed(p, bm=bm)
     monkeypatch.setattr(tverify, "SMEM_LIMIT",
                         K.shared_bytes("cim_mvm_packed", 32) - 1)
