@@ -9,24 +9,28 @@ Phases, each printed as one JSON line; any failure exits nonzero without
 the final result line:
 
   device        the card (nvidia-smi name and power limit); no CUDA fails
-  build         nvcc build of every kernel, from this checkout, in parallel
+  build         nvcc build of every kernel, from this checkout, in parallel;
+                the walk's registers and spills from `-Xptxas -v`
   kernel        the packed kernel against its plain PyTorch version at the
                 full-width gemma2-9b layer shapes, M = 1, 4, 16 (the split
-                route), 17 and 256 (the walk), every activation, with the
-                plan's denorm and with the valid-column mask; times and
-                bounds at M = 4, 16 and 256, and the walk's time at M = 4
-                in the same run (`walk_ms`, through the kernel module's
-                own `launch_walk`)
+                route), 17, 32, 64 and 256 (the walk), every activation,
+                with the plan's denorm and with the valid-column mask;
+                times and bounds at M = 4, 16, 17, 32, 64 and 256, each
+                line with its route and the walk's geometry and grid, and
+                the walk's time at the split route's M in the same run
+                (`walk_ms`, through the kernel module's own
+                `launch_walk`); a route-edge line sums a layer's seven
+                projections per M on both routes
   kernel-runs   the scheduled kernel on the multi-pass w_g and w_o of a
                 full-width layer compiled on a 3072-core chip (M as the
-                kernel phase, both weightings, the walk timed at M = 4)
-                and on a 35-row IR-drop layer whose tiles are not 16-byte
-                multiples, the scheduled kernel forced onto a single-pass
-                plan against the packed kernel (and timed beside it,
-                kernel-level line), and the transposed kernel on the bwd
-                direction of that chip's w_g and w_o and at the RBM's
-                geometry (795 x 121, M = 64); every activation including
-                stochastic, bit for bit, with times and bounds
+                kernel phase, both weightings, the walk timed beside the
+                split route) and on a 35-row IR-drop layer whose tiles are
+                not 16-byte multiples, the scheduled kernel forced onto a
+                single-pass plan against the packed kernel (and timed
+                beside it, kernel-level line), and the transposed kernel on
+                the bwd direction of that chip's w_g and w_o and at the
+                RBM's geometry (795 x 121, M = 64); every activation
+                including stochastic, bit for bit, with times and bounds
   smoke         the smoke-size model served on the card against the same
                 model served by the plain versions on the CPU
   serve         full-width gemma2-9b (4 of 42 layers, random weights from
@@ -66,9 +70,11 @@ the final result line:
                 sigma 0 against the plain product, and the reference
                 test's noise statistic; times beside a torch.matmul on the
                 materialised noisy weight ("matmul only")
-  profile       a profiled decode window of each serve path (the split
-                route's term and fold kernels timed apart; a decode step
-                that launches a walk kernel fails), three
+  profile       a profiled prefill of each serve path (the walk's device ms
+                per projection, in the model's call order) and a profiled
+                decode window (the split route's term and fold kernels
+                timed apart; a decode step that launches the walk fails),
+                three
                 profiled chip inferences of each CNN path (the
                 single-matrix kernel's and the glue's device ms: the
                 elementwise and concatenation kernels), and the
@@ -113,8 +119,10 @@ FULL_LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wv": (3584, 2048),
 PER_LAYER = {"wq": 1, "wk": 2, "wo": 1, "w_g": 2, "w_o": 1}
 ACTIVATIONS = ("none", "relu", "tanh", "sigmoid", "identity")
 ALL_ACTIVATIONS = ACTIVATIONS + ("stochastic",)
-COMPARE_ROWS = (1, 4, 16, 17, 256)   # split route up to 16 rows, walk above
-TIME_ROWS = (4, 16, 17, 256)  # decode, both sides of the route's edge, prefill
+COMPARE_ROWS = (1, 4, 16, 17, 32, 64, 256)   # both routes, prefill
+TIME_ROWS = (4, 16, 17, 32, 64, 256)  # decode, the route's edge, prefill
+# the model's projections in their call order inside a layer
+PROJ_ORDER = ("wq", "wk", "wv", "wo", "w_g", "w_i", "w_o")
 SEED = 1234                      # the stochastic neuron's salt
 SERVE = dict(n_layers=4, batch=4, prompt_len=64, gen=32, cim_cores=6144)
 MERGED = dict(n_layers=4, batch=4, prompt_len=64, gen=8, cim_cores=3072)
@@ -255,7 +263,31 @@ def build_phase(K, stopwatch):
         NK.load()
     return {"seconds": sw.s,
             "libraries": {k: str(v.relative_to(ROOT))
-                          for k, v in libs.items()}}
+                          for k, v in libs.items()},
+            "ptxas": {k: ptxas_kernels(build.ptxas_log(libs[k]))
+                      for k in K.SPLIT_KERNELS}}
+
+
+def ptxas_kernels(log):
+    """Registers and spill bytes of each kernel of a library, from the
+    build's `-Xptxas -v` report (name<template ints>: [registers, spill
+    stores, spill loads])."""
+    import re
+    if not log.exists():
+        return "not measured"
+    out = {}
+    for block in log.read_text().split("Compiling entry function")[1:]:
+        mangled = block.split("'")[1]
+        ident = re.search(r"\d+(cim_[a-z_]+)", mangled)
+        args = re.findall(r"L[ib](\d+)E", mangled)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if ident and regs:
+            name = ident.group(1) + (f"<{','.join(args)}>" if args else "")
+            out[name] = [int(regs.group(1))] + (
+                [int(v) for v in spill.groups()] if spill else [])
+    return out
 
 
 def packed_args(p, den=None):
@@ -317,6 +349,50 @@ def walk_call(K, p, x, kernel, den=None):
                          n_max=127, v_read=0.5, seed=SEED)
 
 
+def walk_geo(K, kernel, p, m, dev):
+    """The walk's geometry and grid for plan p at m rows on `dev`."""
+    g, grid = K.walk_launch_geometry(kernel, m, p.bk, p.bn, p.n_col_blocks,
+                                     dev)
+    return {**g.as_dict(), "grid": grid}
+
+
+def layer_sums(rows, per_layer):
+    """Per M: the ms, plain, bound (and, where the split route ran, the
+    walk's) times of a layer's projections, summed with per_layer[name]
+    launches each."""
+    out = {}
+    for m in sorted({r["m"] for r in rows}):
+        rs = [r for r in rows if r["m"] == m]
+        keys = ("ms", "plain_ms", "bound_ms") + (
+            ("walk_ms",) if all("walk_ms" in r for r in rs) else ())
+        out[m] = {k: sum(per_layer[r["matrix"]] * r[k] for r in rs)
+                  for k in keys}
+        out[m]["route"] = rs[0]["route"]
+    return out
+
+
+def common_bound(rows):
+    """What bounds every row alike ("bytes" or "operations"), else
+    "mixed"."""
+    kinds = {r["bound_by"] for r in rows}
+    return kinds.pop() if len(kinds) == 1 else "mixed"
+
+
+def route_edge(K, kernel, sums):
+    """The route-edge line of `kernel`: per M the layer's time on the route
+    it took, and the walk's beside the split route's; the largest
+    SPLIT_ROWS value at which the split route still beats the walk (0:
+    none)."""
+    wins = [m for m, v in sums.items()
+            if v["route"] == "split" and v["ms"] < v.get("walk_ms", 0.0)]
+    edge = max((r for r in K.SPLIT_ROWS
+                if all(m in wins for m in sums if m <= r)), default=0)
+    row = {"phase": "route-edge", "kernel": kernel, "layer": sums,
+           "split_rows": list(K.SPLIT_ROWS), "split_wins_up_to": edge}
+    emit(row)
+    return row
+
+
 @phase("kernel")
 def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
     gen = torch.Generator(dev).manual_seed(11)
@@ -360,20 +436,24 @@ def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
             row = {"matrix": name, "shape": [r, c], "m": m,
                    "tiles": p.n_tiles, "route": route_name(K, m), "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "bytes": nbytes, "flops": flops}
-            if m == 4:
+                   "bound_share": b_ms / ms, "bytes": nbytes, "flops": flops,
+                   "walk_geometry": walk_geo(K, "cim_mvm_packed", p, m, dev)}
+            if K.split_route(m):
                 row["walk_ms"] = time_walk(torch, K, p, x, "cim_mvm_packed",
                                            run_k, flush, stats)
             emit({"phase": "kernel-shape", "kernel": "cim_mvm_packed", **row})
             rows.append(row)
-    decode = [r for r in rows if r["m"] == 4]
-    stats["time"]["cim_mvm_packed"] = {
-        k: sum(PER_LAYER[r["matrix"]] * r[k] for r in decode)
-        for k in ("ms", "plain_ms", "bound_ms", "walk_ms")}
-    stats["time"]["cim_mvm_packed"]["bound_by"] = "bytes"
+    sums = layer_sums(rows, PER_LAYER)
+    edge = route_edge(K, "cim_mvm_packed", sums)
+    t = stats["time"]["cim_mvm_packed"] = dict(sums[4], bound_by="bytes")
+    t.pop("route")
+    t.update({f"prefill_{k}": v for k, v in sums[256].items()
+              if k != "route"})
+    t["prefill_bound_by"] = common_bound(r for r in rows if r["m"] == 256)
     return {"shapes": len(rows),
             "max_abs_err": stats["err"]["cim_mvm_packed"],
-            "decode_layer": stats["time"]["cim_mvm_packed"]}
+            "decode_layer": sums[4], "prefill_layer": sums[256],
+            "split_wins_up_to": edge["split_wins_up_to"]}
 
 
 def route_name(K, m):
@@ -403,16 +483,20 @@ def time_route(torch, K, ops, p, x, flush, kernel, label, stats,
     ms = median_ms(torch, run_k, 20, flush)
     plain_ms = median_ms(torch, run_p, 5, flush)
     b_ms, b_by, nbytes, flops = bound(p, x.shape[0], kernel)
-    row = {"kernel": kernel, "matrix": label, "m": x.shape[0],
+    m = x.shape[0]
+    row = {"kernel": kernel, "matrix": label, "m": m,
            "slots": p.n_tiles, "live_tiles": len(live_slots(p)),
            "passes": p.n_passes, "runs": len(p.out_col), "bn": p.bn,
-           "route": (route_name(K, x.shape[0]) if kernel in K.SPLIT_KERNELS
+           "route": (route_name(K, m) if kernel in K.SPLIT_KERNELS
                      else "walk"),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": nbytes, "flops": flops}
-    if kernel == "cim_mvm_scheduled" and x.shape[0] == 4:
-        row["walk_ms"] = time_walk(torch, K, p, x, kernel, run_k, flush,
-                                   stats)
+           "bound_by": b_by, "bound_share": b_ms / ms, "bytes": nbytes,
+           "flops": flops}
+    if kernel in K.SPLIT_KERNELS:
+        row["walk_geometry"] = walk_geo(K, kernel, p, m, x.device)
+        if K.split_route(m):
+            row["walk_ms"] = time_walk(torch, K, p, x, kernel, run_k, flush,
+                                       stats)
     emit({"phase": "kernel-shape", **row})
     return row
 
@@ -536,7 +620,7 @@ def kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
                              in_alpha=3.0, generator=gen).layers["m"].packed
         if (p.bk * p.bn * 4) % 16 == 0:
             raise AssertionError(f"35-row IR-drop tiles are {p.bk} x {p.bn}")
-        for m in COMPARE_ROWS[:-1]:
+        for m in COMPARE_ROWS:
             x = torch.randint(-7, 8, (m, 35), generator=gen,
                               device=dev).to(torch.float32)
             compare_all(torch, K, ops, p, x, f"35x470 ir-drop {cores} cores",
@@ -557,19 +641,26 @@ def kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
         "cim_mvm_transposed",
         lambda: ops.cim_mvm_packed(x, p, CIMConfig()), flush)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    # a merged decode layer runs w_g, w_i (= w_g's shape) and w_o scheduled
-    stats["time"]["cim_mvm_scheduled"] = {
-        k: 2 * rows["w_g", "fwd", 4][k] + rows["w_o", "fwd", 4][k]
-        for k in keys[:3] + ("walk_ms",)}
-    stats["time"]["cim_mvm_scheduled"]["bound_by"] = rows["w_o", "fwd",
-                                                          4]["bound_by"]
+    # a merged layer runs w_g, w_i (= w_g's shape) and w_o scheduled
+    merged = [dict(r, matrix=n) for (n, d, _), r in rows.items()
+              if d == "fwd"]
+    sums = layer_sums(merged, {"w_g": 2, "w_o": 1})
+    edge = route_edge(K, "cim_mvm_scheduled", sums)
+    t = stats["time"]["cim_mvm_scheduled"] = dict(
+        sums[4], bound_by=common_bound(r for r in merged if r["m"] == 4))
+    t.pop("route")
+    t.update({f"prefill_{k}": v for k, v in sums[256].items()
+              if k != "route"})
+    t["prefill_bound_by"] = common_bound(r for r in merged if r["m"] == 256)
     stats["time"]["cim_mvm_transposed"] = {
         k: rows["rbm", "bwd", 64][k] for k in keys}
     stats["time"]["cim_mvm_transposed"]["w_g_bwd_ms"] = rows["w_g", "bwd",
                                                              4]["ms"]
     return {"shapes": len(rows),
             "max_abs_err": {k: stats["err"].get(k) for k in
-                            ("cim_mvm_scheduled", "cim_mvm_transposed")}}
+                            ("cim_mvm_scheduled", "cim_mvm_transposed")},
+            "merged_layer": sums,
+            "split_wins_up_to": edge["split_wins_up_to"]}
 
 
 def compare_runs(torch, ref, other, what, atol):
@@ -677,7 +768,8 @@ def profile_phase(torch, dev, stats):
         free(torch)
     while stats["profile"]:
         path, res = stats["profile"].pop(0)
-        out[path] = profile_decode(torch, res, dev)
+        out[path] = {"prefill": profile_prefill(torch, res, dev),
+                     **profile_decode(torch, res, dev)}
         del res
         free(torch)
     while stats["profile_cnn"]:
@@ -745,6 +837,49 @@ def profile_inference(torch, fn, reps, event_ms):
                                              for k, v in top}}
 
 
+def profile_prefill(torch, res, dev):
+    """Device time of one profiled prefill (after one unprofiled one) of a
+    served model (torch.profiler / CUPTI): every walk launch in start
+    order, each layer's seven projections in the model's call order
+    (PROJ_ORDER), so the walk's device ms per projection is the mean over
+    the layers; the prefill's device ms by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import arch_serving, make_prefill_step
+    cfg, prompts = res.cfg, res.prompts
+    prefill = make_prefill_step(cfg)
+    cache_len = prompts.shape[1] + 1
+
+    def cache():
+        return arch_serving(cfg, dev).init_state(prompts.shape[0], cache_len)
+    prefill(res.params, cache(), {"tokens": prompts})
+    torch.cuda.synchronize()
+    state = cache()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill(res.params, state, {"tokens": prompts})
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type.name == "CUDA"),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        return {"device_ms": "not measured"}
+    walk = [e.time_range.elapsed_us() / 1e3 for e in events
+            if "cim_walk" in e.name]
+    if not walk or len(walk) % len(PROJ_ORDER):
+        raise AssertionError(f"prefill: {len(walk)} walk launches, not "
+                             f"{len(PROJ_ORDER)} per layer")
+    n_layers = len(walk) // len(PROJ_ORDER)
+    per_proj = {n: sum(walk[i::len(PROJ_ORDER)]) / n_layers
+                for i, n in enumerate(PROJ_ORDER)}
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    top = sorted(device_us_by_kernel(prof).items(), key=lambda kv: -kv[1])
+    return {"m": prompts.numel(), "layers": n_layers,
+            "device_ms": busy, "walk_ms": sum(walk),
+            "walk_ms_per_projection": per_proj,
+            "walk_ms_per_layer": sum(walk) / n_layers,
+            "top_kernels_ms": {k: v / 1e3 for k, v in top[:6]}}
+
+
 def profile_decode(torch, res, dev):
     """Device time by kernel over as many decode steps as the serve run
     took, after a prefill and as many unprofiled steps, whose host time
@@ -791,11 +926,11 @@ def profile_decode(torch, res, dev):
         / 1e3 / steps
     split = {"terms": per_step("cim_tile_terms"),
              "fold": per_step("cim_fold_runs")}
-    walk = per_step("cim_mvm_packed_kernel", "cim_mvm_scheduled_kernel")
+    walk = per_step("cim_walk")
     if walk or not (split["terms"] and split["fold"]):
         raise AssertionError(f"decode at M = {prompts.shape[0]}: split route "
                              f"{split} ms/step, walk {walk} ms/step")
-    cim = per_step("cim_mvm_", "cim_tile_terms", "cim_fold_runs")
+    cim = per_step("cim_mvm_", "cim_walk", "cim_tile_terms", "cim_fold_runs")
     step_s = sum(res.out.decode_s) / steps
     host = sorted(((e.key, e.self_cpu_time_total, e.count)
                    for e in prof.key_averages()
@@ -1191,11 +1326,13 @@ def kernels_line(stats):
     and the kernel, plain and bound times of the shape noted in `at`."""
     at = {"cim_mvm_packed": "one full-width layer's seven projections at "
                             "M = 4 (a decode step, 6144-core chip; the "
-                            "split route; walk_ms: the walk in this run)",
+                            "split route; walk_ms: the walk in this run; "
+                            "prefill_*: the same at M = 256, the walk)",
           "cim_mvm_scheduled": "a merged full-width layer's three scheduled "
                                "projections (w_g, w_i, w_o) at M = 4 (a "
                                "decode step, 3072-core chip; the split "
-                               "route; walk_ms: the walk in this run)",
+                               "route; walk_ms: the walk in this run; "
+                               "prefill_*: the same at M = 256, the walk)",
           "cim_mvm_transposed": "the RBM's h->v launch at paper geometry, "
                                 "M = 64 (CUDA-event window, host work "
                                 "included; device_ms: the kernel alone)",
@@ -1229,7 +1366,7 @@ def kernels_line(stats):
             **{k: v for k, v in t.items()
                if k in ("device_ms", "w_g_bwd_ms", "matmul_only_ms",
                         "fused_ms", "fused_plain_ms", "fused_bound_ms",
-                        "fused_host_us")},
+                        "fused_host_us") or k.startswith("prefill_")},
             "ok": not failures})
     return {"kernels": rows}
 

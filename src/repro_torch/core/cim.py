@@ -313,7 +313,7 @@ def schedule_chip(plan: Plan, names: Sequence[str]
 
 
 def program_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig, *,
-                 mode: str = "ideal", in_alpha: float = 1.0,
+                 mode: str = "relaxed", in_alpha: float = 1.0,
                  x_cal: Optional[Dict[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None):
     """Stage 3 (PROGRAM): conductances + whole-matrix calibration per
@@ -407,7 +407,7 @@ def _oracle_only(cfg: CIMConfig) -> bool:
 
 
 def compile_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig,
-                 spec: CoreSpec = CoreSpec(), mode: str = "ideal", *,
+                 spec: CoreSpec = CoreSpec(), mode: str = "relaxed", *,
                  plan: Optional[Plan] = None, in_alpha: float = 1.0,
                  x_cal: Optional[Dict[str, torch.Tensor]] = None,
                  directions: Sequence[str] = ("fwd",),

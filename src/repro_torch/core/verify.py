@@ -85,7 +85,8 @@ from ..kernels.cim_mvm.kernel import (SMEM_LIMIT, SPLIT_CHUNK_ROWS,
                                       mvm_geometry, mvm_shared_bytes,
                                       one_block,
                                       shared_bytes, split_route, split_rows,
-                                      split_shared_bytes)
+                                      split_shared_bytes, walk_geometry,
+                                      walk_shared_bytes)
 
 # the largest batch block the serving path launches (prefill of 4 x 64)
 _DEFAULT_BM = 256
@@ -420,7 +421,7 @@ def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
             f"{want_live})", layer=name)
 
     # every route the plan launches: the batch's (the walk, or the split
-    # route at <= 16 rows) and, for a forward plan, the split route of a
+    # route up to its edge) and, for a forward plan, the split route of a
     # decode batch
     kernel = packed.route()
     rows = _DEFAULT_BM if bm is None else max(int(bm), 1)
@@ -429,6 +430,11 @@ def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
         if kernel in SPLIT_KERNELS and split_route(m):
             route, bm_eff = "split route", split_rows(m)
             need = split_shared_bytes(bm_eff, packed.bk, packed.bn)
+        elif kernel in SPLIT_KERNELS:
+            route = "walk"
+            geo = walk_geometry(m, packed.bk, packed.bn,
+                                packed.n_col_blocks)
+            bm_eff, need = geo.bm, walk_shared_bytes(geo)
         else:
             route, bm_eff = "walk", block_rows(m)
             need = shared_bytes(kernel, bm_eff)

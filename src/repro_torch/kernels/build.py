@@ -5,7 +5,8 @@ nvcc for Hopper (sm_90a) into its own shared library under
 `build/kernels/` at first use — every source's nvcc started together — and
 loaded with ctypes (no PyTorch headers: a build takes seconds). A library
 is named by a hash of its source, the shared headers and the flags, so an
-edited source is rebuilt and an unchanged one is reused.
+edited source is rebuilt and an unchanged one is reused; ptxas's report
+of each build is kept beside its library (`ptxas_log`).
 
 `LAUNCHES` counts each kernel's launches: a wrapper adds one where it
 launches its kernel, and nowhere else.
@@ -30,9 +31,10 @@ SOURCES = {
     "noisy_matmul": "noisy_matmul/csrc/noisy_matmul.cu",
 }
 HEADERS = ("csrc/hash_prng.cuh", "cim_mvm/csrc/cim_epilogue.cuh",
-           "cim_mvm/csrc/bulk_copy.cuh", "cim_mvm/csrc/cim_split.cuh")
+           "cim_mvm/csrc/bulk_copy.cuh", "cim_mvm/csrc/cim_split.cuh",
+           "cim_mvm/csrc/cim_dmma.cuh", "cim_mvm/csrc/cim_walk.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-I", str(_PKG / "csrc"))
 LAUNCHES = {name: 0 for name in SOURCES}   # kernel launches, per kernel
 _cdll: Dict[str, ctypes.CDLL] = {}
@@ -70,10 +72,17 @@ def build() -> Dict[str, Path]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {SOURCES[name]}:\n{err}")
         else:
+            ptxas_log(libs[name]).write_text(err)
             os.replace(tmp, libs[name])
     if errors:
         raise RuntimeError("\n".join(errors))
     return libs
+
+
+def ptxas_log(lib: Path) -> Path:
+    """Where the build keeps `lib`'s `-Xptxas -v` report (registers,
+    spills and shared memory of every kernel it holds)."""
+    return lib.with_suffix(".ptxas.txt")
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,6 +1,7 @@
 // 1-D bulk copies (cp.async.bulk, the TMA's tensor-map-free form) from
 // global to shared memory, completed on an mbarrier, for the NeuRRAM CIM
-// kernels for Hopper (sm_90a): included by cim_split.cuh and cim_mvm.cu.
+// kernels for Hopper (sm_90a): included by cim_split.cuh and cim_mvm.cu;
+// cim_walk.cuh takes its mbarrier helpers.
 #pragma once
 
 #include <cuda_runtime.h>

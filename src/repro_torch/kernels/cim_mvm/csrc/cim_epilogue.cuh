@@ -1,8 +1,7 @@
 // Shared device code of the NeuRRAM CIM MVM kernels for Hopper (sm_90a):
-// the ADC epilogue, the stochastic neuron (its hash PRNG is
-// kernels/csrc/hash_prng.cuh), and the forward tile dot. Included by
-// cim_mvm_packed.cu, cim_mvm_scheduled.cu, cim_mvm_transposed.cu and
-// cim_mvm.cu.
+// the ADC epilogue and the stochastic neuron (its hash PRNG is
+// kernels/csrc/hash_prng.cuh). Included by cim_walk.cuh, cim_split.cuh,
+// cim_mvm_transposed.cu and cim_mvm.cu.
 //
 // Ports repro/kernels/cim_mvm/kernel.py `_epilogue`, `_acc_weight` and
 // `_pwl_tanh`.
@@ -18,8 +17,7 @@
 
 namespace cim {
 
-constexpr int kThreads = 128;  // output columns per block (one per thread)
-constexpr int kChunk = 128;    // x columns staged per shared-memory pass
+constexpr int kThreads = 128;  // the transposed kernel's outputs per block
 
 enum Activation { kNone = 0, kRelu = 1, kTanh = 2, kSigmoid = 3,
                   kIdentity = 4, kStochastic = 5 };
@@ -33,11 +31,16 @@ struct Epilogue {
   int bm_ref;                       // stochastic: the reference's batch block
 };
 
-// ADC charge-decrement count with the fused activation (not stochastic).
-__device__ __forceinline__ float adc(float q, float vd, const Epilogue& e) {
-  if (e.act == kIdentity) return q;
+// The ADC's charge-decrement steps of q, floor(|q| / vd + 0.5) with the
+// reference's two f32 roundings.
+__device__ __forceinline__ float adc_steps(float q, float vd) {
+  return floorf(__fadd_rn(__fdiv_rn(fabsf(q), vd), 0.5f));
+}
+
+// The ADC count of q's `steps` with the fused activation (neither
+// identity nor the stochastic neuron).
+__device__ __forceinline__ float adc_count(float q, float steps, const Epilogue& e) {
   const float sign = (float)((q > 0.f) - (q < 0.f));
-  const float steps = floorf(__fadd_rn(__fdiv_rn(fabsf(q), vd), 0.5f));
   if (e.act == kRelu) return __fmul_rn(fminf(steps, e.n_max), sign > 0.f ? 1.f : 0.f);
   if (e.act == kTanh || e.act == kSigmoid) {
     const float s = fminf(steps, e.n_max4);
@@ -51,6 +54,12 @@ __device__ __forceinline__ float adc(float q, float vd, const Epilogue& e) {
     return out;
   }
   return __fmul_rn(sign, fminf(steps, e.n_max));
+}
+
+// ADC charge-decrement count with the fused activation (not stochastic).
+__device__ __forceinline__ float adc(float q, float vd, const Epilogue& e) {
+  if (e.act == kIdentity) return q;
+  return adc_count(q, adc_steps(q, vd), e);
 }
 
 // The stochastic neuron: the comparator bit of q plus uniform noise in
@@ -80,46 +89,6 @@ __device__ __forceinline__ float tile_term(float q, float vd, float inv,
                                    (uint32_t)col, (uint32_t)(row / e.bm_ref),
                                    (uint32_t)tile, e);
   return inv > 0.f ? bit : 0.f;
-}
-
-// acc[r] = sum_k x[m0 + r, kbase + k] * g[k * bn] over the tile's bk rows,
-// in FP64: x holds integers (|x| <= 127) and gd is a multiple of 2^-23
-// below 2^6, so every partial sum is exact (the verifier's `exact-dot`)
-// and the order does not matter. The x chunk, read by every thread of the
-// block, is staged in shared memory; each gd element has one reader and is
-// read straight from global memory (neighbouring threads, neighbouring
-// columns: coalesced). Every thread of the block must call this.
-template <int BM>
-__device__ __forceinline__ void fwd_tile_dot(double (*xs)[BM + 2],
-                                             const float* __restrict__ x,
-                                             int M, int K, int m0, int kbase,
-                                             const float* __restrict__ g,
-                                             int bk, int bn, bool live,
-                                             double (&acc)[BM]) {
-#pragma unroll
-  for (int r = 0; r < BM; ++r) acc[r] = 0.0;
-  for (int k0 = 0; k0 < bk; k0 += kChunk) {
-    const int kc = min(kChunk, bk - k0);
-    __syncthreads();  // the previous chunk is fully consumed
-    for (int i = threadIdx.x; i < BM * kChunk; i += kThreads) {
-      const int r = i / kChunk, k = i % kChunk;
-      const int row = m0 + r, col = kbase + k0 + k;
-      xs[k][r] = (row < M && k < kc && col < K) ? (double)x[(size_t)row * K + col] : 0.0;
-    }
-    __syncthreads();
-    if (live) {
-#pragma unroll 8
-      for (int k = 0; k < kc; ++k) {
-        const double gv = (double)__ldg(g + (size_t)(k0 + k) * bn);
-#pragma unroll
-        for (int r = 0; r < BM; r += 2) {
-          const double2 xv = *reinterpret_cast<const double2*>(&xs[k][r]);
-          acc[r] = fma(xv.x, gv, acc[r]);
-          acc[r + 1] = fma(xv.y, gv, acc[r + 1]);
-        }
-      }
-    }
-  }
 }
 
 // Static shared memory of a kernel instantiation (-1 on error).

@@ -24,9 +24,10 @@
 // of x, the K = 577, N = 64 shapes by the FP64 operations.
 //
 // What the design does about it:
-//   * the dot runs on the FP64 tensor cores (mma.sync m16n8k4 f64; on an
-//     H100 the m8n8k4 shape reaches half the FP64 tensor rate). It is
-//     exact in any order and any split of K: x holds integers (|x| <= 127)
+//   * the dot runs on the FP64 tensor cores (mma.sync m16n8k4 f64,
+//     cim_dmma.cuh `dmma`; on an H100 the m8n8k4 shape reaches half the
+//     FP64 tensor rate). It is exact in any order and any split of K:
+//     x holds integers (|x| <= 127)
 //     and gd lies on the 2^-23 grid below 2^6 with K * 127 * max|gd| <
 //     2^30 (the verifier's per-matrix `exact-dot`), so the one rounding to
 //     f32 equals the plain version's (an FP64 matmul) bit for bit. The
@@ -69,6 +70,7 @@
 // Shared memory (dynamic): kMvmBarrierBytes + bk * bn * 4 (gd) + stages *
 // stage bytes; `cim_mvm_shared_bytes`, kernel.mvm_shared_bytes.
 #include "bulk_copy.cuh"
+#include "cim_dmma.cuh"
 #include "cim_epilogue.cuh"
 
 namespace cim {
@@ -137,16 +139,6 @@ __host__ __device__ __forceinline__ int stage_bytes(const Geometry& g, int kx) {
 
 __host__ __device__ __forceinline__ int mvm_shared_bytes(const Geometry& g, int kx) {
   return kMvmBarrierBytes + g.bk * g.bn * 4 + g.stages * stage_bytes(g, kx);
-}
-
-// D = A B + D for a 16 x 4 A (rows lane / 4 and lane / 4 + 8, column
-// lane % 4), a 4 x 8 B (row lane % 4, column lane / 4) and a 16 x 8 D
-// (rows as A, columns 2 (lane % 4) + {0, 1}).
-__device__ __forceinline__ void dmma(double (&d)[4], double a0, double a1, double b) {
-  asm(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3]) : "d"(a0), "d"(a1), "d"(b));
 }
 
 // The unit (column tile, row chunk, slice) of item `item`, slice `s`.

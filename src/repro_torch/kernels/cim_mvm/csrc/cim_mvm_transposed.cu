@@ -24,10 +24,11 @@
 // columns: the warp reads a row segment (coalesced), stores it to
 // gs[row][k] padded to kTChunk + 1 floats (no bank conflicts on either
 // side), and every thread then reads its row from shared memory. The x
-// chunk is staged as in the forward kernels. The dot is exact in FP64
-// (|x| <= 127, gd on the 2^-23 grid, bni * 127 * max|gd| < 2^30: the
-// verifier's `exact-dot`). The stochastic neuron keys its hash on the
-// tile's stack position, as the reference does.
+// chunk is staged too, [k][BM + 2] doubles (broadcast 16-byte reads,
+// padded against bank conflicts on the transposing store). The dot is
+// exact in FP64 (|x| <= 127, gd on the 2^-23 grid, bni * 127 * max|gd| <
+// 2^30: the verifier's `exact-dot`). The stochastic neuron keys its hash
+// on the tile's stack position, as the reference does.
 // Shared memory per block: kTChunk * (BM + 2) * 8 + kThreads * (kTChunk +
 // 1) * 4 bytes, at most 25,600 (BM = 32): static.
 #include "cim_epilogue.cuh"

@@ -1,12 +1,13 @@
 // The split route of the packed and scheduled NeuRRAM CIM kernels for
-// Hopper (sm_90a): decode shapes, M <= 16 rows. Included by
-// cim_mvm_packed.cu and cim_mvm_scheduled.cu; each exports it as its
-// `*_split_launch`. Prefill shapes (M > 16) keep the walk kernels there.
+// Hopper (sm_90a): decode shapes, M up to the measured edge (kernel.py
+// `split_route`). Included by cim_mvm_packed.cu and cim_mvm_scheduled.cu;
+// each exports it as its `*_split_launch`. Larger batches take the walk
+// (cim_walk.cuh).
 //
-// At decode a walk kernel (one block per output column block, walking its
-// tiles in slot order) keeps at most one 4-warp block on each of 16-112
-// SMs, one 4-byte load per thread in flight: about 6% of the bytes bound.
-// The split route separates what needs an order from what does not:
+// At decode a walk that gives each output column block's tiles to one
+// block in slot order leaves most of the card idle (the first walk read
+// gd at about 6% of the bytes bound at M = 4). The split route separates
+// what needs an order from what does not:
 //
 //   * The tile dot needs none. x holds integers (|x| <= 127) and gd is a
 //     multiple of 2^-23 below 2^6 (the verifier's `exact-dot`), so the FP64

@@ -46,13 +46,16 @@ for the transposed kernel) and bm_ref = min(256, M), the reference's
 default batch block.
 
 The packed and scheduled kernels have two routes on the card, picked from
-the batch rows M by `split_route`: at decode (M <= 16) the split route
-(`csrc/cim_split.cuh`) computes every live tile's terms counts * weight in
-parallel, one block per tile, into a scratch tensor, then folds each
-output's terms in the order above (`cim_terms_plain` and `cim_fold_plain`
-are its two kernels' plain versions); at prefill (M > 16) the walk, a block
-per output column block walking its tiles in that order. Both are the
-function of `cim_runs_plain`, bit for bit.
+the batch rows M by `split_route`: at decode (M up to SPLIT_ROWS[-1]) the
+split route (`csrc/cim_split.cuh`) computes every live tile's terms
+counts * weight in parallel, one block per tile, into a scratch tensor,
+then folds each output's terms in the order above (`cim_terms_plain` and
+`cim_fold_plain` are its two kernels' plain versions); above, the walk
+(`csrc/cim_walk.cuh`): a persistent grid of 4-warp blocks, each owning
+items of up to 64 rows x 64 columns of one output column block
+(`walk_geometry`), walks that block's tiles in that order with the tile
+dots on the FP64 tensor cores. Both are the function of
+`cim_runs_plain`, bit for bit.
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel (`csrc/*.cu`) for a CUDA tensor, or raises — nothing falls back.
@@ -81,11 +84,17 @@ LAUNCHES = _build.LAUNCHES                 # kernel launches, per kernel
 
 ACTIVATIONS = {"none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "identity": 4,
                "stochastic": 5}
-K_CHUNK = 128         # x columns staged per shared-memory pass (forward)
 T_CHUNK = 32          # tile columns staged per pass (transposed kernel)
-THREADS = 128         # output columns per CUDA block
-BLOCK_ROWS = (4, 32)  # the walk kernels' row blocks: M <= 4, and above
+THREADS = 128         # outputs per CUDA block of the transposed kernel
+BLOCK_ROWS = (4, 32)  # the transposed kernel's row blocks: M <= 4, and above
 SPLIT_KERNELS = ("cim_mvm_packed", "cim_mvm_scheduled")
+# the walk of the packed and scheduled kernels (csrc/cim_walk.cuh): the
+# rows and columns of an item (a block of 4 warps) per layout, and the
+# layout's ring stages
+WALK_ITEMS = ((64, 64), (32, 64), (32, 32))
+WALK_STAGES = (2, 2, 4)
+WALK_MAX_CHUNK = 128  # tile rows per stage, at most
+WALK_BARRIER_BYTES = 128  # the stages' mbarriers, padded
 SPLIT_ROWS = (4, 16)  # the split route's row blocks (it takes M <= 16)
 SPLIT_THREADS = 256   # most tile columns of the split route (one thread each)
 SPLIT_CHUNK_ROWS = 16  # tile rows per bulk copy of the split route
@@ -109,20 +118,24 @@ _lib: Dict[str, ctypes.CDLL] = {}
 # built kernel at load: both ring layouts, every column tiling
 _MVM_CHECK_SHAPES = ((200704, 145, 16), (12544, 577, 64), (256, 577, 10),
                      (1, 300, 500), (4096, 9000, 8), (257, 33, 32))
+# (m, bk, bn, n_cb) walk launches checked the same way: every layout, a
+# ragged chunk and bn = 47
+_WALK_CHECK_SHAPES = ((256, 128, 256, 16), (256, 128, 256, 8),
+                      (17, 128, 256, 8), (64, 35, 47, 10), (256, 128, 47, 1))
 
 
 def block_rows(m: int) -> int:
-    """Rows of x per CUDA block: the smallest tiling that covers m, at
-    most 32 (the kernel's register budget)."""
+    """Rows of x per CUDA block of the transposed kernel: the smallest
+    tiling that covers m, at most 32 (its register budget)."""
     return next((b for b in BLOCK_ROWS if b >= m), BLOCK_ROWS[-1])
 
 
 def split_route(m: int) -> bool:
     """Whether a packed or scheduled launch of m rows takes the split route
     (term pass over the live tiles, then the fold) rather than the walk:
-    m <= 16, decode. At m = 16 the term pass's FP64 multiply-adds on the
-    CUDA cores take about 80% of the time its bytes take; above, prefill's
-    FP64 work keeps the walk."""
+    m <= SPLIT_ROWS[-1] = 16, decode. The edge is measured (chip_smoke.py
+    `route-edge`): on a full-width gemma2-9b layer the split route beats
+    the walk at every batch it runs, 4 and 16 rows."""
     return m <= SPLIT_ROWS[-1]
 
 
@@ -143,18 +156,91 @@ def split_shared_bytes(bm: int, bk: int, bn: int) -> int:
 
 
 def shared_bytes(kernel: str, bm: int) -> int:
-    """Static shared memory of one walk block of `kernel` (packed,
-    scheduled or transposed) at `bm` rows: the staged x chunk, [chunk][bm +
-    2] doubles, and for the transposed kernel the staged tile chunk,
-    [THREADS][T_CHUNK + 1] floats (checked against the built kernels' own
-    attributes when the libraries load). The single-matrix kernel's is
-    `mvm_shared_bytes`."""
-    if kernel == "cim_mvm":
-        raise ValueError("cim_mvm sizes its shared memory by its geometry: "
-                         "mvm_shared_bytes(mvm_geometry(m, k, n), k)")
-    if kernel == "cim_mvm_transposed":
-        return T_CHUNK * (bm + 2) * 8 + THREADS * (T_CHUNK + 1) * 4
-    return K_CHUNK * (bm + 2) * 8
+    """Static shared memory of one block of the transposed kernel at `bm`
+    rows: the staged x chunk, [T_CHUNK][bm + 2] doubles, and the staged
+    tile chunk, [THREADS][T_CHUNK + 1] floats (checked against the built
+    kernel's own attribute when the library loads). The other kernels
+    size theirs by a geometry: `walk_shared_bytes` (packed and scheduled)
+    and `mvm_shared_bytes` (single-matrix)."""
+    if kernel != "cim_mvm_transposed":
+        raise ValueError(f"{kernel} sizes its shared memory by its geometry"
+                         ": walk_shared_bytes / mvm_shared_bytes")
+    return T_CHUNK * (bm + 2) * 8 + THREADS * (T_CHUNK + 1) * 4
+
+
+# ------------------------------------------------ the packed / scheduled walk
+
+class WalkGeometry(ctypes.Structure):
+    """The walk's tiling (csrc/cim_walk.cuh `WalkGeometry`, field for
+    field). A block of 4 warps owns an item: bm rows of x times bn_blk
+    columns (a strip) of one output column block (layout: its index in
+    WALK_ITEMS). gd and x stream through `stages` stages of kc tile rows.
+    Items: n_rbk row blocks x n_strips strips x the column blocks, the row
+    blocks of one strip consecutive."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "layout", "bm", "bn_blk", "n_rbk", "n_strips", "kc", "stages",
+        "n_items")]
+
+    def as_dict(self):
+        return {f: getattr(self, f) for f, _ in self._fields_}
+
+
+class WalkArgs(ctypes.Structure):
+    """The walk's arguments (csrc/cim_walk.cuh `WalkArgs`; x int8)."""
+    _p, _i = ctypes.c_void_p, ctypes.c_int
+    _fields_ = [("x", _p), ("M", _i), ("K", _i), ("gd", _p),
+                ("inv_norm", _p), ("denorm", _p), ("v_decr", _p),
+                ("row_block", _p), ("run_start", _p),
+                ("col_run_start", _p), ("col_runs", _p), ("n_tiles", _i),
+                ("n_col_blocks", _i), ("bk", _i), ("bn", _i), ("out", _p)]
+
+
+def walk_x_pitch(kc: int) -> int:
+    """Bytes per staged x row: the 16-byte cover of kc int8 values, 16 mod
+    32 (its 2-byte fragment loads meet no bank conflict)."""
+    p = kc + 16
+    return p + (48 - p % 32) % 32
+
+
+def walk_g_pitch(bn_blk: int) -> int:
+    """Words per staged gd row: the 16-byte cover of bn_blk values, 4 mod
+    8 (the rows a k-step's four lane slots read, two apart, land in four
+    bank octets)."""
+    p = bn_blk + 4
+    return p + (12 - p % 8) % 8
+
+
+def walk_shared_bytes(g: WalkGeometry) -> int:
+    """Dynamic shared memory of one walk block: the mbarriers and the ring
+    of `stages` stages, each bm int8 x rows and kc f32 gd rows at their
+    pitches (checked against the built kernels at load)."""
+    stage = g.bm * walk_x_pitch(g.kc) + g.kc * walk_g_pitch(g.bn_blk) * 4
+    return WALK_BARRIER_BYTES + g.stages * stage
+
+
+def walk_geometry(m: int, bk: int, bn: int, n_cb: int, *,
+                  n_sm: int = None) -> WalkGeometry:
+    """The walk's tiling of an m-row launch over a plan of (bk, bn) tiles
+    and n_cb output column blocks, on a card of n_sm SMs (default: an
+    H100's). Of the items 64 x 64, 32 x 64 and 32 x 32 (rows x columns,
+    WALK_ITEMS), the largest that gives every SM one, and none taller than
+    m where 32 rows cover it; where none gives every SM one, the
+    smallest. A stage holds kc = min(128, bk rounded up to 16) tile rows;
+    the ring has the layout's WALK_STAGES stages."""
+    if not (m >= 1 and bk >= 1 and bn >= 1 and n_cb >= 1):
+        raise ValueError(f"no walk geometry for m={m}, bk={bk}, bn={bn}, "
+                         f"n_cb={n_cb}")
+    n_sm = H100_SMS if n_sm is None else n_sm
+    kc = min(WALK_MAX_CHUNK, _round16(bk))
+    cands = []
+    for layout, (bm, bc) in enumerate(WALK_ITEMS):
+        if bm > 32 and m <= 32:
+            continue
+        n_rbk, n_strips = _cdiv(m, bm), _cdiv(bn, bc)
+        cands.append(WalkGeometry(layout, bm, bc, n_rbk, n_strips, kc,
+                                  WALK_STAGES[layout],
+                                  n_rbk * n_strips * n_cb))
+    return next((g for g in cands if g.n_items >= n_sm), cands[-1])
 
 
 # ------------------------------------------- single-matrix kernel geometry
@@ -679,8 +765,6 @@ def load() -> Dict[str, ctypes.CDLL]:
     if _lib:
         return _lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    n_tables = {"cim_mvm_packed": 2, "cim_mvm_scheduled": 4,
-                "cim_mvm_transposed": 5}
     libs = {}
     for name in KERNELS:
         lib = _build.library(name)
@@ -693,10 +777,18 @@ def load() -> Dict[str, ctypes.CDLL]:
             occ = lib.cim_mvm_occupancy      # geometry, k_x, fused
             occ.argtypes, occ.restype = [ctypes.POINTER(MvmGeometry), i,
                                          i], i
+        elif name in SPLIT_KERNELS:
+            # the walk: args, geometry, epilogue, grid, stream
+            launch.argtypes = [ctypes.POINTER(WalkArgs),
+                               ctypes.POINTER(WalkGeometry),
+                               ctypes.POINTER(Epilogue), i, p]
+            occ = getattr(lib, f"{name}_occupancy")       # geometry
+            occ.argtypes, occ.restype = [ctypes.POINTER(WalkGeometry)], i
         else:
-            # x, M, K, gd, inv_norm, denorm, v_decr, the index tables,
-            # n_col_blocks, in width, out width, out, epilogue, bm, stream
-            launch.argtypes = ([p, i, i] + [p] * (4 + n_tables[name])
+            # x, M, K, gd, inv_norm, denorm, v_decr, in_block, tile_slot,
+            # run_start, col_run_start, col_runs, n_col_blocks, in width,
+            # out width, out, epilogue, bm, stream
+            launch.argtypes = ([p, i, i] + [p] * 9
                                + [i, i, i, p, ctypes.POINTER(Epilogue), i, p])
         launch.restype = i
         smem = getattr(lib, f"{name}_shared_bytes")
@@ -716,12 +808,24 @@ def load() -> Dict[str, ctypes.CDLL]:
                             f"{mvm_shared_bytes(g, k_x)} B")
             libs[name] = lib
             continue
-        smem.argtypes = [i]
-        for bm in BLOCK_ROWS:        # the verifier's shared-memory model
-            if smem(bm) != shared_bytes(name, bm):
+        if name == "cim_mvm_transposed":
+            smem.argtypes = [i]
+            for bm in BLOCK_ROWS:    # the verifier's shared-memory model
+                if smem(bm) != shared_bytes(name, bm):
+                    raise RuntimeError(
+                        f"{name} uses {smem(bm)} B of shared memory at bm="
+                        f"{bm}, the verifier assumes {shared_bytes(name, bm)}"
+                        " B")
+            libs[name] = lib
+            continue
+        smem.argtypes = [ctypes.POINTER(WalkGeometry)]
+        for m, bk, bn, n_cb in _WALK_CHECK_SHAPES:
+            g = walk_geometry(m, bk, bn, n_cb)
+            if smem(ctypes.byref(g)) != walk_shared_bytes(g):
                 raise RuntimeError(
-                    f"{name} uses {smem(bm)} B of shared memory at bm={bm}, "
-                    f"the verifier assumes {shared_bytes(name, bm)} B")
+                    f"{name}'s walk requests {smem(ctypes.byref(g))} B of "
+                    f"shared memory at {g.as_dict()}, the verifier assumes "
+                    f"{walk_shared_bytes(g)} B")
         if name in SPLIT_KERNELS:
             # x, M, K, gd, inv_norm, denorm, v_decr, row_block, run_start,
             # col_run_start, col_runs, live, n_live, n_col_blocks, bk, bn,
@@ -785,14 +889,45 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def _walk_plan(kernel: str, m: int, bk: int, bn: int, n_cb: int,
+               index: int):
+    """walk_launch_geometry on card `index`, memoized: it depends on the
+    shape alone."""
+    lib = load()[kernel]
+    with torch.cuda.device(index):
+        n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+        g = walk_geometry(m, bk, bn, n_cb, n_sm=n_sm)
+        blocks = getattr(lib, f"{kernel}_occupancy")(ctypes.byref(g))
+    if blocks < 1:
+        raise RuntimeError(f"{kernel}'s walk cannot launch geometry "
+                           f"{g.as_dict()}: occupancy {blocks}")
+    return g, min(g.n_items, n_sm * blocks)
+
+
+def walk_launch_geometry(kernel: str, m: int, bk: int, bn: int, n_cb: int,
+                         device):
+    """The walk's tiling and persistent grid for an m-row launch of
+    `kernel` (packed or scheduled) over a plan of (bk, bn) tiles and n_cb
+    column blocks on CUDA `device`: `walk_geometry` for the card's SMs,
+    the grid the runtime's resident blocks per SM times the SMs, at most
+    one block per item."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    return _walk_plan(kernel, m, bk, bn, n_cb, index)
+
+
 def launch_walk(kernel: str, x, gd_tiles, tile_tensors, index_tensors,
                 n_cb: int, in_w: int, out_w: int, *, activation, n_max,
                 v_read, seed):
     """Check the plan's tensors, allocate the output and launch `kernel`'s
     walk once on the current stream (the transposed kernel's only route;
-    the packed and scheduled kernels' at M > 16). tile_tensors: (inv_norm,
+    the packed and scheduled kernels' above the split route's edge, and
+    at any M for a caller that asks for it). tile_tensors: (inv_norm,
     denorm, v_decr); index_tensors: the int32 tables in the C entry
-    point's order."""
+    point's order (packed: row_index, col_start; scheduled: row_index,
+    run_start, col_run_start, col_runs)."""
     if x.device.type != "cuda":
         raise ValueError(f"no {kernel} kernel for device {x.device}")
     _check_plan(x, gd_tiles, tile_tensors, index_tensors, out_w)
@@ -804,11 +939,28 @@ def launch_walk(kernel: str, x, gd_tiles, tile_tensors, index_tensors,
     if m == 0:
         return out
     epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
-    err = getattr(lib, f"{kernel}_launch")(
-        x.data_ptr(), m, k, gd_tiles.data_ptr(), inv.data_ptr(),
-        den.data_ptr(), vd.data_ptr(), *(t.data_ptr() for t in index_tensors),
-        n_cb, in_w, out_w, out.data_ptr(), ctypes.byref(epi), block_rows(m),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel == "cim_mvm_transposed":
+        err = lib.cim_mvm_transposed_launch(
+            x.data_ptr(), m, k, gd_tiles.data_ptr(), inv.data_ptr(),
+            den.data_ptr(), vd.data_ptr(),
+            *(t.data_ptr() for t in index_tensors), n_cb, in_w, out_w,
+            out.data_ptr(), ctypes.byref(epi), block_rows(m), stream)
+    else:
+        g, grid = walk_launch_geometry(kernel, m, in_w, out_w, n_cb, dev)
+        row_index, *runs = index_tensors
+        run_start, col_run_start, col_runs = (runs + [None, None])[:3]
+        # the walk reads x as int8: exact for the integer inputs it takes
+        # (|x| <= 127), a quarter of the bytes its items re-read
+        x8 = x.to(torch.int8)
+        args = WalkArgs(x8.data_ptr(), m, k, gd_tiles.data_ptr(),
+                        inv.data_ptr(), den.data_ptr(), vd.data_ptr(),
+                        row_index.data_ptr(), run_start.data_ptr(),
+                        _ptr(col_run_start), _ptr(col_runs),
+                        gd_tiles.shape[0], n_cb, in_w, out_w, out.data_ptr())
+        err = getattr(lib, f"{kernel}_launch")(
+            ctypes.byref(args), ctypes.byref(g), ctypes.byref(epi), grid,
+            stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1

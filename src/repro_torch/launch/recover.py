@@ -23,10 +23,9 @@ reconstruction does not reduce the L2 error by at least 50%.
 --stochastic samples the h->v half-step with the chip's stochastic
 neurons instead of a digital Bernoulli draw.
 
-Deviations from the reference: --mode (ideal, relaxed, writeverify)
-defaults to `ideal`, where the reference's defaults to `relaxed`; the
-per-direction energy lines and chip meters wait for `core/energy.py` and
-the observability port (ROADMAP A11, A12). Runs on the card unless `--device cpu` is given; without CUDA it
+Deviations from the reference: the per-direction energy lines and chip
+meters wait for `core/energy.py` and the observability port (ROADMAP
+A11, A12). Runs on the card unless `--device cpu` is given; without CUDA it
 raises. Draws come from torch.Generators seeded 0 (training data and
 training), 3 (deploy), 7 (test patterns), 8 (corruption) and 9 (Gibbs).
 """
@@ -69,7 +68,7 @@ def parse_args(argv=None):
     ap.add_argument("--corrupt", choices=["flip", "occlude"], default="flip")
     ap.add_argument("--frac", type=float, default=0.2,
                     help="corrupted fraction of the pixel block")
-    ap.add_argument("--mode", default="ideal",
+    ap.add_argument("--mode", default="relaxed",
                     choices=["ideal", "relaxed", "writeverify"],
                     help="conductance programming fidelity")
     ap.add_argument("--in-bits", type=int, default=2)

@@ -304,7 +304,7 @@ def deploy_transformer_cim(params, arch_cfg, *, mode: str = "ideal",
     return verify_deployed(out)
 
 
-def deploy_rbm_cim(params, ccfg: CIMConfig, v_cal, *, mode: str = "ideal",
+def deploy_rbm_cim(params, ccfg: CIMConfig, v_cal, *, mode: str = "relaxed",
                    interleave: bool = False, spec: Optional[CoreSpec] = None,
                    generator: Optional[torch.Generator] = None):
     """Compile an RBM onto ONE bidirectional chip (paper Fig. 4e-g).

@@ -416,6 +416,63 @@ def test_split_route_matches_plain_on_card(activation):
                                    want.view(torch.int32)), (r, c, m)
 
 
+WALK_CASES = ((300, 500, 4096, 0.0), (3584, 2048, 4096, 0.0),
+              (300, 500, 4, 0.0), (1024, 700, 40, 2e-7), (35, 470, 5, 2e-7))
+
+
+def _walk_call(x, p, den, **kw):
+    """p's own kernel (packed or scheduled) through its walk at any M, with
+    `den` as the weight."""
+    kernel = p.route()
+    tables = ((p.row_index, p.col_start) if kernel == "cim_mvm_packed"
+              else (p.row_index, p.run_start, p.col_run_start, p.col_runs))
+    return K.launch_walk(kernel, x, p.gd_tiles,
+                         (p.inv_norm_tiles, den, p.v_decr_tiles), tables,
+                         p.n_col_blocks, p.bk, p.bn, n_max=127, v_read=0.5,
+                         **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTS)
+def test_walk_matches_plain_on_card(activation):
+    """The packed and scheduled kernels' walk (csrc/cim_walk.cuh) against
+    `cim_runs_plain` at M = 17, 32, 64 and 256, with the plan's denorm and
+    with the valid-column mask: a ragged and a full-width single-pass
+    plan (packed), the ragged layer merged onto 4 cores (scheduled, idle
+    slots), an IR-drop layer at bn = 47 scheduled, and a 35-row IR-drop
+    layer whose tiles and x rows sit off the 16-byte grid. Equal bit for
+    bit, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.core.types import NonIdealityConfig
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2)
+    routes = set()
+    for (r, c, cores, alpha) in WALK_CASES:
+        ccfg = CIMConfig(nonideal=NonIdealityConfig(ir_drop_alpha=alpha))
+        w = {"m": torch.randn(r, c, generator=gen, device=dev) / r ** 0.5,
+             "s": torch.randn(100, 60, generator=gen, device=dev)}
+        p = tcim.compile_chip(w, ccfg, CoreSpec(n_cores=cores), "ideal",
+                              in_alpha=3.0,
+                              generator=gen).layers["m"].packed
+        kernel = p.route()
+        routes.add(kernel)
+        mask = (p.inv_norm_tiles > 0).to(torch.float32)
+        for m in (17, 32, 64, 256):
+            x = torch.randint(-7, 8, (m, r), generator=gen,
+                              device=dev).to(torch.float32)
+            for den in (p.denorm_tiles, mask):
+                kw = dict(activation=activation, seed=SEED)
+                before = K.LAUNCHES[kernel]
+                got = _walk_call(x, p, den, **kw)
+                want = _plan_call(x, p, den, impl="plain", **kw)
+                torch.cuda.synchronize()
+                assert K.LAUNCHES[kernel] == before + 1
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (r, c, cores, m)
+    assert routes == {"cim_mvm_packed", "cim_mvm_scheduled"}
+
+
 # ------------------------------------------------------------- hash PRNG
 
 HASH_CASES = [((4, 7), (0,)), ((256, 128), (12345, 3, 77)),

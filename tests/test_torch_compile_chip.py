@@ -145,23 +145,30 @@ def test_mutated_artifact_raises(chips, mutant):
 
 def test_shared_memory_invariant_matches_kernel_tiling(monkeypatch):
     """The verifier's shared-memory check uses the kernel's own tiling: at
-    every batch the bytes fit Hopper's 232,448 (the walk kernels' static
-    layout, the single-matrix kernel's geometry), and a limit below the
-    kernel's need is reported as `shared-memory`."""
-    p = tcim.compile_chip({"m": torch.randn(300, 500)}, CIMConfig(),
-                          in_alpha=3.0).layers["m"].packed
+    every batch the bytes fit Hopper's 232,448 (the packed and scheduled
+    walk's geometry, the transposed kernel's static layout, the
+    single-matrix kernel's geometry), and a limit below the walk's need
+    is reported as `shared-memory`. The chip compiles as a caller that
+    leaves out `mode` gets it (relaxed)."""
+    chip = tcim.compile_chip({"m": torch.randn(300, 500)}, CIMConfig(),
+                             in_alpha=3.0)
+    assert chip.mode == "relaxed"
+    p = chip.layers["m"].packed
     for bm in (1, 4, 5, 32, 256, 4096):
         for kernel in K.KERNELS:
             if kernel == "cim_mvm":
                 need = K.mvm_shared_bytes(K.mvm_geometry(
                     bm, 300, 500, occupancy=K.one_block, n_sm=K.H100_SMS),
                     300)
-            else:
+            elif kernel == "cim_mvm_transposed":
                 need = K.shared_bytes(kernel, K.block_rows(bm))
+            else:
+                need = K.walk_shared_bytes(K.walk_geometry(
+                    bm, p.bk, p.bn, p.n_col_blocks))
             assert need <= K.SMEM_LIMIT
         tverify.check_packed(p, bm=bm)
-    monkeypatch.setattr(tverify, "SMEM_LIMIT",
-                        K.shared_bytes("cim_mvm_packed", 32) - 1)
+    monkeypatch.setattr(tverify, "SMEM_LIMIT", K.walk_shared_bytes(
+        K.walk_geometry(256, p.bk, p.bn, p.n_col_blocks)) - 1)
     with pytest.raises(tverify.ChipVerifyError) as e:
         tverify.check_packed(p, bm=256)
     assert e.value.invariant == "shared-memory"
@@ -181,6 +188,43 @@ def test_compile_chip_rejects_unported_modes():
             a.layers["m"].packed.gd_tiles, b.layers["m"].packed.gd_tiles)
     with pytest.raises(ValueError, match="mode"):
         tcim.compile_chip(w, CIMConfig(), mode="bogus")
+
+
+def test_programming_mode_defaults_match_reference(monkeypatch):
+    """Where a caller leaves out `mode`, the port programs the chip as the
+    reference does: `program_chip`, `compile_chip` and `deploy_rbm_cim`
+    take the reference's default (`inspect.signature` of both packages),
+    and so does `recover --mode` (the reference's parser read by stopping
+    its `main` right after it parses)."""
+    import argparse
+    import inspect
+    pytest.importorskip("jax")
+    from repro.core import cim as jcim
+    from repro.launch import recover as jrecover
+    from repro.models import nn as jnn
+    from repro_torch.launch import recover as trecover
+    from repro_torch.models import nn as tnn
+
+    def default(fn):
+        return inspect.signature(fn).parameters["mode"].default
+    for ref, port in ((jcim.program_chip, tcim.program_chip),
+                      (jcim.compile_chip, tcim.compile_chip),
+                      (jnn.deploy_rbm_cim, tnn.deploy_rbm_cim)):
+        assert default(port) == default(ref) == "relaxed", port.__name__
+
+    class Parsed(Exception):
+        pass
+    parse = argparse.ArgumentParser.parse_args
+
+    def stop_after_parse(self, args=None, namespace=None):
+        raise Parsed(parse(self, args, namespace))
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args",
+                        stop_after_parse)
+    with pytest.raises(Parsed) as ref_args:
+        jrecover.main([])
+    monkeypatch.undo()
+    assert trecover.parse_args([]).mode == ref_args.value.args[0].mode \
+        == "relaxed"
 
 
 # ------------------------------------------------- both directions, IR drop

@@ -56,7 +56,7 @@ def deployed(request):
                             mode="ideal", interleave=interleave)
     ct = tnn.deploy_rbm_cim({k: to_torch(v) for k, v in params.items()},
                             CIMConfig(in_bits=2), to_torch(v_cal),
-                            interleave=interleave)
+                            mode="ideal", interleave=interleave)
     # one Gibbs cycle's launches, driven by the same visibles and hiddens
     v = (rng.uniform(size=(B, N_VIS)) < 0.5).astype(np.float32)
     h = (rng.uniform(size=(B, HID)) < 0.5).astype(np.float32)

@@ -194,7 +194,7 @@ def test_route_picks_split_up_to_16_rows():
     assert K.split_route(16) and not K.split_route(17)
     assert K.split_route(1) and not K.split_route(256)
     assert [K.split_rows(m) for m in (1, 4, 5, 16)] == [4, 4, 16, 16]
-    assert K.block_rows(17) == 32
+    assert K.walk_geometry(17, 128, 256, 8).bm == 32
     p = pack_tiles(plan_layers([MatrixReq("m", 40, 32)]).tiles_for("m"),
                    torch.ones(40, 32))
     x = torch.ones(4, 40)
@@ -206,6 +206,71 @@ def test_route_picks_split_up_to_16_rows():
     with pytest.raises(ValueError, match="device"):
         K.launch_walk("cim_mvm_packed", x, p.gd_tiles, tiles,
                       (p.row_index, p.col_start), 1, 40, 32, **kw)
+
+
+# the projections of one full-width gemma2-9b layer (rows, columns), on
+# 128 x 256 tiles
+LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wo": (4096, 3584),
+         "w_g": (3584, 14336), "w_o": (14336, 3584)}
+# (m, bk, bn, n_cb): full-width shapes across the route's edge, ragged
+# rows, bn = 47 (IR-drop tiles), bk = 35 (a 35-row layer), one column block
+WALK_SHAPES = [(m, 128, 256, c // 256) for m in (1, 17, 32, 64, 256)
+               for c in (2048, 14336)] + [
+    (37, 128, 47, 15), (256, 128, 47, 76), (300, 35, 47, 10),
+    (64, 35, 47, 1), (5, 100, 60, 1), (129, 256, 256, 3)]
+
+
+def _walk_cover(g, m, bn, n_cb):
+    """Each output (row, column block, column) the walk's items own, as
+    the kernel decodes an item (the row blocks of one strip
+    consecutive), counted."""
+    owned = np.zeros((m, n_cb, bn), np.int32)
+    for item in range(g.n_items):
+        rbk, rest = item % g.n_rbk, item // g.n_rbk
+        strip, cb = rest % g.n_strips, rest // g.n_strips
+        owned[rbk * g.bm:(rbk + 1) * g.bm, cb,
+              strip * g.bn_blk:(strip + 1) * g.bn_blk] += 1
+    return owned
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES,
+                         ids=[f"m{m}-bk{bk}-bn{bn}-cb{c}"
+                              for m, bk, bn, c in WALK_SHAPES])
+def test_walk_geometry_covers_every_output_once(shape):
+    """The walk's items cover every output of every column block exactly
+    once (ragged rows, bn = 47 and bk = 35 included), each item no
+    taller than 32 rows where 32 cover the batch; a stage holds a whole
+    number of 16-row blocks of k, at most 64 rows, and one block's
+    shared memory fits a Hopper block's 232,448 bytes."""
+    m, bk, bn, n_cb = shape
+    g = K.walk_geometry(m, bk, bn, n_cb)
+    assert (g.bm, g.bn_blk) == K.WALK_ITEMS[g.layout]
+    assert g.n_items == g.n_rbk * g.n_strips * n_cb
+    assert (g.n_rbk - 1) * g.bm < m <= g.n_rbk * g.bm
+    assert (g.n_strips - 1) * g.bn_blk < bn <= g.n_strips * g.bn_blk
+    assert (_walk_cover(g, m, bn, n_cb) == 1).all()
+    assert m > 32 or g.bm == 32
+    assert g.kc % 16 == 0 and 16 <= g.kc <= K.WALK_MAX_CHUNK
+    assert g.kc >= min(bk, K.WALK_MAX_CHUNK)
+    assert K.walk_shared_bytes(g) <= K.SMEM_LIMIT == 232_448
+    # a staged row holds its 16-byte cover at the conflict-free pitches
+    assert K.walk_x_pitch(g.kc) >= g.kc + 16      # int8 x
+    assert K.walk_x_pitch(g.kc) % 32 == 16
+    assert K.walk_g_pitch(g.bn_blk) * 4 >= g.bn_blk * 4 + 16
+    assert K.walk_g_pitch(g.bn_blk) % 8 == 4
+
+
+@pytest.mark.parametrize("name", sorted(LAYER))
+def test_walk_geometry_fills_the_card(name):
+    """At prefill (M = 256) every full-width layer shape gives at least
+    one item per H100 SM; at M = 17, one row past the split route, more
+    blocks than the first walk's grid (32-row blocks x 128-column
+    sub-blocks of each column block: 16 for wk)."""
+    r, c = LAYER[name]
+    n_cb = c // 256
+    assert K.walk_geometry(256, 128, 256, n_cb).n_items >= K.H100_SMS
+    old = -(-17 // 32) * n_cb * (256 // 128)
+    assert K.walk_geometry(17, 128, 256, n_cb).n_items > max(old, 32)
 
 
 def test_live_slots_skip_idle_slots(plans):
@@ -253,7 +318,8 @@ def test_verifier_models_the_split_route(plans, monkeypatch):
     assert K.split_shared_bytes(16, 128, 256) == 65712
     assert K.split_shared_bytes(16, 128, 47) == 128 + 3 * (16 * 47 * 4 + 16) \
         + 128 * 16 * 8
-    # a limit the walk fits but the split route does not
+    # a limit below the split route's need: its decode batch (16 rows)
+    # is checked first, beside the batch's own route
     monkeypatch.setattr(tverify, "SMEM_LIMIT",
                         K.split_shared_bytes(16, p.bk, p.bn) - 1)
     for bm in (4, 256):
