@@ -10,7 +10,8 @@ the final result line:
 
   device        the card (nvidia-smi name and power limit); no CUDA fails
   build         nvcc build of every kernel, from this checkout, in parallel;
-                the walk's registers and spills from `-Xptxas -v`
+                every CIM and noisy-matmul kernel's registers and spills
+                from `-Xptxas -v`
   kernel        the packed kernel against its plain PyTorch version at the
                 full-width gemma2-9b layer shapes, M = 1, 4, 16 (the split
                 route), 17, 32, 64 and 256 (the walk), every activation,
@@ -28,9 +29,12 @@ the final result line:
                 not 16-byte multiples, the scheduled kernel forced onto a
                 single-pass plan against the packed kernel (and timed
                 beside it, kernel-level line), and the transposed kernel on
-                the bwd direction of that chip's w_g and w_o and at the
-                RBM's geometry (795 x 121, M = 64); every activation
-                including stochastic, bit for bit, with times and bounds
+                the bwd direction of that chip's w_g and w_o (the walk at
+                every M, timed at the kernel phase's M), at the RBM's
+                geometry (795 x 121, M = 4, 16 and 64) and on the
+                interleaved smoke RBM's 70 x 33 tiles (M = 1, 4, 16, 17,
+                64); every activation including stochastic, bit for bit,
+                with times and bounds
   smoke         the smoke-size model served on the card against the same
                 model served by the plain versions on the CPU
   serve         full-width gemma2-9b (4 of 42 layers, random weights from
@@ -69,7 +73,10 @@ the final result line:
                 against its plain version (NOISY_TOL), seed determinism,
                 sigma 0 against the plain product, and the reference
                 test's noise statistic; times beside a torch.matmul on the
-                materialised noisy weight ("matmul only")
+                materialised noisy weight ("matmul only"), with its two
+                kernels' device times (weight pass, SGEMM) read by the
+                profiler from the wrapper's own launches; the phase's
+                peak device memory
   profile       a profiled prefill of each serve path (the walk's device ms
                 per projection, in the model's call order) and a profiled
                 decode window (the split route's term and fold kernels
@@ -265,7 +272,8 @@ def build_phase(K, stopwatch):
             "libraries": {k: str(v.relative_to(ROOT))
                           for k, v in libs.items()},
             "ptxas": {k: ptxas_kernels(build.ptxas_log(libs[k]))
-                      for k in K.SPLIT_KERNELS}}
+                      for k in (*K.SPLIT_KERNELS, "cim_mvm_transposed",
+                                "noisy_matmul")}}
 
 
 def ptxas_kernels(log):
@@ -278,7 +286,7 @@ def ptxas_kernels(log):
     out = {}
     for block in log.read_text().split("Compiling entry function")[1:]:
         mangled = block.split("'")[1]
-        ident = re.search(r"\d+(cim_[a-z_]+)", mangled)
+        ident = re.search(r"\d+((?:cim|noisy)_[a-z_]+)", mangled)
         args = re.findall(r"L[ib](\d+)E", mangled)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -472,8 +480,9 @@ def time_walk(torch, K, p, x, kernel, run_split, flush, stats):
 def time_route(torch, K, ops, p, x, flush, kernel, label, stats,
                scheduled=None):
     """Kernel and plain times of plan p on x (activation none) with its
-    bound, and the walk's time where the scheduled kernel takes the split
-    route at M = 4; emitted as one kernel-shape line."""
+    bound, the walk's geometry, and the walk's time where the scheduled
+    kernel takes the split route at M = 4; emitted as one kernel-shape
+    line."""
     from repro_torch.core.types import CIMConfig
     cfg = CIMConfig()
     run_k = lambda: ops.cim_mvm_packed(x, p, cfg, scheduled=scheduled)
@@ -492,11 +501,10 @@ def time_route(torch, K, ops, p, x, flush, kernel, label, stats,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "bound_share": b_ms / ms, "bytes": nbytes,
            "flops": flops}
-    if kernel in K.SPLIT_KERNELS:
-        row["walk_geometry"] = walk_geo(K, kernel, p, m, x.device)
-        if K.split_route(m):
-            row["walk_ms"] = time_walk(torch, K, p, x, kernel, run_k, flush,
-                                       stats)
+    row["walk_geometry"] = walk_geo(K, kernel, p, m, x.device)
+    if kernel in K.SPLIT_KERNELS and K.split_route(m):
+        row["walk_ms"] = time_walk(torch, K, p, x, kernel, run_k, flush,
+                                   stats)
     emit({"phase": "kernel-shape", **row})
     return row
 
@@ -522,7 +530,8 @@ def time_level(torch, ops, p, x, flush):
 def profiled_ms(torch, fn, name, reps, flush):
     """Median device time of the kernel whose name holds `name`, one launch
     per call of fn, each call after an L2 flush (torch.profiler / CUPTI):
-    the kernel alone, without the wrapper's host work."""
+    the kernel alone, without the wrapper's host work (and its cast of x
+    to int8)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -587,7 +596,7 @@ def kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
             if p.route() != kernel or p.n_passes < 2:
                 raise AssertionError(f"{name} {d}: {p.n_passes} passes, "
                                      f"route {p.route()}")
-            for m in (COMPARE_ROWS if d == "fwd" else (4, 256)):
+            for m in COMPARE_ROWS:
                 x = torch.randint(-7, 8, (m, p.n_rows), generator=gen,
                                   device=dev).to(torch.float32)
                 compare_all(torch, K, ops, p, x, f"{name} {d}", stats,
@@ -625,20 +634,33 @@ def kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
                               device=dev).to(torch.float32)
             compare_all(torch, K, ops, p, x, f"35x470 ir-drop {cores} cores",
                         stats, p.route())
+    # the interleaved smoke RBM (139 x 33 augmented, 2 cores): 70 x 33
+    # tiles, stored rows off the 16-byte grid
+    p = rbm_bwd_plan(torch, dev, gen, 138, 32, interleave=True)
+    if tuple(p.gd_tiles.shape[1:]) != (70, 33):
+        raise AssertionError(f"interleaved RBM tiles {p.gd_tiles.shape}")
+    for m in (1, 4, 16, 17, 64):
+        x = torch.randint(0, 2, (m, p.n_rows), generator=gen,
+                          device=dev).to(torch.float32)
+        compare_all(torch, K, ops, p, x, "rbm interleaved 70x33 bwd", stats,
+                    "cim_mvm_transposed")
     # the RBM's geometry: the augmented 795 x 121 array, 7 tiles
     w = {"rbm": torch.randn(795, 121, generator=gen, device=dev) * 0.3}
     rchip = cim.compile_chip(w, CIMConfig(in_bits=2), CoreSpec(), "ideal",
                              directions=("fwd", "bwd"), generator=gen)
     p = rchip.bwd_layers["rbm"].packed
-    x = torch.randint(0, 2, (64, p.n_rows), generator=gen,
-                      device=dev).to(torch.float32)
-    compare_all(torch, K, ops, p, x, "rbm bwd", stats, "cim_mvm_transposed")
-    rows["rbm", "bwd", 64] = time_route(torch, K, ops, p, x, flush,
-                                        "cim_mvm_transposed", "rbm bwd",
-                                        stats)
-    # its device time is read in the profile phase, after every timed run
+    for m in (4, 16, 64):
+        x = torch.randint(0, 2, (m, p.n_rows), generator=gen,
+                          device=dev).to(torch.float32)
+        compare_all(torch, K, ops, p, x, "rbm bwd", stats,
+                    "cim_mvm_transposed")
+        rows["rbm", "bwd", m] = time_route(torch, K, ops, p, x, flush,
+                                           "cim_mvm_transposed", "rbm bwd",
+                                           stats)
+    # its device time (the walk at M = 64) is read in the profile phase,
+    # after every timed run
     stats["kernel_profile"] = (
-        "cim_mvm_transposed",
+        "cim_mvm_transposed", "cim_walk",
         lambda: ops.cim_mvm_packed(x, p, CIMConfig()), flush)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     # a merged layer runs w_g, w_i (= w_g's shape) and w_o scheduled
@@ -654,13 +676,28 @@ def kernel_runs_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
     t["prefill_bound_by"] = common_bound(r for r in merged if r["m"] == 256)
     stats["time"]["cim_mvm_transposed"] = {
         k: rows["rbm", "bwd", 64][k] for k in keys}
-    stats["time"]["cim_mvm_transposed"]["w_g_bwd_ms"] = rows["w_g", "bwd",
-                                                             4]["ms"]
+    stats["time"]["cim_mvm_transposed"]["bwd_ms"] = {
+        n: {m: rows[n, "bwd", m]["ms"] for m in (4, 256)}
+        for n in ("w_g", "w_o")}
     return {"shapes": len(rows),
             "max_abs_err": {k: stats["err"].get(k) for k in
                             ("cim_mvm_scheduled", "cim_mvm_transposed")},
             "merged_layer": sums,
             "split_wins_up_to": edge["split_wins_up_to"]}
+
+
+def rbm_bwd_plan(torch, dev, gen, n_vis, n_hid, interleave):
+    """The h->v plan of a random RBM (weights from `gen`) deployed on the
+    card as the recovery deploys it."""
+    from repro_torch.core.types import CIMConfig
+    from repro_torch.models import nn
+    params = {"w": torch.randn(n_vis, n_hid, generator=gen, device=dev) * .3,
+              "a": torch.randn(n_vis, generator=gen, device=dev) * 0.1,
+              "b": torch.randn(n_hid, generator=gen, device=dev) * 0.1}
+    v_cal = (torch.rand(64, n_vis, generator=gen, device=dev) < 0.5).float()
+    crbm = nn.deploy_rbm_cim(params, CIMConfig(in_bits=2), v_cal,
+                             interleave=interleave, generator=gen)
+    return crbm.chip.layers_for("bwd")["rbm"].packed
 
 
 def compare_runs(torch, ref, other, what, atol):
@@ -759,9 +796,9 @@ def serve_path(torch, K, ops, serve, dev, stats, path, conf, routes, text):
 def profile_phase(torch, dev, stats):
     out = {}
     if "kernel_profile" in stats:
-        kernel, fn, flush = stats.pop("kernel_profile")
+        kernel, name, fn, flush = stats.pop("kernel_profile")
         t = stats["time"][kernel]
-        t["device_ms"] = profiled_ms(torch, fn, kernel, 20, flush)
+        t["device_ms"] = profiled_ms(torch, fn, name, 20, flush)
         out["rbm bwd"] = {"kernel": kernel, "device_ms": t["device_ms"],
                           "event_ms": t["ms"]}
         del fn, flush
@@ -1242,6 +1279,7 @@ def noisy_tol(torch, NK, x, w, sigma_frac, seed):
 @phase("noisy-matmul")
 def noisy_matmul_phase(torch, K, dev, stats):
     from repro_torch.kernels.noisy_matmul import kernel as NK, ops as nops
+    torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(dev).manual_seed(14)
     data = {name: (torch.randn(m, k, generator=gen, device=dev),
                    torch.randn(k, n, generator=gen, device=dev) / k ** 0.5)
@@ -1288,15 +1326,22 @@ def noisy_matmul_phase(torch, K, dev, stats):
     if not 0.7 < ratio < 1.3:
         raise AssertionError(f"noisy-matmul: noise std ratio {ratio}")
     flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB > L2
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
     for name, (m, k, n) in NOISY_SHAPES.items():
         x, w = data[name]
         sig = 0.1 * w.abs().max()
-        wn = w + sig * NK.weight_noise_eps(k, n, 3, min(256, k), min(256, n),
-                                           dev)
+        wn = NK.noisy_weight_plain(w, sig, seed=3, bk_ref=min(256, k),
+                                   bn_ref=min(256, n))
         run_k = lambda: NK.noisy_matmul(x, w, sig, seed=3)
         run_k()
         ms = median_ms(torch, run_k, 20, flush)
+        # each of the call's two kernels on the device, from the wrapper's
+        # own launches
+        tile = NK.sgemm_geometry(m, n, n_sm)
+        weight_ms = profiled_ms(torch, run_k, "noisy_weight_kernel", 20,
+                                flush)
+        sgemm_ms = profiled_ms(torch, run_k, "noisy_sgemm", 20, flush)
         plain_ms = median_ms(
             torch, lambda: NK.noisy_matmul(x, w, sig, seed=3, impl="plain"),
             5, flush)
@@ -1305,19 +1350,27 @@ def noisy_matmul_phase(torch, K, dev, stats):
         flops = 2.0 * m * k * n
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        # the weight pass's own bound: w read, w' written once
+        w_bound = 2 * k * n * 4 / HBM_BYTES_PER_S * 1e3
         rows[name] = {"kernel": "noisy_matmul", "matrix": name, "m": m,
                       "k": k, "n": n, "ms": ms, "plain_ms": plain_ms,
                       "matmul_only_ms": mm_ms, "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations", "bytes": nbytes, "flops": flops}
+                      else "operations", "bound_share": max(t_bytes, t_ops)
+                      / ms, "bytes": nbytes, "flops": flops,
+                      "weight_ms": weight_ms, "weight_bound_ms": w_bound,
+                      "sgemm_ms": sgemm_ms, "sgemm_tile": NK.SGEMM_TILES[tile],
+                      "sgemm_blocks": NK.sgemm_blocks(m, n, tile)}
         emit({"phase": "kernel-shape", **rows[name]})
         del wn
     stats["time"]["noisy_matmul"] = {
         k: rows["gemma2-9b w_g training"][k]
-        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "matmul_only_ms")}
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "matmul_only_ms",
+                  "weight_ms", "sgemm_ms")}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
     free(torch)
     return {"max_abs_err": err["noisy_matmul"], "noise_std_ratio": ratio,
-            "shapes": rows}
+            "peak_mem_gb": peak, "shapes": rows}
 
 
 def kernels_line(stats):
@@ -1334,14 +1387,18 @@ def kernels_line(stats):
                                "route; walk_ms: the walk in this run; "
                                "prefill_*: the same at M = 256, the walk)",
           "cim_mvm_transposed": "the RBM's h->v launch at paper geometry, "
-                                "M = 64 (CUDA-event window, host work "
-                                "included; device_ms: the kernel alone)",
+                                "M = 64, the walk (CUDA-event window, host "
+                                "work included; device_ms: the kernel "
+                                "alone; bwd_ms: a full-width w_g / w_o bwd "
+                                "at M = 4 and 256)",
           "cim_mvm": "one 7-layer CNN chip inference at 28x28, batch 256: "
                      "its 7 launches summed (relaxed conductances; "
                      "fused_host_us: the fused wrapper's host time for "
                      "them)",
           "noisy_matmul": "a gemma2-9b w_g in training, M 2048, K 3584, "
-                          "N 14336 (matmul_only_ms: torch.matmul on the "
+                          "N 14336, both kernels (weight_ms, sgemm_ms: "
+                          "each one's device time in the call; "
+                          "matmul_only_ms: torch.matmul on the "
                           "materialised noisy weight, no noise drawn)"}
     main_path = {"cim_mvm_packed": "serve",
                  "cim_mvm_scheduled": "serve-merged",
@@ -1364,9 +1421,10 @@ def kernels_line(stats):
             "library_ms": None, "walk_ms": t.get("walk_ms"),
             "at": at[kernel],
             **{k: v for k, v in t.items()
-               if k in ("device_ms", "w_g_bwd_ms", "matmul_only_ms",
-                        "fused_ms", "fused_plain_ms", "fused_bound_ms",
-                        "fused_host_us") or k.startswith("prefill_")},
+               if k in ("device_ms", "bwd_ms", "matmul_only_ms",
+                        "weight_ms", "sgemm_ms", "fused_ms", "fused_plain_ms",
+                        "fused_bound_ms", "fused_host_us")
+               or k.startswith("prefill_")},
             "ok": not failures})
     return {"kernels": rows}
 

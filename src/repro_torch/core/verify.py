@@ -39,12 +39,15 @@ stage, layer, tile/slot and invariant, before anything launches.
                                    out_slot / out_col
             shared-memory          one CUDA block of each route the plan
                                    launches — the walk at the tiling it
-                                   picks for the batch, and for a forward
-                                   plan the split route of a decode batch
-                                   (<= 16 rows) — fits Hopper's 232,448
-                                   bytes of shared memory; the split
-                                   route's term pass has one thread per
-                                   tile column, at most 256
+                                   picks for the batch (transposed: the
+                                   walk over the stored tile's column
+                                   axis, its only route), and for a
+                                   forward plan the split route of a
+                                   decode batch (<= 16 rows) — fits
+                                   Hopper's 232,448 bytes of shared
+                                   memory; the split route's term pass
+                                   has one thread per tile column, at
+                                   most 256
             bulk-copy              a forward plan's chunk bytes (16 tile
                                    rows) are a multiple of 16, so every
                                    chunk of a tile sits at the tile's
@@ -81,10 +84,9 @@ from .mapping import (PackedPlan, Plan, Tile, TileSchedule,
 from .types import CIMConfig, CoreSpec
 from ..kernels.cim_mvm.kernel import (SMEM_LIMIT, SPLIT_CHUNK_ROWS,
                                       SPLIT_KERNELS, SPLIT_ROWS,
-                                      SPLIT_THREADS, H100_SMS, block_rows,
+                                      SPLIT_THREADS, H100_SMS,
                                       mvm_geometry, mvm_shared_bytes,
-                                      one_block,
-                                      shared_bytes, split_route, split_rows,
+                                      one_block, split_route, split_rows,
                                       split_shared_bytes, walk_geometry,
                                       walk_shared_bytes)
 
@@ -422,36 +424,36 @@ def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
 
     # every route the plan launches: the batch's (the walk, or the split
     # route up to its edge) and, for a forward plan, the split route of a
-    # decode batch
+    # decode batch. The transposed kernel's only route is the walk, over
+    # the stored tile's column axis: it contracts packed.bk stored columns
+    # into packed.bn outputs.
     kernel = packed.route()
+    split = kernel in SPLIT_KERNELS
     rows = _DEFAULT_BM if bm is None else max(int(bm), 1)
-    batches = {rows, SPLIT_ROWS[-1]} if kernel in SPLIT_KERNELS else {rows}
+    batches = {rows, SPLIT_ROWS[-1]} if split else {rows}
     for m in sorted(batches):
-        if kernel in SPLIT_KERNELS and split_route(m):
+        if split and split_route(m):
             route, bm_eff = "split route", split_rows(m)
             need = split_shared_bytes(bm_eff, packed.bk, packed.bn)
-        elif kernel in SPLIT_KERNELS:
+        else:
             route = "walk"
             geo = walk_geometry(m, packed.bk, packed.bn,
-                                packed.n_col_blocks)
+                                packed.n_col_blocks, trans=packed.transpose)
             bm_eff, need = geo.bm, walk_shared_bytes(geo)
-        else:
-            route, bm_eff = "walk", block_rows(m)
-            need = shared_bytes(kernel, bm_eff)
         if need > SMEM_LIMIT:
             raise ChipVerifyError(
                 "pack", "shared-memory",
                 f"one CUDA block of {kernel} ({route}) needs {need} bytes of "
                 f"shared memory at {bm_eff} rows but a Hopper block has "
                 f"{SMEM_LIMIT}", layer=name)
-    if kernel in SPLIT_KERNELS and packed.bn > SPLIT_THREADS:
+    if split and packed.bn > SPLIT_THREADS:
         raise ChipVerifyError(
             "pack", "shared-memory",
             f"the split route of {kernel} runs one thread per tile column, "
             f"at most {SPLIT_THREADS}; the plan has bn={packed.bn}",
             layer=name)
     chunk = SPLIT_CHUNK_ROWS * packed.bn * 4
-    if kernel in SPLIT_KERNELS and chunk % 16:
+    if split and chunk % 16:
         raise ChipVerifyError(
             "pack", "bulk-copy",
             f"chunk bytes {chunk} ({SPLIT_CHUNK_ROWS} rows of bn="

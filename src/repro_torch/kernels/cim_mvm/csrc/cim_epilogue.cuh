@@ -1,7 +1,7 @@
 // Shared device code of the NeuRRAM CIM MVM kernels for Hopper (sm_90a):
 // the ADC epilogue and the stochastic neuron (its hash PRNG is
-// kernels/csrc/hash_prng.cuh). Included by cim_walk.cuh, cim_split.cuh,
-// cim_mvm_transposed.cu and cim_mvm.cu.
+// kernels/csrc/hash_prng.cuh). Included by cim_walk.cuh, cim_split.cuh and
+// cim_mvm.cu.
 //
 // Ports repro/kernels/cim_mvm/kernel.py `_epilogue`, `_acc_weight` and
 // `_pwl_tanh`.
@@ -16,8 +16,6 @@
 #include "hash_prng.cuh"
 
 namespace cim {
-
-constexpr int kThreads = 128;  // the transposed kernel's outputs per block
 
 enum Activation { kNone = 0, kRelu = 1, kTanh = 2, kSigmoid = 3,
                   kIdentity = 4, kStochastic = 5 };
@@ -89,14 +87,6 @@ __device__ __forceinline__ float tile_term(float q, float vd, float inv,
                                    (uint32_t)col, (uint32_t)(row / e.bm_ref),
                                    (uint32_t)tile, e);
   return inv > 0.f ? bit : 0.f;
-}
-
-// Static shared memory of a kernel instantiation (-1 on error).
-template <typename Kernel>
-int static_shared_bytes(Kernel kernel) {
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
-  return (int)attr.sharedSizeBytes;
 }
 
 }  // namespace cim

@@ -48,14 +48,14 @@ int cim_mvm_packed_launch(const cim::WalkArgs* a, const cim::WalkGeometry* g,
   cim::WalkArgs args = *a;
   args.col_run_start = nullptr;
   args.col_runs = nullptr;
-  return cim::walk_launch<false>(args, *g, *e, grid,
-                                 static_cast<cudaStream_t>(stream));
+  return cim::walk_launch<false, false>(args, *g, *e, grid,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // Walk blocks of geometry g resident on one SM of the current device (a
 // negative CUDA error code on failure).
 int cim_mvm_packed_occupancy(const cim::WalkGeometry* g) {
-  return cim::walk_occupancy<false>(*g);
+  return cim::walk_occupancy<false, false>(*g);
 }
 
 // Dynamic shared memory of one walk block of geometry g.

@@ -49,14 +49,14 @@ extern "C" {
 int cim_mvm_scheduled_launch(const cim::WalkArgs* a,
                              const cim::WalkGeometry* g,
                              const cim::Epilogue* e, int grid, void* stream) {
-  return cim::walk_launch<true>(*a, *g, *e, grid,
-                                static_cast<cudaStream_t>(stream));
+  return cim::walk_launch<true, false>(*a, *g, *e, grid,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // Walk blocks of geometry g resident on one SM of the current device (a
 // negative CUDA error code on failure).
 int cim_mvm_scheduled_occupancy(const cim::WalkGeometry* g) {
-  return cim::walk_occupancy<true>(*g);
+  return cim::walk_occupancy<true, false>(*g);
 }
 
 // Dynamic shared memory of one walk block of geometry g.

@@ -1,7 +1,7 @@
 // Transpose-direction (BL->SL) whole-layer NeuRRAM CIM MVM for Hopper
 // (sm_90a).
 //
-// Replaces repro/kernels/cim_mvm/kernel.py::cim_mvm_transposed_pallas
+// Replaces repro/kernels/cim_mvm/kernel.py:466 cim_mvm_transposed_pallas
 // (the Pallas TPU kernel `_cim_transposed_kernel` and `_fold_runs`): the
 // TNSA read of the SAME programmed cells with the wire roles swapped. The
 // forward stack gd_tiles (T, bko, bni) is shared, never copied: slot t of
@@ -11,167 +11,47 @@
 //   counts = ADC epilogue of q, weighted by denorm[t] (per-ROW tensors)
 // with the scheduled kernel's runs: each run sums from zero in slot
 // order, the runs of an output block fold in run order. Output blocks are
-// forward row blocks (bko columns each), the input is forward columns.
+// forward row blocks (bko outputs each), the input is forward columns.
+// The stochastic neuron keys its hash on the tile's stack position.
 //
-// What bounds it: the bytes of the live tiles at small batch, the FP64
-// rate at large batch; at the RBM's geometry (795 x 121, 7 tiles) launch
-// latency.
+// What bounds it: the bytes of the live tiles at small batch (a
+// full-width gemma2-9b w_g bwd reads 205 MB of them), the FP64 rate at
+// large batch; at the RBM's geometry (795 x 121, 7 tiles) launch latency.
 //
-// What the design does: a block owns BM rows x 128 outputs (forward rows)
-// of one output block, one thread per output. A thread walking its own row
-// of a stored tile would read with stride bni across the warp, so each
-// tile is staged through shared memory in chunks of kTChunk stored
-// columns: the warp reads a row segment (coalesced), stores it to
-// gs[row][k] padded to kTChunk + 1 floats (no bank conflicts on either
-// side), and every thread then reads its row from shared memory. The x
-// chunk is staged too, [k][BM + 2] doubles (broadcast 16-byte reads,
-// padded against bank conflicts on the transposing store). The dot is
-// exact in FP64 (|x| <= 127, gd on the 2^-23 grid, bni * 127 * max|gd| <
-// 2^30: the verifier's `exact-dot`). The stochastic neuron keys its hash
-// on the tile's stack position, as the reference does.
-// Shared memory per block: kTChunk * (BM + 2) * 8 + kThreads * (kTChunk +
-// 1) * 4 bytes, at most 25,600 (BM = 32): static.
+// The tile dot is exact in FP64 (|x| <= 127, gd on the 2^-23 grid: the
+// verifier's `exact-dot`), so only the fold needs an order, and the
+// kernel is the forward kernels' walk (cim_walk.cuh, TRANS) at every M:
+// the tile dots on the FP64 tensor cores, a stage holding an item's strip
+// of stored rows (its outputs) over a chunk of the stored columns, by
+// tensor copy at a conflict-free pitch, or by one bulk copy where the
+// stored rows are off the 16-byte grid (the RBM's 121 and 33 columns, the
+// IR-drop chip's 47) and one chunk spans them. It has no split route: the
+// only path that launches it is the RBM's h->v read, where the walk beat
+// a transposed term pass at 4 and 16 rows on an H100. Shared memory
+// (dynamic): `walk_shared_bytes`.
 #include "cim_epilogue.cuh"
-
-namespace {
-
-using namespace cim;
-
-constexpr int kTChunk = 32;  // stored tile columns staged per pass
-
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-cim_mvm_transposed_kernel(const float* __restrict__ x, int M, int K,
-                          const float* __restrict__ gd,
-                          const float* __restrict__ inv_norm,
-                          const float* __restrict__ denorm,
-                          const float* __restrict__ v_decr,
-                          const int* __restrict__ in_block,
-                          const int* __restrict__ tile_slot,
-                          const int* __restrict__ run_start,
-                          const int* __restrict__ col_run_start,
-                          const int* __restrict__ col_runs,
-                          int bni, int bko, int n_sub,
-                          float* __restrict__ out, int out_ld, Epilogue e) {
-  __shared__ __align__(16) double xs[kTChunk][BM + 2];
-  __shared__ float gs[kThreads][kTChunk + 1];
-  const int m0 = blockIdx.x * BM;
-  const int ob = blockIdx.y / n_sub;
-  const int o0 = (blockIdx.y % n_sub) * kThreads;
-  const int o = o0 + threadIdx.x;
-  const bool live = o < bko;
-
-  float total[BM];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) total[r] = 0.f;
-
-  const int k_end = col_run_start[ob + 1];
-  for (int k = col_run_start[ob]; k < k_end; ++k) {
-    const int run = col_runs[k];
-    float part[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) part[r] = 0.f;
-    const int t_end = run_start[run + 1];
-    for (int t = run_start[run]; t < t_end; ++t) {
-      const int g = tile_slot[t];
-      const int kbase = in_block[t] * bni;
-      const float* tile = gd + (size_t)g * bko * bni;
-      double acc[BM];
-#pragma unroll
-      for (int r = 0; r < BM; ++r) acc[r] = 0.0;
-      for (int c0 = 0; c0 < bni; c0 += kTChunk) {
-        const int kc = min(kTChunk, bni - c0);
-        __syncthreads();  // the previous chunk is fully consumed
-        for (int i = threadIdx.x; i < BM * kTChunk; i += kThreads) {
-          const int r = i / kTChunk, kk = i % kTChunk;
-          const int row = m0 + r, col = kbase + c0 + kk;
-          xs[kk][r] = (row < M && kk < kc && col < K) ? (double)x[(size_t)row * K + col] : 0.0;
-        }
-        for (int i = threadIdx.x; i < kThreads * kTChunk; i += kThreads) {
-          const int rr = i / kTChunk, kk = i % kTChunk;
-          const int oo = o0 + rr;
-          gs[rr][kk] = (oo < bko && kk < kc) ? __ldg(tile + (size_t)oo * bni + c0 + kk) : 0.f;
-        }
-        __syncthreads();
-        if (live) {
-#pragma unroll 8
-          for (int kk = 0; kk < kc; ++kk) {
-            const double gv = (double)gs[threadIdx.x][kk];
-#pragma unroll
-            for (int r = 0; r < BM; r += 2) {
-              const double2 xv = *reinterpret_cast<const double2*>(&xs[kk][r]);
-              acc[r] = fma(xv.x, gv, acc[r]);
-              acc[r + 1] = fma(xv.y, gv, acc[r + 1]);
-            }
-          }
-        }
-      }
-      if (live) {
-        const float inv = inv_norm[(size_t)t * bko + o];
-        const float w = denorm[(size_t)t * bko + o];
-        const float vd = v_decr[t];
-#pragma unroll
-        for (int r = 0; r < BM; ++r) {
-          const float q = __fmul_rn(__fmul_rn(__double2float_rn(acc[r]), e.v_read), inv);
-          part[r] = __fadd_rn(part[r], tile_term(q, vd, inv, w, m0 + r, o, g, e));
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BM; ++r) total[r] = __fadd_rn(total[r], part[r]);
-  }
-  if (live) {
-#pragma unroll
-    for (int r = 0; r < BM; ++r)
-      if (m0 + r < M) out[(size_t)(m0 + r) * out_ld + (size_t)ob * bko + o] = total[r];
-  }
-}
-
-template <int BM>
-cudaError_t launch(const float* x, int M, int K, const float* gd,
-                   const float* inv_norm, const float* denorm,
-                   const float* v_decr, const int* in_block,
-                   const int* tile_slot, const int* run_start,
-                   const int* col_run_start, const int* col_runs,
-                   int n_out_blocks, int bni, int bko, float* out,
-                   const Epilogue& e, cudaStream_t stream) {
-  const int n_sub = (bko + kThreads - 1) / kThreads;
-  const dim3 grid((M + BM - 1) / BM, n_out_blocks * n_sub);
-  cim_mvm_transposed_kernel<BM><<<grid, kThreads, 0, stream>>>(
-      x, M, K, gd, inv_norm, denorm, v_decr, in_block, tile_slot, run_start,
-      col_run_start, col_runs, bni, bko, n_sub, out, n_out_blocks * bko, e);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "cim_walk.cuh"
 
 extern "C" {
 
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 = launched).
-// bni: the input width of a tile (stored columns); bko: its output width
-// (stored rows).
-int cim_mvm_transposed_launch(const float* x, int M, int K, const float* gd,
-                              const float* inv_norm, const float* denorm,
-                              const float* v_decr, const int* in_block,
-                              const int* tile_slot, const int* run_start,
-                              const int* col_run_start, const int* col_runs,
-                              int n_out_blocks, int bni, int bko, float* out,
-                              const cim::Epilogue* e, int bm, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bm) {
-    case 4:  return launch<4>(x, M, K, gd, inv_norm, denorm, v_decr, in_block, tile_slot, run_start, col_run_start, col_runs, n_out_blocks, bni, bko, out, *e, s);
-    case 32: return launch<32>(x, M, K, gd, inv_norm, denorm, v_decr, in_block, tile_slot, run_start, col_run_start, col_runs, n_out_blocks, bni, bko, out, *e, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// Launches the transposed walk, `grid` blocks, on `stream` (a->bk: the
+// stored columns, a->bn: the stored rows; a->tile_slot required); returns
+// a CUDA error code (0 = launched).
+int cim_mvm_transposed_launch(const cim::WalkArgs* a, const cim::WalkGeometry* g,
+                              const cim::Epilogue* e, int grid, void* stream) {
+  return cim::walk_launch<true, true>(*a, *g, *e, grid,
+                                      static_cast<cudaStream_t>(stream));
 }
 
-// Static shared memory of the instantiation for `bm` rows (-1 on error).
-int cim_mvm_transposed_shared_bytes(int bm) {
-  switch (bm) {
-    case 4:  return cim::static_shared_bytes(cim_mvm_transposed_kernel<4>);
-    case 32: return cim::static_shared_bytes(cim_mvm_transposed_kernel<32>);
-    default: return -1;
-  }
+// Walk blocks of geometry g resident on one SM of the current device (a
+// negative CUDA error code on failure).
+int cim_mvm_transposed_occupancy(const cim::WalkGeometry* g) {
+  return cim::walk_occupancy<true, true>(*g);
+}
+
+// Dynamic shared memory of one walk block of geometry g.
+int cim_mvm_transposed_shared_bytes(const cim::WalkGeometry* g) {
+  return cim::walk_shared_bytes(*g);
 }
 
 }  // extern "C"

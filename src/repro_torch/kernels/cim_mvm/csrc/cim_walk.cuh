@@ -1,7 +1,9 @@
-// The walk of the packed and scheduled NeuRRAM CIM kernels for Hopper
-// (sm_90a): batches above the split route's edge (kernel.py
-// `split_route`), prefill. Included by cim_mvm_packed.cu and
-// cim_mvm_scheduled.cu; each exports it as its `*_launch`.
+// The walk of the packed, scheduled and transposed NeuRRAM CIM kernels
+// for Hopper (sm_90a): the packed and scheduled kernels' batches above
+// the split route's edge (kernel.py `split_route`), prefill, and every
+// batch of the transposed kernel. Included by cim_mvm_packed.cu,
+// cim_mvm_scheduled.cu and cim_mvm_transposed.cu; each exports it as its
+// `*_launch`.
 //
 // What it computes (kernel.py `cim_runs_plain`): for each output column
 // block j, its live runs in run order and each run's slots t in slot
@@ -15,8 +17,12 @@
 //   out    = ((0 + part_r0) + part_r1) + ...     over j's runs, from 0.f
 // The packed kernel is this walk with one run per column block (run_start
 // = col_start, no column-run tables): (0 + part) == part in f32, so its
-// bits are those of a single left fold. One write per output, no atomics,
-// no reduction across blocks.
+// bits are those of a single left fold. The transposed kernel (TRANS) is
+// the scheduled walk over the BL->SL view of the shared forward stack:
+// slot t reads stored tile tile_slot[t] on its column axis (its stored
+// rows are the outputs, its stored columns the contraction), and the
+// stochastic neuron's tile salt is that stack position. One write per
+// output, no atomics, no reduction across blocks.
 //
 // What bounds it: each gd element feeds M multiply-adds. At prefill (M =
 // 256) that is the card's FP64 rate (no TF32: the counts round at .5
@@ -30,7 +36,13 @@
 //     two 2-byte loads per row fragment, and the four slots of one k-step
 //     read gd rows two apart, which a gd stage pitch of 4 mod 8 words puts
 //     in four different bank octets (no conflicts); x rows at a pitch of
-//     16 mod 32 bytes are conflict-free too.
+//     16 mod 32 bytes are conflict-free too. Transposed, a stage holds
+//     the strip's stored rows (the outputs) at a pitch of 4 mod 8 words,
+//     each the chunk's kc stored columns: the eight lanes of a k-slot read
+//     eight rows, in eight different bank quartets, so slot q takes column
+//     4 s + q, contiguous (no conflicts), and a lane reads its x values as
+//     four 1-byte loads per row fragment (no permutation keeps both the
+//     gd reads conflict-free and the x reads 2-byte wide).
 //   * a block of 4 warps (2 x 2) owns an ITEM: bm rows of x times bn_blk
 //     columns (a strip) of one output column block, 64 x 64, 32 x 64 or
 //     32 x 32 (kernel.py `walk_geometry` takes the largest that gives
@@ -51,7 +63,10 @@
 //     IR-drop chip) where one strip covers bn, in one 1-D bulk copy of the
 //     chunk's contiguous rows; otherwise (a 35-row layer's x) every thread
 //     copies its share of the rows' 16-byte covers by cp.async, and the
-//     reader adds each row's offset mod 16. (One 1-D bulk copy per row
+//     reader adds each row's offset mod 16. Transposed, a chunk spans all
+//     of a tile's stored columns where they are off the 16-byte grid (the
+//     RBM's 121 and 33, the IR-drop chip's 47), so the strip's stored rows
+//     are contiguous: one bulk copy of their cover, read at pitch bk. (One 1-D bulk copy per row
 //     left the walk bound by the copies' issue, and per-row cp.async by
 //     the copies' latency, so the TMA takes every operand it can.)
 //   * the epilogue, per output an IEEE division and the activation, has
@@ -66,8 +81,9 @@
 //     one strip, so the blocks that read the same gd run together and
 //     meet in L2.
 // Shared memory (dynamic): kWalkBarrierBytes + stages * (bm * x pitch +
-// kc * gd pitch * 4) bytes (x pitch in bytes, gd pitch in words),
-// `walk_shared_bytes`, kernel.walk_shared_bytes.
+// gd rows * gd pitch * 4) bytes (x pitch in bytes, gd pitch in words; gd
+// rows: kc forward, bn_blk transposed), `walk_shared_bytes`,
+// kernel.walk_shared_bytes.
 #pragma once
 
 #include <cuda.h>
@@ -95,9 +111,11 @@ struct WalkGeometry {
   int layout;           // index into kWalkItem
   int bm, bn_blk;       // rows and columns of an item
   int n_rbk, n_strips;  // row blocks of x; strips of a column block
-  int kc;               // tile rows per stage (a multiple of 16, <= 128)
+  int kc;               // contraction per stage (a multiple of 16, <= 128;
+                        //   transposed off the 16-byte grid: all of bk)
   int stages;           // ring stages
   int n_items;          // n_rbk * n_strips * n_col_blocks
+  int trans;            // 1: the transposed walk
 };
 
 // Mirrors kernel.WalkArgs.
@@ -109,10 +127,13 @@ struct WalkArgs {
   const float* denorm;        // (T, 1, bn)
   const float* v_decr;        // (T,)
   const int* row_block;       // (T,) input block per slot
+  const int* tile_slot;       // (T,) stack position per slot (transposed)
   const int* run_start;       // (n_runs + 1,) CSR slots of each run
   const int* col_run_start;   // (n_cb + 1,) CSR live runs per column block;
   const int* col_runs;        //   nullptr: column block j's only run is j
-  int n_tiles, n_col_blocks, bk, bn;
+  int n_tiles, n_col_blocks;  // stack tiles, output column blocks
+  int bk, bn;                 // contraction and output width of a tile
+                              //   (stored (bk, bn); transposed (bn, bk))
   float* out;                 // (M, n_col_blocks * bn)
 };
 
@@ -126,6 +147,7 @@ enum WalkCopy { kCopyRows = 0, kCopyTensor = 1, kCopyBulk = 2 };
 
 struct WalkMaps {
   CUtensorMap x, gd;          // x as (M, K) int8; gd_tiles as (T * bk, bn)
+                              //   ((T * bn, bk) transposed)
   int x_mode, gd_mode;        // WalkCopy
 };
 
@@ -141,8 +163,19 @@ __host__ __device__ __forceinline__ int walk_g_pitch(int bn_blk) {
   return p + (12 - p % 8) % 8;
 }
 
+// The gd stage's rows and their pitch in words: kc tile rows of the
+// strip's columns (forward), or the strip's bn_blk stored rows of the
+// chunk's columns (transposed).
+__host__ __device__ __forceinline__ int walk_g_rows(const WalkGeometry& g) {
+  return g.trans ? g.bn_blk : g.kc;
+}
+
+__host__ __device__ __forceinline__ int walk_g_stage_pitch(const WalkGeometry& g) {
+  return walk_g_pitch(g.trans ? g.kc : g.bn_blk);
+}
+
 __host__ __device__ __forceinline__ int walk_stage_bytes(const WalkGeometry& g) {
-  return g.bm * walk_x_pitch(g.kc) + g.kc * walk_g_pitch(g.bn_blk) * 4;
+  return g.bm * walk_x_pitch(g.kc) + walk_g_rows(g) * walk_g_stage_pitch(g) * 4;
 }
 
 __host__ __device__ __forceinline__ int walk_shared_bytes(const WalkGeometry& g) {
@@ -241,12 +274,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, i
 
 // Fills `stage` with unit u: the block's x rows of the chunk's input
 // columns (bm rows at x pitch), then the chunk's gd rows of the strip (kc
-// rows at gd pitch, or bn for a bulk copy). Thread 0 issues the tensor
-// and bulk copies (a tensor copy moves its operand's whole box, zeros
-// past the tensor's edge) with their bytes expected on `bar`; for an
-// operand copied row by row every thread copies its share of the rows'
-// covers and arrives on `bar` when they land (the barrier then counts
-// the block's threads and thread 0's arrival).
+// rows at gd pitch, or bn for a bulk copy; transposed, the strip's stored
+// rows of the chunk's columns at gd pitch, or bk). Thread 0 issues the
+// tensor and bulk copies (a tensor copy moves its operand's whole box,
+// zeros past the tensor's edge) with their bytes expected on `bar`; for
+// an operand copied row by row every thread copies its share of the rows'
+// covers and arrives on `bar` when they land (the barrier then counts the
+// block's threads and thread 0's arrival).
+template <bool TRANS>
 __device__ __forceinline__ void walk_issue(const WalkArgs& a, const WalkGeometry& g,
                                            const WalkMaps& maps, const WalkCursor& u,
                                            unsigned char* stage, uint32_t bar, int tid) {
@@ -257,18 +292,25 @@ __device__ __forceinline__ void walk_issue(const WalkArgs& a, const WalkGeometry
   const int kcol = a.row_block[u.t] * a.bk + k0;
   const int kx = max(0, min(kg, a.K - kcol));
   const int c0 = strip * g.bn_blk, ncol = min(g.bn_blk, a.bn - c0);
-  const int px = walk_x_pitch(g.kc), pg = walk_g_pitch(g.bn_blk);
+  const int px = walk_x_pitch(g.kc), pg = walk_g_stage_pitch(g);
+  const int gt = TRANS ? a.tile_slot[u.t] : u.t;          // stack position
   const uintptr_t gsrc = reinterpret_cast<uintptr_t>(
-      a.gd + (size_t)u.t * a.bk * a.bn + (size_t)k0 * a.bn + c0);
+      a.gd + (size_t)gt * a.bk * a.bn +
+      (TRANS ? (size_t)c0 * a.bk + k0 : (size_t)k0 * a.bn + c0));
   const uint32_t gdst = smem_u32(stage + g.bm * px);
   if (tid == 0) {
     // the stage's reads (generic proxy) before the copies' writes
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    const uint32_t bulk = maps.gd_mode == kCopyBulk ? cover_bytes(gsrc, kg * a.bn * 4) : 0;
+    const uint32_t bulk = maps.gd_mode == kCopyBulk
+        ? cover_bytes(gsrc, (TRANS ? ncol * a.bk : kg * a.bn) * 4) : 0;
     mbar_expect_tx(bar, (maps.x_mode == kCopyTensor ? g.bm * px : 0) +
-                            (maps.gd_mode == kCopyTensor ? g.kc * pg * 4 : 0) + bulk);
+                            (maps.gd_mode == kCopyTensor ? walk_g_rows(g) * pg * 4 : 0) +
+                            bulk);
     if (maps.x_mode == kCopyTensor) tma_load(smem_u32(stage), maps.x, kcol, m0, bar);
-    if (maps.gd_mode == kCopyTensor) tma_load(gdst, maps.gd, c0, u.t * a.bk + k0, bar);
+    if (maps.gd_mode == kCopyTensor) {
+      if (TRANS) tma_load(gdst, maps.gd, k0, gt * a.bn + c0, bar);
+      else tma_load(gdst, maps.gd, c0, u.t * a.bk + k0, bar);
+    }
     if (bulk)
       bulk_load(gdst, reinterpret_cast<const void*>(gsrc & ~(uintptr_t)15), bulk, bar);
   }
@@ -276,7 +318,7 @@ __device__ __forceinline__ void walk_issue(const WalkArgs& a, const WalkGeometry
     copy_rows(smem_u32(stage), px,
               reinterpret_cast<uintptr_t>(a.x + (size_t)m0 * a.K + kcol),
               (size_t)a.K, rows, kx, tid);
-  if (maps.gd_mode == kCopyRows)
+  if (!TRANS && maps.gd_mode == kCopyRows)   // (transposed: never, walk_launch)
     copy_rows(gdst, pg * 4, gsrc, (size_t)a.bn * 4, kg, ncol * 4, tid);
   if (maps.x_mode == kCopyRows || maps.gd_mode == kCopyRows)
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
@@ -312,15 +354,15 @@ struct WalkTerms {
 // within 2^-21 t of the reference's sum); only where some t of the batch
 // lies within 2^-20 t of an integer, where the floors could differ, is
 // the batch divided (cim_epilogue.cuh `adc_steps`). The batch has no
-// branch but that one, so its elements' chains overlap. row0, col0: the
-// row and the column (inside the column block) of the lane's first
-// element.
+// branch but that one, so its elements' chains overlap. salt: the tile's
+// hash salt (its stack position); row0, col0: the row and the column
+// (inside the column block) of the lane's first element.
 constexpr int kWalkBatch = 8;
 
 template <int ACT, int RP, int GF, int NS>
 __device__ __forceinline__ void walk_terms(const Epilogue& e0,
                                            const double (&acc)[NS][RP][GF][4],
-                                           const WalkTerms<GF>& w, int t, int row0, int col0,
+                                           const WalkTerms<GF>& w, int salt, int row0, int col0,
                                            float (&part)[RP * GF * 4]) {
   constexpr int NA = RP * GF * 4;
   constexpr int B = NA < kWalkBatch ? NA : kWalkBatch;
@@ -355,23 +397,26 @@ __device__ __forceinline__ void walk_terms(const Epilogue& e0,
       const float term = kSteps
           ? __fmul_rn(adc_count(q[u], steps[u], e), w.den[j][h & 1])
           : tile_term(q[u], w.vd, w.inv[j][h & 1], w.den[j][h & 1],
-                      row0 + 16 * p + 8 * (h >> 1), col0 + 8 * j + (h & 1), t, e);
+                      row0 + 16 * p + 8 * (h >> 1), col0 + 8 * j + (h & 1), salt, e);
       part[i] = __fadd_rn(part[i], term);
     }
   }
 }
 
 // One walk block: 4 warps of 16 RP rows x 8 GF columns (2 x 2). RUNS:
-// the column-run tables are read (scheduled plans); otherwise column
-// block j's only run is run j (packed plans).
-template <int RP, int GF, bool RUNS>
+// the column-run tables are read (scheduled and transposed plans);
+// otherwise column block j's only run is run j (packed plans). TRANS: the
+// transposed walk (slot t reads stored tile tile_slot[t] on its column
+// axis).
+template <int RP, int GF, bool RUNS, bool TRANS>
 __global__ void __launch_bounds__(kWalkThreads, 1)
 cim_walk(WalkArgs a, WalkGeometry g, Epilogue e, const __grid_constant__ WalkMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   unsigned char* ring = smem + kWalkBarrierBytes;
-  const int px = walk_x_pitch(g.kc), pg = walk_g_pitch(g.bn_blk);
-  const int gp = maps.gd_mode == kCopyBulk ? a.bn : pg;   // staged gd row pitch
+  const int px = walk_x_pitch(g.kc), pg = walk_g_stage_pitch(g);
+  // staged gd row pitch (a bulk copy lands the stored rows contiguous)
+  const int gp = maps.gd_mode == kCopyBulk ? (TRANS ? a.bk : a.bn) : pg;
   const int sbytes = walk_stage_bytes(g);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int kk = lane & 3, lrow = lane >> 2;
@@ -397,7 +442,7 @@ cim_walk(WalkArgs a, WalkGeometry g, Epilogue e, const __grid_constant__ WalkMap
   cur.item = blockIdx.x;
   bool more = cursor_item<RUNS>(a, g, cur);
   for (int s = 0; s < g.stages && more; ++s) {
-    walk_issue(a, g, maps, cur, ring + s * sbytes, smem_u32(&bars[s]), threadIdx.x);
+    walk_issue<TRANS>(a, g, maps, cur, ring + s * sbytes, smem_u32(&bars[s]), threadIdx.x);
     more = cursor_next<RUNS>(a, g, cur, n_chunks);
   }
 
@@ -429,16 +474,19 @@ cim_walk(WalkArgs a, WalkGeometry g, Epilogue e, const __grid_constant__ WalkMap
         const int kbase = a.row_block[t] * a.bk;
         const int row0 = m0 + wrow + lrow, col0 = c0 + wcol + 2 * kk;
         const WalkTerms<GF> terms(a, t, col0);
+        const int gt = TRANS ? a.tile_slot[t] : t;   // stack position, hash salt
         // this lane's gd rows 2 kk + (s & 1) + 8 (s >> 1) of every 16-row
         // block: their offsets mod 16 (in words) are those of the tile
+        // (transposed: the strip's first stored row)
         const uintptr_t tile = reinterpret_cast<uintptr_t>(
-            a.gd + (size_t)t * a.bk * a.bn + c0);
+            a.gd + (size_t)gt * a.bk * a.bn + (TRANS ? (size_t)c0 * a.bk : c0));
         // (a tensor copy lands every row at its start, a bulk copy the
         // chunk at the tile's offset)
         int gofs[4];
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
-          const int k = maps.gd_mode == kCopyRows ? 2 * kk + (s & 1) + 8 * (s >> 1) : 0;
+          const int k = !TRANS && maps.gd_mode == kCopyRows
+              ? 2 * kk + (s & 1) + 8 * (s >> 1) : 0;
           gofs[s] = maps.gd_mode == kCopyTensor
               ? 0 : (int)(((tile + (uintptr_t)k * a.bn * 4) & 15) >> 2);
         }
@@ -469,7 +517,7 @@ cim_walk(WalkArgs a, WalkGeometry g, Epilogue e, const __grid_constant__ WalkMap
           for (int b = 0; b < n_blocks; ++b) {
             const bool full = b * 16 + 16 <= kx;
             int av[2 * RP][4];
-            if (full && vec) {
+            if (!TRANS && full && vec) {
 #pragma unroll
               for (int f = 0; f < 2 * RP; ++f) {
                 const char2 lo = *reinterpret_cast<const char2*>(xr[f] + 16 * b + 2 * kk);
@@ -481,18 +529,24 @@ cim_walk(WalkArgs a, WalkGeometry g, Epilogue e, const __grid_constant__ WalkMap
               for (int f = 0; f < 2 * RP; ++f)
 #pragma unroll
                 for (int s = 0; s < 4; ++s) {
-                  const int kr = 16 * b + 2 * kk + (s & 1) + 8 * (s >> 1);
+                  const int kr = TRANS ? 16 * b + 4 * s + kk
+                                       : 16 * b + 2 * kk + (s & 1) + 8 * (s >> 1);
                   av[f][s] = kr < kx ? xr[f][kr] : 0;
                 }
             }
 #pragma unroll
             for (int s = 0; s < 4; ++s) {
-              const int kr = 16 * b + 2 * kk + (s & 1) + 8 * (s >> 1);
-              const float* grow = gs + kr * gp + gofs[s] + wcol + lrow;
+              // transposed: stored row wcol + lrow + 8 j of the strip, its
+              // column kr
+              const int kr = TRANS ? 16 * b + 4 * s + kk
+                                   : 16 * b + 2 * kk + (s & 1) + 8 * (s >> 1);
+              const float* grow = TRANS ? gs + gofs[0] + (wcol + lrow) * gp + kr
+                                        : gs + kr * gp + gofs[s] + wcol + lrow;
+              const int jstep = TRANS ? 8 * gp : 8;
               const bool g_ok = full || kr < kg;
               double bv[GF];
 #pragma unroll
-              for (int j = 0; j < GF; ++j) bv[j] = g_ok ? (double)grow[8 * j] : 0.0;
+              for (int j = 0; j < GF; ++j) bv[j] = g_ok ? (double)grow[jstep * j] : 0.0;
 #pragma unroll
               for (int p = 0; p < RP; ++p)
 #pragma unroll
@@ -503,7 +557,8 @@ cim_walk(WalkArgs a, WalkGeometry g, Epilogue e, const __grid_constant__ WalkMap
           }
           __syncthreads();               // stage st read: refill it
           if (more) {
-            walk_issue(a, g, maps, cur, ring + st * sbytes, smem_u32(&bars[st]), threadIdx.x);
+            walk_issue<TRANS>(a, g, maps, cur, ring + st * sbytes, smem_u32(&bars[st]),
+                              threadIdx.x);
             more = cursor_next<RUNS>(a, g, cur, n_chunks);
           }
         }
@@ -511,12 +566,12 @@ cim_walk(WalkArgs a, WalkGeometry g, Epilogue e, const __grid_constant__ WalkMap
         // tile t's terms, added to the run's partial (one code path per
         // activation: the epilogue's branches fold away)
         switch (e.act) {
-          case kNone:     walk_terms<kNone>(e, acc, terms, t, row0, col0, part); break;
-          case kRelu:     walk_terms<kRelu>(e, acc, terms, t, row0, col0, part); break;
-          case kTanh:     walk_terms<kTanh>(e, acc, terms, t, row0, col0, part); break;
-          case kSigmoid:  walk_terms<kSigmoid>(e, acc, terms, t, row0, col0, part); break;
-          case kIdentity: walk_terms<kIdentity>(e, acc, terms, t, row0, col0, part); break;
-          default:        walk_terms<kStochastic>(e, acc, terms, t, row0, col0, part); break;
+          case kNone:     walk_terms<kNone>(e, acc, terms, gt, row0, col0, part); break;
+          case kRelu:     walk_terms<kRelu>(e, acc, terms, gt, row0, col0, part); break;
+          case kTanh:     walk_terms<kTanh>(e, acc, terms, gt, row0, col0, part); break;
+          case kSigmoid:  walk_terms<kSigmoid>(e, acc, terms, gt, row0, col0, part); break;
+          case kIdentity: walk_terms<kIdentity>(e, acc, terms, gt, row0, col0, part); break;
+          default:        walk_terms<kStochastic>(e, acc, terms, gt, row0, col0, part); break;
         }
       }
 #pragma unroll
@@ -539,24 +594,28 @@ cim_walk(WalkArgs a, WalkGeometry g, Epilogue e, const __grid_constant__ WalkMap
 using WalkKernel = void (*)(WalkArgs, WalkGeometry, Epilogue, WalkMaps);
 
 // The kernel of `layout` (nullptr for none).
-template <bool RUNS>
+template <bool RUNS, bool TRANS>
 WalkKernel walk_kernel(int layout) {
   switch (layout) {
-    case 0: return cim_walk<2, 4, RUNS>;
-    case 1: return cim_walk<1, 4, RUNS>;
-    case 2: return cim_walk<1, 2, RUNS>;
+    case 0: return cim_walk<2, 4, RUNS, TRANS>;
+    case 1: return cim_walk<1, 4, RUNS, TRANS>;
+    case 2: return cim_walk<1, 2, RUNS, TRANS>;
     default: return nullptr;
   }
 }
 
-// Whether geometry g is one the walk implements for a.
-inline bool walk_valid(const WalkArgs& a, const WalkGeometry& g) {
+// Whether geometry g is one the walk implements for a: a stage holds at
+// most 128 of the contraction, or (transposed) all of it up to 256.
+inline bool walk_valid(const WalkArgs& a, const WalkGeometry& g, bool trans) {
   if (g.layout < 0 || g.layout >= kWalkLayouts) return false;
+  const int kc_max = trans ? 256 : 128;
   return g.bm == kWalkItem[g.layout][0] && g.bn_blk == kWalkItem[g.layout][1] &&
+         g.trans == (int)trans && (!trans || a.tile_slot) &&
          a.M >= 1 && a.bk >= 1 && a.bn >= 1 && a.n_col_blocks >= 1 && a.n_tiles >= 1 &&
          g.n_rbk == (a.M + g.bm - 1) / g.bm &&
          g.n_strips == (a.bn + g.bn_blk - 1) / g.bn_blk &&
-         g.kc >= 16 && g.kc <= 128 && g.kc % 16 == 0 &&
+         g.kc >= 16 && g.kc <= kc_max && g.kc % 16 == 0 &&
+         (g.kc <= 128 || g.kc >= a.bk) &&
          g.stages >= 2 && g.stages <= kWalkMaxStages &&
          g.n_items == g.n_rbk * g.n_strips * a.n_col_blocks &&
          (reinterpret_cast<uintptr_t>(a.gd) & 3) == 0;
@@ -564,17 +623,17 @@ inline bool walk_valid(const WalkArgs& a, const WalkGeometry& g) {
 
 // The dynamic shared memory each layout's kernel may request so far in
 // the library that includes this header (`static`: one array per
-// library; a static local of a template would be one symbol across
-// every loaded library).
+// library, which launches one walk; a static local of a template would
+// be one symbol across every loaded library).
 static int walk_smem_allowed[kWalkLayouts];
 
-template <bool RUNS>
+template <bool RUNS, bool TRANS>
 cudaError_t walk_allow(int layout, int smem) {
   int& allowed = walk_smem_allowed[layout];
   if (allowed == 0) allowed = 48 * 1024;
   if (smem <= allowed) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      walk_kernel<RUNS>(layout), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      walk_kernel<RUNS, TRANS>(layout), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) allowed = smem;
   return err;
 }
@@ -615,38 +674,53 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* b
 }
 
 // Launches `grid` blocks of the walk on `stream`; a CUDA error code.
-template <bool RUNS>
+// Transposed, a stage's stored rows come by tensor copy or, where one
+// chunk spans the contraction, by one bulk copy; never row by row.
+template <bool RUNS, bool TRANS>
 int walk_launch(const WalkArgs& a, const WalkGeometry& g, const Epilogue& e,
                 int grid, cudaStream_t stream) {
-  if (!walk_valid(a, g) || grid < 1 ||
+  if (!walk_valid(a, g, TRANS) || grid < 1 ||
       (RUNS && !(a.col_run_start && a.col_runs)))
     return (int)cudaErrorInvalidValue;
   WalkMaps maps = {};
   maps.x_mode = encode_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.x, a.K, a.M,
                            (size_t)a.K, walk_x_pitch(g.kc), g.bm)
                     ? kCopyTensor : kCopyRows;
-  maps.gd_mode = encode_map(&maps.gd, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.gd, a.bn,
-                            a.n_tiles * a.bk, (size_t)a.bn * 4, walk_g_pitch(g.bn_blk), g.kc)
-                     ? kCopyTensor : g.n_strips == 1 ? kCopyBulk : kCopyRows;
+  const int n_chunks = (a.bk + g.kc - 1) / g.kc;
+  if (TRANS) {
+    // gd_tiles as (T * bn) stored rows of bk columns, boxes of the strip's
+    // bn_blk rows and the chunk's columns at the stage pitch (at most 256)
+    const bool tensor = g.kc <= 128 &&
+        encode_map(&maps.gd, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.gd, a.bk,
+                   a.n_tiles * a.bn, (size_t)a.bk * 4, walk_g_pitch(g.kc), g.bn_blk);
+    if (!tensor && n_chunks > 1) return (int)cudaErrorInvalidValue;
+    maps.gd_mode = tensor ? kCopyTensor : kCopyBulk;
+  } else {
+    maps.gd_mode = encode_map(&maps.gd, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.gd, a.bn,
+                              a.n_tiles * a.bk, (size_t)a.bn * 4, walk_g_pitch(g.bn_blk),
+                              g.kc)
+                       ? kCopyTensor : g.n_strips == 1 ? kCopyBulk : kCopyRows;
+  }
   const int smem = walk_shared_bytes(g);
-  const cudaError_t err = walk_allow<RUNS>(g.layout, smem);
+  const cudaError_t err = walk_allow<RUNS, TRANS>(g.layout, smem);
   if (err != cudaSuccess) return (int)err;
-  walk_kernel<RUNS>(g.layout)<<<grid, kWalkThreads, smem, stream>>>(a, g, e, maps);
+  walk_kernel<RUNS, TRANS>(g.layout)<<<grid, kWalkThreads, smem, stream>>>(a, g, e, maps);
   return (int)cudaGetLastError();
 }
 
 // Blocks of geometry g resident on one SM of the current device, as the
 // runtime reports for the layout's registers and g's shared memory; a
 // negative CUDA error code on failure.
-template <bool RUNS>
+template <bool RUNS, bool TRANS>
 int walk_occupancy(const WalkGeometry& g) {
-  if (g.layout < 0 || g.layout >= kWalkLayouts) return -(int)cudaErrorInvalidValue;
+  if (g.layout < 0 || g.layout >= kWalkLayouts || g.trans != (int)TRANS)
+    return -(int)cudaErrorInvalidValue;
   const int smem = walk_shared_bytes(g);
   int occ = 0;
-  cudaError_t err = walk_allow<RUNS>(g.layout, smem);
+  cudaError_t err = walk_allow<RUNS, TRANS>(g.layout, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, walk_kernel<RUNS>(g.layout), kWalkThreads, smem);
+        &occ, walk_kernel<RUNS, TRANS>(g.layout), kWalkThreads, smem);
   return err == cudaSuccess ? occ : -(int)err;
 }
 

@@ -54,8 +54,9 @@ then folds each output's terms in the order above (`cim_terms_plain` and
 (`csrc/cim_walk.cuh`): a persistent grid of 4-warp blocks, each owning
 items of up to 64 rows x 64 columns of one output column block
 (`walk_geometry`), walks that block's tiles in that order with the tile
-dots on the FP64 tensor cores. Both are the function of
-`cim_runs_plain`, bit for bit.
+dots on the FP64 tensor cores. The transposed kernel takes the walk at
+every M, with the stored tile read on its column axis (its TRANS flag).
+Both routes are the function of `cim_runs_plain`, bit for bit.
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel (`csrc/*.cu`) for a CUDA tensor, or raises — nothing falls back.
@@ -84,13 +85,10 @@ LAUNCHES = _build.LAUNCHES                 # kernel launches, per kernel
 
 ACTIVATIONS = {"none": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "identity": 4,
                "stochastic": 5}
-T_CHUNK = 32          # tile columns staged per pass (transposed kernel)
-THREADS = 128         # outputs per CUDA block of the transposed kernel
-BLOCK_ROWS = (4, 32)  # the transposed kernel's row blocks: M <= 4, and above
+# the kernels with a split route beside the walk
 SPLIT_KERNELS = ("cim_mvm_packed", "cim_mvm_scheduled")
-# the walk of the packed and scheduled kernels (csrc/cim_walk.cuh): the
-# rows and columns of an item (a block of 4 warps) per layout, and the
-# layout's ring stages
+# the walk (csrc/cim_walk.cuh): the rows and columns of an item (a block
+# of 4 warps) per layout, and the layout's ring stages
 WALK_ITEMS = ((64, 64), (32, 64), (32, 32))
 WALK_STAGES = (2, 2, 4)
 WALK_MAX_CHUNK = 128  # tile rows per stage, at most
@@ -119,15 +117,12 @@ _lib: Dict[str, ctypes.CDLL] = {}
 _MVM_CHECK_SHAPES = ((200704, 145, 16), (12544, 577, 64), (256, 577, 10),
                      (1, 300, 500), (4096, 9000, 8), (257, 33, 32))
 # (m, bk, bn, n_cb) walk launches checked the same way: every layout, a
-# ragged chunk and bn = 47
+# ragged chunk and bn = 47; transposed, also contractions off the 16-byte
+# grid (one chunk of all of them) and one past 128 columns
 _WALK_CHECK_SHAPES = ((256, 128, 256, 16), (256, 128, 256, 8),
                       (17, 128, 256, 8), (64, 35, 47, 10), (256, 128, 47, 1))
-
-
-def block_rows(m: int) -> int:
-    """Rows of x per CUDA block of the transposed kernel: the smallest
-    tiling that covers m, at most 32 (its register budget)."""
-    return next((b for b in BLOCK_ROWS if b >= m), BLOCK_ROWS[-1])
+_WALK_CHECK_SHAPES_T = ((256, 256, 128, 28), (64, 121, 128, 7),
+                        (17, 47, 128, 8), (64, 250, 70, 3))
 
 
 def split_route(m: int) -> bool:
@@ -155,31 +150,19 @@ def split_shared_bytes(bm: int, bk: int, bn: int) -> int:
             + SPLIT_STAGES * (SPLIT_CHUNK_ROWS * bn * 4 + 16) + bk * bm * 8)
 
 
-def shared_bytes(kernel: str, bm: int) -> int:
-    """Static shared memory of one block of the transposed kernel at `bm`
-    rows: the staged x chunk, [T_CHUNK][bm + 2] doubles, and the staged
-    tile chunk, [THREADS][T_CHUNK + 1] floats (checked against the built
-    kernel's own attribute when the library loads). The other kernels
-    size theirs by a geometry: `walk_shared_bytes` (packed and scheduled)
-    and `mvm_shared_bytes` (single-matrix)."""
-    if kernel != "cim_mvm_transposed":
-        raise ValueError(f"{kernel} sizes its shared memory by its geometry"
-                         ": walk_shared_bytes / mvm_shared_bytes")
-    return T_CHUNK * (bm + 2) * 8 + THREADS * (T_CHUNK + 1) * 4
-
-
-# ------------------------------------------------ the packed / scheduled walk
+# ------------------------------------------------------------------ the walk
 
 class WalkGeometry(ctypes.Structure):
     """The walk's tiling (csrc/cim_walk.cuh `WalkGeometry`, field for
     field). A block of 4 warps owns an item: bm rows of x times bn_blk
     columns (a strip) of one output column block (layout: its index in
-    WALK_ITEMS). gd and x stream through `stages` stages of kc tile rows.
-    Items: n_rbk row blocks x n_strips strips x the column blocks, the row
-    blocks of one strip consecutive."""
+    WALK_ITEMS). gd and x stream through `stages` stages of kc of the
+    contraction (tile rows; transposed, stored columns). Items: n_rbk row
+    blocks x n_strips strips x the column blocks, the row blocks of one
+    strip consecutive. trans: 1 for the transposed walk."""
     _fields_ = [(f, ctypes.c_int) for f in (
         "layout", "bm", "bn_blk", "n_rbk", "n_strips", "kc", "stages",
-        "n_items")]
+        "n_items", "trans")]
 
     def as_dict(self):
         return {f: getattr(self, f) for f, _ in self._fields_}
@@ -190,7 +173,7 @@ class WalkArgs(ctypes.Structure):
     _p, _i = ctypes.c_void_p, ctypes.c_int
     _fields_ = [("x", _p), ("M", _i), ("K", _i), ("gd", _p),
                 ("inv_norm", _p), ("denorm", _p), ("v_decr", _p),
-                ("row_block", _p), ("run_start", _p),
+                ("row_block", _p), ("tile_slot", _p), ("run_start", _p),
                 ("col_run_start", _p), ("col_runs", _p), ("n_tiles", _i),
                 ("n_col_blocks", _i), ("bk", _i), ("bn", _i), ("out", _p)]
 
@@ -212,26 +195,39 @@ def walk_g_pitch(bn_blk: int) -> int:
 
 def walk_shared_bytes(g: WalkGeometry) -> int:
     """Dynamic shared memory of one walk block: the mbarriers and the ring
-    of `stages` stages, each bm int8 x rows and kc f32 gd rows at their
-    pitches (checked against the built kernels at load)."""
-    stage = g.bm * walk_x_pitch(g.kc) + g.kc * walk_g_pitch(g.bn_blk) * 4
+    of `stages` stages, each bm int8 x rows and the gd rows at their
+    pitches: kc tile rows of the strip, or (transposed) the strip's bn_blk
+    stored rows of the chunk (checked against the built kernels at
+    load)."""
+    g_rows, g_pitch = ((g.bn_blk, walk_g_pitch(g.kc)) if g.trans
+                       else (g.kc, walk_g_pitch(g.bn_blk)))
+    stage = g.bm * walk_x_pitch(g.kc) + g_rows * g_pitch * 4
     return WALK_BARRIER_BYTES + g.stages * stage
 
 
 def walk_geometry(m: int, bk: int, bn: int, n_cb: int, *,
-                  n_sm: int = None) -> WalkGeometry:
-    """The walk's tiling of an m-row launch over a plan of (bk, bn) tiles
-    and n_cb output column blocks, on a card of n_sm SMs (default: an
-    H100's). Of the items 64 x 64, 32 x 64 and 32 x 32 (rows x columns,
-    WALK_ITEMS), the largest that gives every SM one, and none taller than
-    m where 32 rows cover it; where none gives every SM one, the
-    smallest. A stage holds kc = min(128, bk rounded up to 16) tile rows;
+                  trans: bool = False, n_sm: int = None) -> WalkGeometry:
+    """The walk's tiling of an m-row launch over a plan of tiles that
+    contract bk inputs into bn outputs (stored (bk, bn); transposed, trans,
+    stored (bn, bk)) and n_cb output column blocks, on a card of n_sm SMs
+    (default: an H100's). Of the items 64 x 64, 32 x 64 and 32 x 32 (rows
+    x columns, WALK_ITEMS), the largest that gives every SM one, and none
+    taller than m where 32 rows cover it; where none gives every SM one,
+    the smallest. A stage holds kc = min(128, bk rounded up to 16) of the
+    contraction; transposed, where the stored rows are off the 16-byte
+    grid (bk % 4; no tensor copy), one stage holds all of it (bk <= 256);
     the ring has the layout's WALK_STAGES stages."""
     if not (m >= 1 and bk >= 1 and bn >= 1 and n_cb >= 1):
         raise ValueError(f"no walk geometry for m={m}, bk={bk}, bn={bn}, "
                          f"n_cb={n_cb}")
     n_sm = H100_SMS if n_sm is None else n_sm
     kc = min(WALK_MAX_CHUNK, _round16(bk))
+    if trans and bk % 4:
+        if bk > 2 * WALK_MAX_CHUNK:
+            raise ValueError(f"the transposed walk takes at most "
+                             f"{2 * WALK_MAX_CHUNK} stored columns off the "
+                             f"16-byte grid, the plan has {bk}")
+        kc = _round16(bk)
     cands = []
     for layout, (bm, bc) in enumerate(WALK_ITEMS):
         if bm > 32 and m <= 32:
@@ -239,7 +235,7 @@ def walk_geometry(m: int, bk: int, bn: int, n_cb: int, *,
         n_rbk, n_strips = _cdiv(m, bm), _cdiv(bn, bc)
         cands.append(WalkGeometry(layout, bm, bc, n_rbk, n_strips, kc,
                                   WALK_STAGES[layout],
-                                  n_rbk * n_strips * n_cb))
+                                  n_rbk * n_strips * n_cb, int(trans)))
     return next((g for g in cands if g.n_items >= n_sm), cands[-1])
 
 
@@ -760,8 +756,7 @@ def _epilogue_args(activation: str, n_max: int, v_read: float, seed: int,
 
 def load() -> Dict[str, ctypes.CDLL]:
     """Build (at first use) and bind every CIM kernel's C entry points;
-    checks each kernel's static shared memory against the verifier's
-    model."""
+    checks each kernel's shared memory against the verifier's model."""
     if _lib:
         return _lib
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -769,6 +764,9 @@ def load() -> Dict[str, ctypes.CDLL]:
     for name in KERNELS:
         lib = _build.library(name)
         launch = getattr(lib, f"{name}_launch")
+        launch.restype = i
+        smem = getattr(lib, f"{name}_shared_bytes")
+        smem.restype = i
         if name == "cim_mvm":
             # args, geometry, epilogue, fused, grid, stream
             launch.argtypes = [ctypes.POINTER(MvmArgs),
@@ -777,23 +775,6 @@ def load() -> Dict[str, ctypes.CDLL]:
             occ = lib.cim_mvm_occupancy      # geometry, k_x, fused
             occ.argtypes, occ.restype = [ctypes.POINTER(MvmGeometry), i,
                                          i], i
-        elif name in SPLIT_KERNELS:
-            # the walk: args, geometry, epilogue, grid, stream
-            launch.argtypes = [ctypes.POINTER(WalkArgs),
-                               ctypes.POINTER(WalkGeometry),
-                               ctypes.POINTER(Epilogue), i, p]
-            occ = getattr(lib, f"{name}_occupancy")       # geometry
-            occ.argtypes, occ.restype = [ctypes.POINTER(WalkGeometry)], i
-        else:
-            # x, M, K, gd, inv_norm, denorm, v_decr, in_block, tile_slot,
-            # run_start, col_run_start, col_runs, n_col_blocks, in width,
-            # out width, out, epilogue, bm, stream
-            launch.argtypes = ([p, i, i] + [p] * 9
-                               + [i, i, i, p, ctypes.POINTER(Epilogue), i, p])
-        launch.restype = i
-        smem = getattr(lib, f"{name}_shared_bytes")
-        smem.restype = i
-        if name == "cim_mvm":
             smem.argtypes = [ctypes.POINTER(MvmGeometry), i]
             for m, k, n in _MVM_CHECK_SHAPES:
                 for k_x in (k, k - 1):
@@ -808,19 +789,17 @@ def load() -> Dict[str, ctypes.CDLL]:
                             f"{mvm_shared_bytes(g, k_x)} B")
             libs[name] = lib
             continue
-        if name == "cim_mvm_transposed":
-            smem.argtypes = [i]
-            for bm in BLOCK_ROWS:    # the verifier's shared-memory model
-                if smem(bm) != shared_bytes(name, bm):
-                    raise RuntimeError(
-                        f"{name} uses {smem(bm)} B of shared memory at bm="
-                        f"{bm}, the verifier assumes {shared_bytes(name, bm)}"
-                        " B")
-            libs[name] = lib
-            continue
+        # the walk: args, geometry, epilogue, grid, stream
+        trans = name == "cim_mvm_transposed"
+        launch.argtypes = [ctypes.POINTER(WalkArgs),
+                           ctypes.POINTER(WalkGeometry),
+                           ctypes.POINTER(Epilogue), i, p]
+        occ = getattr(lib, f"{name}_occupancy")       # geometry
+        occ.argtypes, occ.restype = [ctypes.POINTER(WalkGeometry)], i
         smem.argtypes = [ctypes.POINTER(WalkGeometry)]
-        for m, bk, bn, n_cb in _WALK_CHECK_SHAPES:
-            g = walk_geometry(m, bk, bn, n_cb)
+        for m, bk, bn, n_cb in (_WALK_CHECK_SHAPES_T if trans
+                                else _WALK_CHECK_SHAPES):
+            g = walk_geometry(m, bk, bn, n_cb, trans=trans)
             if smem(ctypes.byref(g)) != walk_shared_bytes(g):
                 raise RuntimeError(
                     f"{name}'s walk requests {smem(ctypes.byref(g))} B of "
@@ -897,7 +876,8 @@ def _walk_plan(kernel: str, m: int, bk: int, bn: int, n_cb: int,
     lib = load()[kernel]
     with torch.cuda.device(index):
         n_sm = torch.cuda.get_device_properties(index).multi_processor_count
-        g = walk_geometry(m, bk, bn, n_cb, n_sm=n_sm)
+        g = walk_geometry(m, bk, bn, n_cb, n_sm=n_sm,
+                          trans=kernel == "cim_mvm_transposed")
         blocks = getattr(lib, f"{kernel}_occupancy")(ctypes.byref(g))
     if blocks < 1:
         raise RuntimeError(f"{kernel}'s walk cannot launch geometry "
@@ -908,10 +888,11 @@ def _walk_plan(kernel: str, m: int, bk: int, bn: int, n_cb: int,
 def walk_launch_geometry(kernel: str, m: int, bk: int, bn: int, n_cb: int,
                          device):
     """The walk's tiling and persistent grid for an m-row launch of
-    `kernel` (packed or scheduled) over a plan of (bk, bn) tiles and n_cb
-    column blocks on CUDA `device`: `walk_geometry` for the card's SMs,
-    the grid the runtime's resident blocks per SM times the SMs, at most
-    one block per item."""
+    `kernel` over a plan of tiles contracting bk inputs into bn outputs
+    and n_cb column blocks on CUDA `device`: `walk_geometry` for the
+    card's SMs (transposed for the transposed kernel), the grid the
+    runtime's resident blocks per SM times the SMs, at most one block per
+    item."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None \
         else torch.cuda.current_device()
@@ -927,40 +908,38 @@ def launch_walk(kernel: str, x, gd_tiles, tile_tensors, index_tensors,
     at any M for a caller that asks for it). tile_tensors: (inv_norm,
     denorm, v_decr); index_tensors: the int32 tables in the C entry
     point's order (packed: row_index, col_start; scheduled: row_index,
-    run_start, col_run_start, col_runs)."""
+    run_start, col_run_start, col_runs; transposed: in_index, tile_index,
+    run_start, col_run_start, col_runs); in_w / out_w: a tile's inputs
+    and outputs (transposed: its stored columns and rows)."""
     if x.device.type != "cuda":
         raise ValueError(f"no {kernel} kernel for device {x.device}")
     _check_plan(x, gd_tiles, tile_tensors, index_tensors, out_w)
     m, k = x.shape
     dev = x.device
     inv, den, vd = tile_tensors
-    lib = load()[kernel]
     out = torch.empty((m, n_cb * out_w), dtype=torch.float32, device=dev)
     if m == 0:
         return out
+    lib = load()[kernel]
     epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    g, grid = walk_launch_geometry(kernel, m, in_w, out_w, n_cb, dev)
     if kernel == "cim_mvm_transposed":
-        err = lib.cim_mvm_transposed_launch(
-            x.data_ptr(), m, k, gd_tiles.data_ptr(), inv.data_ptr(),
-            den.data_ptr(), vd.data_ptr(),
-            *(t.data_ptr() for t in index_tensors), n_cb, in_w, out_w,
-            out.data_ptr(), ctypes.byref(epi), block_rows(m), stream)
+        row_index, tile_slot, *runs = index_tensors
     else:
-        g, grid = walk_launch_geometry(kernel, m, in_w, out_w, n_cb, dev)
-        row_index, *runs = index_tensors
-        run_start, col_run_start, col_runs = (runs + [None, None])[:3]
-        # the walk reads x as int8: exact for the integer inputs it takes
-        # (|x| <= 127), a quarter of the bytes its items re-read
-        x8 = x.to(torch.int8)
-        args = WalkArgs(x8.data_ptr(), m, k, gd_tiles.data_ptr(),
-                        inv.data_ptr(), den.data_ptr(), vd.data_ptr(),
-                        row_index.data_ptr(), run_start.data_ptr(),
-                        _ptr(col_run_start), _ptr(col_runs),
-                        gd_tiles.shape[0], n_cb, in_w, out_w, out.data_ptr())
-        err = getattr(lib, f"{kernel}_launch")(
-            ctypes.byref(args), ctypes.byref(g), ctypes.byref(epi), grid,
-            stream)
+        (row_index, *runs), tile_slot = index_tensors, None
+    run_start, col_run_start, col_runs = (runs + [None, None])[:3]
+    # the walk reads x as int8: exact for the integer inputs it takes
+    # (|x| <= 127), a quarter of the bytes its items re-read
+    x8 = x.to(torch.int8)
+    args = WalkArgs(x8.data_ptr(), m, k, gd_tiles.data_ptr(),
+                    inv.data_ptr(), den.data_ptr(), vd.data_ptr(),
+                    row_index.data_ptr(), _ptr(tile_slot),
+                    run_start.data_ptr(), _ptr(col_run_start),
+                    _ptr(col_runs), gd_tiles.shape[0], n_cb, in_w, out_w,
+                    out.data_ptr())
+    err = getattr(lib, f"{kernel}_launch")(
+        ctypes.byref(args), ctypes.byref(g), ctypes.byref(epi), grid,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1
@@ -1092,8 +1071,9 @@ def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                        n_run_len: int, activation: str = "none",
                        n_max: int = 127, v_read: float = 0.5, seed: int = 0,
                        impl: str = "auto"):
-    """Whole-layer transpose-direction CIM MVM: ONE launch over the shared
-    forward stack gd_tiles (T, bk_f, bn_f), never copied or transposed.
+    """Whole-layer transpose-direction CIM MVM: ONE launch of the walk over
+    the shared forward stack gd_tiles (T, bk_f, bn_f), never copied or
+    transposed.
 
     x: (M, K') over the forward COLUMNS; inv_norm_tiles / denorm_tiles:
     (T, 1, bk_f) per-row tensors in this direction's slot order; in_index:
@@ -1110,9 +1090,9 @@ def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                               n_run_len=n_run_len, **kw)
     _, bk_f, bn_f = gd_tiles.shape
     return launch_walk("cim_mvm_transposed", x, gd_tiles,
-                        (inv_norm_tiles, denorm_tiles, v_decr_tiles),
-                        (in_index, tile_index, *tables),
-                        col_run_start.shape[0] - 1, bn_f, bk_f, **kw)
+                       (inv_norm_tiles, denorm_tiles, v_decr_tiles),
+                       (in_index, tile_index, *tables),
+                       col_run_start.shape[0] - 1, bn_f, bk_f, **kw)
 
 
 @functools.lru_cache(maxsize=None)

@@ -256,6 +256,36 @@ def test_transposed_plain_matches_reference(runs_case, kind, activation):
                         runs_case["x"]["bwd"], pt, activation)
 
 
+@pytest.mark.parametrize("m", (1, 4, 17, 300))
+@pytest.mark.parametrize("kind", RUN_PLANS)
+def test_transposed_launches_the_walk_on_reference_plans(runs_case, kind, m,
+                                                         monkeypatch):
+    """The transposed wrapper, given a CUDA-side (here meta) x, launches
+    the walk at every M, decode included, on the reference's bwd plan read
+    on its stored column axis: in width the stored columns, out width the
+    stored rows, one output block per forward row block. That geometry
+    covers every output once and the verifier passes the plan."""
+    from repro_torch.core import verify as tverify
+    pt = packed_to_torch(runs_case["packs"][kind, "bwd", False])
+    calls = []
+    monkeypatch.setattr(K, "launch_walk", lambda *a, **kw: calls.append(a)
+                        or torch.empty((m, a[5] * a[7]), device="meta"))
+    monkeypatch.setattr(K, "launch_split", None)
+    out = ops.packed_call(torch.empty((m, pt.n_rows), device="meta"), pt,
+                          activation="none", n_max=127, v_read=0.5)
+    assert tuple(out.shape) == (m, pt.n_cols) and len(calls) == 1
+    kernel, n_cb, in_w, out_w = calls[0][0], *calls[0][5:8]
+    _, bk_f, bn_f = pt.gd_tiles.shape
+    assert kernel == "cim_mvm_transposed"
+    assert (n_cb, in_w, out_w) == (pt.n_col_blocks, bn_f, bk_f)
+    g = K.walk_geometry(m, in_w, out_w, n_cb, trans=True)
+    assert g.trans == 1 and g.n_items == g.n_rbk * g.n_strips * n_cb
+    assert (g.n_rbk - 1) * g.bm < m <= g.n_rbk * g.bm
+    assert (g.n_strips - 1) * g.bn_blk < out_w <= g.n_strips * g.bn_blk
+    assert K.walk_shared_bytes(g) <= K.SMEM_LIMIT
+    tverify.check_packed(pt, bm=m)
+
+
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 @pytest.mark.parametrize("kind", RUN_PLANS)
 def test_runs_folded_match_reference(runs_case, kind, direction):
@@ -471,6 +501,64 @@ def test_walk_matches_plain_on_card(activation):
                 assert torch.equal(got.view(torch.int32),
                                    want.view(torch.int32)), (r, c, cores, m)
     assert routes == {"cim_mvm_packed", "cim_mvm_scheduled"}
+
+
+def _rbm_bwd_plan(n_vis, n_hid, interleave, gen, dev):
+    """The h->v plan of a random RBM deployed on the card as the recovery
+    deploys it."""
+    from repro_torch.models import nn as tnn
+    params = {"w": torch.randn(n_vis, n_hid, generator=gen, device=dev) * .3,
+              "a": torch.randn(n_vis, generator=gen, device=dev) * 0.1,
+              "b": torch.randn(n_hid, generator=gen, device=dev) * 0.1}
+    v_cal = (torch.rand(64, n_vis, generator=gen, device=dev) < 0.5).float()
+    crbm = tnn.deploy_rbm_cim(params, CIMConfig(in_bits=2), v_cal,
+                              interleave=interleave, generator=gen)
+    return crbm.chip.layers_for("bwd")["rbm"].packed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTS)
+def test_transposed_walk_matches_plain_on_card(activation):
+    """The transposed kernel (the walk at every M) against
+    `cim_runs_plain` at M = 1, 4, 16, 17 and 64, with the plan's denorm
+    and with the valid-row mask: the RBM at paper geometry (128 x 121
+    tiles), the interleaved smoke RBM (70 x 33 tiles, stored rows off the
+    16-byte grid) and a full-width w_g's bwd plan on a 3072-core chip (256
+    stored columns). Equal bit for bit, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(3)
+    w = {n: torch.randn(r, c, generator=gen, device=dev) / r ** 0.5
+         for n, (r, c) in (("w_g", (3584, 14336)), ("wq", (3584, 4096)))}
+    chip = tcim.compile_chip(w, CIMConfig(), CoreSpec(n_cores=3072), "ideal",
+                             in_alpha=3.0, directions=("fwd", "bwd"),
+                             generator=gen)
+    plans = (_rbm_bwd_plan(794, 120, False, gen, dev),
+             _rbm_bwd_plan(138, 32, True, gen, dev),
+             chip.layers_for("bwd")["w_g"].packed)
+    assert [tuple(p.gd_tiles.shape[1:]) for p in plans] == \
+        [(128, 121), (70, 33), (128, 256)]
+    for p in plans:
+        mask = (p.inv_norm_tiles > 0).to(torch.float32)
+        for m in (1, 4, 16, 17, 64):
+            x = torch.randint(-7, 8, (m, p.n_rows), generator=gen,
+                              device=dev).to(torch.float32)
+            for den in (p.denorm_tiles, mask):
+                kw = dict(activation=activation, n_max=127, v_read=0.5,
+                          seed=SEED)
+                tiles = (p.gd_tiles, p.inv_norm_tiles, den, p.v_decr_tiles)
+                tables = (p.row_index, p.tile_index, p.run_start,
+                          p.col_run_start, p.col_runs)
+                runs = dict(n_run_ranks=p.n_run_ranks, n_run_len=p.n_run_len)
+                before = K.LAUNCHES["cim_mvm_transposed"]
+                got = K.cim_mvm_transposed(x, *tiles, *tables, **runs, **kw)
+                want = K.cim_mvm_transposed(x, *tiles, *tables, impl="plain",
+                                            **runs, **kw)
+                torch.cuda.synchronize()
+                assert K.LAUNCHES["cim_mvm_transposed"] == before + 1
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (p.bk, p.bn, m)
 
 
 # ------------------------------------------------------------- hash PRNG

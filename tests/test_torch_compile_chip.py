@@ -146,14 +146,16 @@ def test_mutated_artifact_raises(chips, mutant):
 def test_shared_memory_invariant_matches_kernel_tiling(monkeypatch):
     """The verifier's shared-memory check uses the kernel's own tiling: at
     every batch the bytes fit Hopper's 232,448 (the packed and scheduled
-    walk's geometry, the transposed kernel's static layout, the
-    single-matrix kernel's geometry), and a limit below the walk's need
-    is reported as `shared-memory`. The chip compiles as a caller that
-    leaves out `mode` gets it (relaxed)."""
+    walk's geometry, the transposed kernel's walk over the stored tile's
+    column axis, the single-matrix kernel's geometry), and a limit
+    below the walk's need is reported as `shared-memory`. The chip
+    compiles as a caller that leaves out `mode` gets it (relaxed)."""
     chip = tcim.compile_chip({"m": torch.randn(300, 500)}, CIMConfig(),
-                             in_alpha=3.0)
+                             in_alpha=3.0, directions=("fwd", "bwd"))
     assert chip.mode == "relaxed"
     p = chip.layers["m"].packed
+    pt = chip.bwd_layers["m"].packed
+    assert pt.route() == "cim_mvm_transposed"
     for bm in (1, 4, 5, 32, 256, 4096):
         for kernel in K.KERNELS:
             if kernel == "cim_mvm":
@@ -161,12 +163,17 @@ def test_shared_memory_invariant_matches_kernel_tiling(monkeypatch):
                     bm, 300, 500, occupancy=K.one_block, n_sm=K.H100_SMS),
                     300)
             elif kernel == "cim_mvm_transposed":
-                need = K.shared_bytes(kernel, K.block_rows(bm))
+                # the BL->SL read of the same stack, the walk at every
+                # batch: its p.bn stored columns contract into p.bk
+                # outputs per forward row block
+                need = K.walk_shared_bytes(K.walk_geometry(
+                    bm, p.bn, p.bk, p.n_row_blocks, trans=True))
             else:
                 need = K.walk_shared_bytes(K.walk_geometry(
                     bm, p.bk, p.bn, p.n_col_blocks))
             assert need <= K.SMEM_LIMIT
         tverify.check_packed(p, bm=bm)
+        tverify.check_packed(pt, bm=bm)
     monkeypatch.setattr(tverify, "SMEM_LIMIT", K.walk_shared_bytes(
         K.walk_geometry(256, p.bk, p.bn, p.n_col_blocks)) - 1)
     with pytest.raises(tverify.ChipVerifyError) as e:

@@ -1,8 +1,10 @@
 """Port parity, the noise-injection training matmul: the port's plain
 `noisy_matmul` against the reference's `noisy_matmul_pallas` (interpret
 mode) on the same inputs, seeds and blocks; its noise statistics and seed
-determinism as the reference's own tests check them; and, where a CUDA
-device is present, the CUDA kernel against its plain version.
+determinism as the reference's own tests check them; the weight pass's
+plain version and the SGEMM's tiling; and, where a CUDA device is
+present, the two CUDA kernels (weight pass, SGEMM) against their plain
+versions.
 
 Tolerance: both packages draw eps = hash_normal at the same weight-tile
 coordinates, so they differ only by f32 reassociation of the K-term dot
@@ -137,6 +139,46 @@ def test_cpu_runs_plain_without_launching():
         NK.noisy_matmul(x, torch.randn(9, 8), torch.tensor(0.1))
     with pytest.raises(ValueError, match="impl"):
         NK.noisy_matmul(x, w, torch.tensor(0.1), impl="cuda")
+    # an empty K: the empty sum, zeros, as the CUDA route returns them
+    y = NK.noisy_matmul(torch.randn(3, 0), torch.randn(0, 5),
+                        torch.tensor(0.1), seed=2)
+    assert torch.equal(y, torch.zeros(3, 5))
+    assert NK.LAUNCHES == before
+
+
+def test_noisy_weight_plain_is_the_plain_products_weight():
+    """noisy_weight_plain is the w' inside noisy_matmul_plain bit for bit
+    (the identity picks it out exactly): w + sigma * eps at the reference
+    coordinates of the block."""
+    gen = torch.Generator().manual_seed(2)
+    w = torch.randn(70, 50, generator=gen)
+    sig = torch.tensor(0.1) * w.abs().max()
+    kw = dict(seed=3, bk_ref=32, bn_ref=16)
+    wn = NK.noisy_weight_plain(w, sig, **kw)
+    assert torch.equal(NK.noisy_matmul_plain(torch.eye(70), w, sig, **kw), wn)
+    assert torch.equal(wn, w + sig * NK.weight_noise_eps(70, 50, 3, 32, 16))
+
+
+@pytest.mark.parametrize("m,k,n", [(12544, 577, 64), (2048, 3584, 14336),
+                                   (50, 300, 70), (64, 128, 64)])
+def test_sgemm_geometry_fills_the_card(m, k, n):
+    """The SGEMM's tile gives every H100 SM a block at the 7-layer CNN's
+    conv5 and a gemma2-9b w_g in training (a smaller shape takes the
+    smallest tile); the weight scratch is padded to whole k and column
+    tiles, the shared memory as the kernel requests it."""
+    tile = NK.sgemm_geometry(m, n)
+    blocks = NK.sgemm_blocks(m, n, tile)
+    assert blocks >= NK.H100_SMS or tile == len(NK.SGEMM_TILES) - 1
+    if (m, n) in ((12544, 64), (2048, 14336)):
+        assert blocks >= NK.H100_SMS
+    assert NK.SGEMM_TILES[tile] == ((128, 256) if n > 64 and m >= 2048
+                                    else (64, 64))
+    kp, np_ = NK.padded_shape(k, n, tile)
+    bk = NK.SGEMM_BK[tile]
+    assert kp % bk == 0 and 0 <= kp - k < bk
+    bn = NK.SGEMM_TILES[tile][1]
+    assert np_ % bn == 0 and 0 <= np_ - n < bn
+    assert [NK.shared_bytes(t) for t in range(2)] == [99328, 16896]
 
 
 @pytest.mark.cuda
@@ -149,16 +191,45 @@ def test_kernel_matches_plain_on_card():
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
     for (m, k, n) in ((50, 300, 70), (64, 128, 64), (12544, 577, 64),
-                      (2048, 3584, 14336)):
+                      (2048, 3584, 14336), (3, 0, 5)):
         x = torch.randn(m, k, generator=gen, device=dev)
         w = torch.randn(k, n, generator=gen, device=dev)
         before = NK.LAUNCHES["noisy_matmul"]
-        got = ops.noisy_matmul(x, w, 0.1, seed=3)
-        want = ops.noisy_matmul(x, w, 0.1, seed=3, impl="plain")
+        sig = 0.1 * w.abs().max() if k else torch.tensor(0.1, device=dev)
+        got = NK.noisy_matmul(x, w, sig, seed=3)
+        want = NK.noisy_matmul(x, w, sig, seed=3, impl="plain")
         torch.cuda.synchronize()
-        assert NK.LAUNCHES["noisy_matmul"] == before + 1
-        sig = 0.1 * w.abs().max()
+        assert NK.LAUNCHES["noisy_matmul"] == before + (k > 0)
         eps = NK.weight_noise_eps(k, n, 3, min(256, k), min(256, n), dev)
         tol = (2 * k + 8) * 2.0 ** -24 * (x.abs() @ (w.abs()
                                                     + sig * eps.abs()))
         assert bool(((got - want).abs() <= tol).all()), (m, k, n)
+
+
+@pytest.mark.cuda
+def test_kernel_parts_match_plain_on_card():
+    """The wrapper's two kernels, each alone (its private launch helpers):
+    the weight pass against noisy_weight_plain (its eps to a few ulps of
+    PyTorch's log / cos, zeros in the padding) and the SGEMM against x @
+    w' (f32 reassociation), at both tilings, ragged shapes included; two
+    calls return equal tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(1)
+    for (m, k, n) in ((50, 300, 70), (12544, 577, 64), (512, 256, 1024)):
+        x = torch.randn(m, k, generator=gen, device=dev)
+        w = torch.randn(k, n, generator=gen, device=dev)
+        sig = 0.1 * w.abs().max()
+        want = NK.noisy_weight_plain(w, sig, seed=3, bk_ref=min(256, k),
+                                     bn_ref=min(256, n))
+        for tile in range(len(NK.SGEMM_TILES)):
+            wn = NK._weight(w, sig, 3, min(256, k), min(256, n), tile)
+            assert bool(((wn[:k, :n] - want).abs()
+                         <= 1e-5 * sig + 2.0 ** -22 * w.abs()).all())
+            assert bool((wn[k:] == 0).all()) and bool((wn[:, n:] == 0).all())
+            y = NK._sgemm(x, wn, n, tile)
+            ref = x @ wn[:k, :n]
+            tol = (2 * k + 8) * 2.0 ** -24 * (x.abs() @ wn[:k, :n].abs())
+            assert bool(((y - ref).abs() <= tol).all()), (m, k, n, tile)
+            assert torch.equal(y, NK._sgemm(x, wn, n, tile))

@@ -3,8 +3,10 @@ rows): its two kernels' plain versions, `cim_terms_plain` (every live
 tile's counts * weight) and `cim_fold_plain` (each output's terms summed
 in slot order inside a run and folded in run order), composed as the
 wrappers launch them, against `cim_runs_plain` (the walk's plain version)
-and against the reference's Pallas kernels; the route function, the
-plan's live-slot table and the verifier's split-route invariants.
+and against the reference's Pallas kernels; each wrapper's route (the
+transposed kernel takes the walk at every M), the walk's geometry
+(forward and transposed), the plan's live-slot table and the verifier's
+route invariants.
 
 Rules: the composition equals `cim_runs_plain` bit for bit (int32 views,
 so the sign of zero counts): the same exact FP64 tile dots rounded once,
@@ -28,7 +30,9 @@ from repro_torch.core import verify as tverify
 from repro_torch.core.mapping import MatrixReq, pack_tiles, plan_layers
 from repro_torch.core.types import CIMConfig, CoreSpec, NonIdealityConfig
 from repro_torch.kernels.cim_mvm import kernel as K
+from repro_torch.kernels.cim_mvm import ops
 from repro_torch.launch import serve as tserve
+from repro_torch.models import nn as tnn
 
 ACTS = ("none", "relu", "tanh", "sigmoid", "identity", "stochastic")
 ROWS = (1, 4, 5, 16)            # decode batches of the split route
@@ -47,15 +51,18 @@ def _smoke_plans(**chip):
             if k.endswith("_cim")}
 
 
-def _layer_plan(r, c, cores, alpha, seed):
+def _layer_plan(r, c, cores, alpha, seed, direction="fwd"):
     """One r x c layer (and a 100 x 60 neighbour that shares its cores)
-    compiled on a `cores`-core chip at IR-drop alpha."""
+    compiled on a `cores`-core chip at IR-drop alpha; its plan in
+    `direction` (bwd: the transposed kernel's)."""
     gen = torch.Generator().manual_seed(seed)
     w = {"m": torch.randn(r, c, generator=gen) / r ** 0.5,
          "s": torch.randn(100, 60, generator=gen)}
     cfg = CIMConfig(nonideal=NonIdealityConfig(ir_drop_alpha=alpha))
-    return tcim.compile_chip(w, cfg, CoreSpec(n_cores=cores), "ideal",
-                             in_alpha=3.0, generator=gen).layers["m"].packed
+    chip = tcim.compile_chip(w, cfg, CoreSpec(n_cores=cores), "ideal",
+                             in_alpha=3.0, directions=("fwd", direction),
+                             generator=gen)
+    return chip.layers_for(direction)["m"].packed
 
 
 @pytest.fixture(scope="module")
@@ -186,7 +193,88 @@ def test_split_composition_matches_reference(reference, kind):
                         boundary_hits(reference["x"], pt, 0.5))
 
 
+# ------------------------------------------------- the transposed kernel
+
+def _rbm_plan(n_vis, n_hid, interleave, seed):
+    """The transposed (h->v) plan of a random RBM deployed as the recovery
+    does: the augmented (n_vis + 1, n_hid + 1) array, pixel-interleaved or
+    not."""
+    gen = torch.Generator().manual_seed(seed)
+    params = {"w": torch.randn(n_vis, n_hid, generator=gen) * 0.3,
+              "a": torch.randn(n_vis, generator=gen) * 0.1,
+              "b": torch.randn(n_hid, generator=gen) * 0.1}
+    v_cal = (torch.rand(64, n_vis, generator=gen) < 0.5).to(torch.float32)
+    crbm = tnn.deploy_rbm_cim(params, CIMConfig(in_bits=2), v_cal,
+                              interleave=interleave, generator=gen)
+    return crbm.chip.layers_for("bwd")["rbm"].packed
+
+
+TRANS_PLANS = ("rbm", "rbm interleaved", "m300x500 merged",
+               "m1024x700 ir-drop")
+
+
+@pytest.fixture(scope="module")
+def trans_plans():
+    """Transposed plans: the RBM at paper geometry (795 x 121, 7 tiles of
+    128 x 121), the smoke RBM pixel-interleaved (70 x 33 tiles: stored
+    rows off the 16-byte grid), the ragged layer merged onto 4 cores
+    (multi-pass, idle slots, output blocks split over runs) and an
+    IR-drop layer (47-column tiles)."""
+    return {"rbm": _rbm_plan(794, 120, False, 5),
+            "rbm interleaved": _rbm_plan(138, 32, True, 6),
+            "m300x500 merged": _layer_plan(300, 500, 4, 0.0, 7, "bwd"),
+            "m1024x700 ir-drop": _layer_plan(1024, 700, 40, 2e-7, 8, "bwd")}
+
+
+@pytest.mark.parametrize("name", TRANS_PLANS)
+def test_transposed_plans_take_the_walk(trans_plans, name):
+    """Every transposed plan (stored tiles of 128 x 121, 70 x 33, a
+    multi-pass merge and 47-column IR-drop tiles) takes the walk at every
+    batch: its geometry over the stored tile's column axis covers every
+    output exactly once and fits a Hopper block, and the verifier passes
+    it at decode and prefill batches."""
+    p = trans_plans[name]
+    assert p.route() == "cim_mvm_transposed" and p.transpose
+    for m in (1, 4, 16, 17, 64, 256):
+        g = K.walk_geometry(m, p.bk, p.bn, p.n_col_blocks, trans=True)
+        assert (_walk_cover(g, m, p.bn, p.n_col_blocks) == 1).all()
+        assert K.walk_shared_bytes(g) <= K.SMEM_LIMIT
+        tverify.check_packed(p, bm=m)
+    shape = tuple(p.gd_tiles.shape[1:])
+    assert shape == {"rbm": (128, 121), "rbm interleaved": (70, 33),
+                     "m300x500 merged": (128, 256),
+                     "m1024x700 ir-drop": (128, 47)}[name]
+    if name == "m300x500 merged":
+        assert p.n_passes > 1 and len(p.live_slots) < p.n_tiles
+
+
 # ------------------------------------------------ route, tables, verifier
+
+@pytest.mark.parametrize("kernel", K.SPLIT_KERNELS + ("cim_mvm_transposed",))
+def test_every_wrapper_picks_its_route(monkeypatch, kernel):
+    """Each wrapper with a CUDA-side tensor (here a meta one, the launch
+    functions replaced by recorders) takes one launch function per call:
+    the packed and scheduled kernels the split route up to 16 rows and
+    the walk above, the transposed kernel the walk at every M."""
+    calls = []
+    monkeypatch.setattr(K, "launch_split", lambda k, x, *a, **kw:
+                        calls.append(("split", k)) or x)
+    monkeypatch.setattr(K, "launch_walk", lambda k, x, *a, **kw:
+                        calls.append(("walk", k)) or x)
+    if kernel == "cim_mvm_transposed":
+        p = _layer_plan(300, 500, 4, 0.0, 9, "bwd")
+    else:
+        p = pack_tiles(plan_layers([MatrixReq("m", 300, 500)])
+                       .tiles_for("m"), torch.ones(300, 500))
+    rows = (1, 4, 5, 16, 17, 64, 256)
+    for m in rows:
+        x = torch.empty((m, p.n_rows), device="meta")
+        ops.packed_call(x, p, activation="none", n_max=127, v_read=0.5,
+                        scheduled=kernel == "cim_mvm_scheduled" or None)
+    edge = 16 if kernel in K.SPLIT_KERNELS else 0
+    assert calls == [("split" if m <= edge else "walk", kernel)
+                     for m in rows]
+
 
 def test_route_picks_split_up_to_16_rows():
     """M <= 16 takes the split route (4- and 16-row term blocks), M > 16
@@ -260,6 +348,48 @@ def test_walk_geometry_covers_every_output_once(shape):
     assert K.walk_g_pitch(g.bn_blk) % 8 == 4
 
 
+# (m, bk, bn, n_cb) of transposed walks (bk: the stored columns it
+# contracts, bn: the stored rows it outputs): gemma2-9b w_g / w_o bwd on
+# 128 x 256 tiles, the RBM (121 columns), the interleaved smoke RBM (33),
+# IR-drop tiles (47), a ragged 250-column layer and one column block
+TRANS_WALK_SHAPES = [(m, 256, 128, n_cb) for m in (17, 32, 256)
+                     for n_cb in (28, 112)] + [
+    (64, 121, 128, 7), (64, 33, 70, 2), (37, 47, 128, 8), (300, 250, 70, 3),
+    (17, 60, 100, 1)]
+
+
+@pytest.mark.parametrize("shape", TRANS_WALK_SHAPES,
+                         ids=[f"m{m}-bk{bk}-bn{bn}-cb{c}"
+                              for m, bk, bn, c in TRANS_WALK_SHAPES])
+def test_transposed_walk_geometry_covers_every_output_once(shape):
+    """The transposed walk's items cover every output (a stored row of its
+    block) exactly once; a stage holds the strip's stored rows over at
+    most 128 stored columns, or, where the stored rows are off the
+    16-byte grid (no tensor copy), all of them in one chunk (at most 256)
+    for one bulk copy; one block's shared memory fits a Hopper block."""
+    m, bk, bn, n_cb = shape
+    g = K.walk_geometry(m, bk, bn, n_cb, trans=True)
+    assert g.trans == 1 and (g.bm, g.bn_blk) == K.WALK_ITEMS[g.layout]
+    assert g.n_items == g.n_rbk * g.n_strips * n_cb
+    assert (_walk_cover(g, m, bn, n_cb) == 1).all()
+    assert m > 32 or g.bm == 32
+    assert g.kc % 16 == 0 and g.kc >= min(bk, K.WALK_MAX_CHUNK)
+    if bk % 4:
+        assert bk <= g.kc <= 2 * K.WALK_MAX_CHUNK       # one chunk
+    else:
+        assert g.kc <= K.WALK_MAX_CHUNK
+    # the stage's stored rows at a pitch of 4 mod 8 words hold a chunk's
+    # columns, or a bulk copy's cover of the strip's rows at pitch bk
+    pitch = K.walk_g_pitch(g.kc)
+    assert pitch % 8 == 4 and pitch >= g.kc + 4
+    assert g.bn_blk * pitch * 4 >= g.bn_blk * bk * 4 + 16 or bk > g.kc
+    assert K.walk_shared_bytes(g) <= K.SMEM_LIMIT
+    forward = K.walk_geometry(m, bk, bn, n_cb)
+    assert K.walk_shared_bytes(g) == K.WALK_BARRIER_BYTES + g.stages * (
+        g.bm * K.walk_x_pitch(g.kc) + g.bn_blk * pitch * 4)
+    assert (forward.layout, forward.n_items) == (g.layout, g.n_items)
+
+
 @pytest.mark.parametrize("name", sorted(LAYER))
 def test_walk_geometry_fills_the_card(name):
     """At prefill (M = 256) every full-width layer shape gives at least
@@ -302,6 +432,27 @@ def test_live_slots_skip_idle_slots(plans):
     with pytest.raises(tverify.ChipVerifyError) as e:
         tverify.check_packed(stale)
     assert e.value.invariant == "run-offsets"
+
+
+def test_verifier_models_the_transposed_walk(trans_plans, monkeypatch):
+    """`shared-memory` checks a transposed plan's walk at the batch (its
+    only route: no split route is checked at a decode batch), over the
+    stored tile's column axis."""
+    p = trans_plans["rbm"]
+    assert (p.bk, p.bn) == (121, 128)     # 121 stored columns -> 128 rows
+    g = K.walk_geometry(64, p.bk, p.bn, p.n_col_blocks, trans=True)
+    assert g.kc == 128                    # one chunk of all 121 columns
+    monkeypatch.setattr(tverify, "SMEM_LIMIT", K.walk_shared_bytes(g) - 1)
+    with pytest.raises(tverify.ChipVerifyError) as e:
+        tverify.check_packed(p, bm=64)
+    assert e.value.invariant == "shared-memory" and "walk" in str(e.value)
+    # at 4 rows the walk's 32-row items need less: nothing else is checked
+    small = K.walk_geometry(4, p.bk, p.bn, p.n_col_blocks, trans=True)
+    monkeypatch.setattr(tverify, "SMEM_LIMIT", K.walk_shared_bytes(small))
+    tverify.check_packed(p, bm=4)
+    # read on the forward axis the same tiles would need other stages
+    assert K.walk_shared_bytes(g) != K.walk_shared_bytes(
+        K.walk_geometry(64, p.bk, p.bn, p.n_col_blocks))
 
 
 def test_verifier_models_the_split_route(plans, monkeypatch):
