@@ -46,6 +46,28 @@ the final result line:
                 the scheduled kernel; launches counted exactly; plain rerun
   serve-irdrop  2 layers on a 32768-core IR-drop chip (alpha 2e-7, 47-column
                 tiles), 4 tokens: every projection scheduled; plain rerun
+  serve-traffic continuous batching (launch/scheduler) of the serve model:
+                slots 4, chunk 32, 16 requests from `traffic_requests`
+                seeded 1 (prompts 32-64 in pages of 32, 16-32 tokens, 50
+                req/s, realtime); one decode capture; packed launches
+                exactly 28 per chunk and decode step call, and on the
+                device (profiler) 28 term passes and folds per replay, 28
+                walks in a 32-row chunk, 28 term passes and folds in a
+                16-row one; a second engine on the same chip (prompts of
+                32, 48 and 64 tokens: a 16-row chunk at offset 32) where
+                one replayed step equals the step run eagerly on a clone
+                of the pool (every slot live, then one frozen), bit for
+                bit, and which then serves those prompts; each request of
+                both engines equal to it served alone on the static path
+                (tokens; logits within TRAFFIC_ATOL); a realtime=False
+                rerun of all of them through the plain versions equal;
+                tok/s, p50/p99, TTFT, utilization and energy, the decode
+                step replayed beside eager (CUDA events), its device ms
+                and busy share (profiler), prefill chunks of 32 and 16
+                rows; the static baseline (`scheduler.serve_static`) on
+                the same requests
+  serve-traffic-merged  the same on the 3072-core chip (the scheduled
+                kernel through the pool)
   recover       Bayesian image recovery at paper geometry (784 pixels + 10
                 labels, 120 hidden units), batch 64, 10 Gibbs cycles:
                 digital, stochastic and pixel-interleaved runs, launches
@@ -97,6 +119,9 @@ of the kernel runs and of the plain reruns must be equal too. The
 card-vs-CPU smoke comparison differs in the float ops around the kernel
 (attention, norms, matmuls on two devices): logits within SMOKE_ATOL and
 greedy tokens equal unless the top two logits lie within 2 * SMOKE_ATOL.
+A request served through the slot pool and served alone differ only in
+the float ops around the kernels (attention's batched products, chunked
+prefill): logits within TRAFFIC_ATOL and greedy tokens equal.
 The noisy matmul sums in f32 in another order than its plain version and
 draws eps with the same hash but possibly other logf / cosf roundings:
 NOISY_TOL, |kernel - plain| <= (2K + 8) * 2^-24 * (|x| @ (|w| + sigma *
@@ -116,6 +141,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_FLOPS_PER_S = 67e12         # H100 SXM FP64 peak (tensor cores; 34 on CUDA cores)
 SMOKE_ATOL = 1e-4                # smoke logits are O(1); f32 roundings
+TRAFFIC_ATOL = 1e-4              # LOGIT_ATOL of tests/test_torch_serve.py
 SPIN_CYCLES = 1_000_000          # ~0.5 ms at 1.98 GHz: covers a wrapper's host time
 LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wo": (4096, 3584),
          "w_g": (3584, 14336), "w_o": (14336, 3584)}
@@ -135,6 +161,9 @@ SERVE = dict(n_layers=4, batch=4, prompt_len=64, gen=32, cim_cores=6144)
 MERGED = dict(n_layers=4, batch=4, prompt_len=64, gen=8, cim_cores=3072)
 IRDROP = dict(n_layers=2, batch=4, prompt_len=64, gen=4, cim_cores=32768,
               cim_ir_drop=2e-7)
+TRAFFIC = dict(n_layers=4, cim_cores=6144, slots=4, chunk=32, requests=16,
+               prompt_len=64, gen=32, rate=50.0)
+TRAFFIC_MERGED = dict(TRAFFIC, cim_cores=3072)
 # projections per layer on each kernel (the plans the chips compile to)
 SERVE_ROUTES = {"cim_mvm_packed": 7}
 MERGED_ROUTES = {"cim_mvm_packed": 4, "cim_mvm_scheduled": 3}
@@ -790,6 +819,267 @@ def serve_path(torch, K, ops, serve, dev, stats, path, conf, routes, text):
             "plain_max_abs_logit_err": err,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "plans": plan_summary(res.params)}
+
+
+def traffic_path(torch, K, serve, dev, stats, path, conf, routes):
+    """Continuous batching of `conf` through the port's engine, with the
+    launch counts set to 0 just before the run (warmup and capture
+    included) and read just after; then the engine's checks (module
+    docstring) and its times."""
+    from repro_torch.launch import scheduler
+    from repro_torch.launch.scheduler import ContinuousBatchingEngine
+    reset_launches(K)                    # the path's run starts here
+    res = serve.serve_traffic("gemma2-9b", cim=True, device=str(dev),
+                              capture_logits=True, **conf)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)          # ... and ends here
+    stats["launches"][path] = launches
+    eng, st = res.engine, res.stats
+    if st["decode_traces"] != 1:
+        raise AssertionError(f"{path}: {st['decode_traces']} decode "
+                             "captures, the contract is 1")
+    # every prefill and decode call (warm-ups, the capture call's one
+    # eager run, replays) runs each projection once per layer; the profiled
+    # replays in traffic_times show the replays' kernels on the device
+    runs = {"prefill": eng._prefill.calls, "decode": eng._decode.calls}
+    per_exec = conf["n_layers"] * sum(routes.values())
+    if sum(eng._decode.fun.per_replay.values()) != per_exec:
+        raise AssertionError(f"{path}: the captured step holds "
+                             f"{eng._decode.fun.per_replay} launches, the "
+                             f"path needs {per_exec}")
+    want = {k: routes.get(k, 0) * conf["n_layers"] * sum(runs.values())
+            for k in K.LAUNCHES}
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, the path needs "
+                             f"{want} ({runs} executions)")
+    m = eng.metrics
+    chunks = int(m.value("serve_prefill_chunks"))
+    steps = int(m.value("serve_decode_steps"))
+    for r in res.requests:
+        if len(r.tokens) != r.max_new or len(r.logits) != r.max_new or \
+                not all(bool(torch.isfinite(torch.as_tensor(x)).all())
+                        for x in r.logits):
+            raise AssertionError(f"{path}: request {r.rid} returned "
+                                 f"{len(r.tokens)} of {r.max_new} tokens "
+                                 "or non-finite logits")
+    replay, probe = replay_equals_eager(torch, res, eng)
+    # each request alone on the static path, same cache length
+    alone_err = 0.0
+    for r in res.requests + probe:
+        g = serve.greedy_decode(res.params, res.cfg,
+                                torch.as_tensor(r.prompt[None]).long()
+                                .to(dev), r.max_new, dev,
+                                max_len=eng.max_len)
+        if g.tokens[0].tolist() != r.tokens:
+            raise AssertionError(f"{path}: request {r.rid}'s pool tokens "
+                                 f"{r.tokens} != alone {g.tokens[0]}")
+        for a, b in zip(r.logits, g.logits):
+            alone_err = max(alone_err, float(
+                (torch.as_tensor(a) - b[0].cpu()).abs().max()))
+    if alone_err > TRAFFIC_ATOL:
+        raise AssertionError(f"{path}: pool vs alone logits differ by "
+                             f"{alone_err} > {TRAFFIC_ATOL}")
+    # the plain versions, every request (the probe's too) admitted as soon
+    # as a slot frees
+    plain = ContinuousBatchingEngine(
+        res.cfg.replace(cim_impl="plain"), res.params, n_slots=eng.n_slots,
+        max_len=eng.max_len, chunk=eng.chunk, capture_logits=True)
+    copies = [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
+                      arrival=r.arrival) for r in res.requests + probe]
+    plain.run(copies, realtime=False)
+    for r, q in zip(res.requests + probe, copies):
+        if q.tokens != r.tokens or any(
+                not (a == b).all() for a, b in zip(r.logits, q.logits)):
+            raise AssertionError(f"{path}: request {r.rid}: the plain "
+                                 "rerun's tokens or logits differ")
+    times = traffic_times(torch, eng, dev, per_exec)
+    # the static baseline at equal load: the same requests in arrival
+    # order, in lockstep batches of `slots`, left-padded, realtime
+    copies = [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
+                      arrival=r.arrival) for r in res.requests]
+    static = scheduler.serve_static(res.cfg, res.params, copies,
+                                    batch=eng.n_slots, max_len=eng.max_len)
+    out = {"config": f"gemma2-9b full width, {conf['n_layers']} of 42 "
+                     f"layers, {conf['cim_cores']} cores, slots "
+                     f"{conf['slots']}, chunk {conf['chunk']}",
+           "nvidia_smi": stats["smi"], "deploy_s": res.deploy_s,
+           **{k: st[k] for k in ("requests", "tokens", "wall_s",
+                                 "tok_per_s", "p50_ms", "p99_ms",
+                                 "ttft_p50_ms", "decode_traces",
+                                 "utilization", "energy_pj",
+                                 "pj_per_token", "tops_per_w",
+                                 "mvm_dispatches")},
+           "chunks": chunks, "decode_steps": steps,
+           "warmup_executions": {"prefill": runs["prefill"] - chunks,
+                                 "decode": runs["decode"] - steps},
+           "launches": launches,
+           "packed_launches_per_execution": conf["n_layers"] * routes.get(
+               "cim_mvm_packed", 0),
+           "launches_per_replay": eng._decode.fun.per_replay,
+           "replay_vs_eager": replay, "alone_max_abs_logit_err": alone_err,
+           "plain_rerun": "equal", **times,
+           "static_baseline": {k: static[k] for k in (
+               "tokens", "wall_s", "tok_per_s", "p50_ms", "p99_ms",
+               "utilization", "pj_per_token")}}
+    del res, eng, plain
+    free(torch)
+    return out
+
+
+def replay_equals_eager(torch, res, eng):
+    """A second engine on the same chip, warmed for chunks of 32 and 16
+    rows: one request per slot admitted and prefilled (fills 32, 48 and
+    64: the 48-token prompt's second chunk, 16 rows on the split route,
+    lands at offset 32), then one replayed decode step held against the
+    step function run eagerly on a clone of the pool, bit for bit — with
+    every slot live, then with slot 0 frozen (its state must not move).
+    The slots are freed, and the same prompts are served through the
+    engine's run (realtime=False); those requests are returned for the
+    checks the traffic's requests go through."""
+    from repro_torch.launch.scheduler import ContinuousBatchingEngine, Request
+    probe = ContinuousBatchingEngine(res.cfg, res.params,
+                                     n_slots=eng.n_slots, max_len=eng.max_len,
+                                     chunk=eng.chunk, capture_logits=True)
+    by_len = sorted(res.requests, key=lambda r: len(r.prompt))
+    prompts = [by_len[(i * (len(by_len) - 1)) // max(eng.n_slots - 1, 1)]
+               .prompt for i in range(eng.n_slots)]
+    prompts[-2] = by_len[-1].prompt[:eng.chunk * 3 // 2]
+    probe.warmup({eng.chunk, eng.chunk // 2})
+    probe.jitwatch.seal()
+    for i, p in enumerate(prompts):
+        probe._admit(Request(rid=1000 + i, prompt=p, max_new=4))
+    while probe._jobs:
+        probe._prefill_one_chunk(0.0)
+    fills = probe.pool["len"].tolist()
+    if eng.chunk * 3 // 2 not in fills or \
+            len(set(fills)) < min(3, eng.n_slots):
+        raise AssertionError(f"replay vs eager: fills {fills}, not mixed "
+                             "with a half chunk")
+    checked = []
+    for frozen in (False, True):
+        if frozen:
+            probe._activate(probe.pool, 0, False)
+        before = {k: v.clone() for k, v in probe.pool.items()}
+        clone = {k: v.clone() for k, v in probe.pool.items()}
+        logits, _ = probe._decode(probe.params, probe.pool)    # a replay
+        logits = logits.clone()
+        eager, _ = probe._step(probe.params, clone)
+        torch.cuda.synchronize()
+        if not torch.equal(logits, eager):
+            raise AssertionError(
+                f"replay vs eager: logits differ by "
+                f"{float((logits - eager).abs().max())} (frozen {frozen})")
+        for k, v in probe.pool.items():
+            if not torch.equal(v, clone[k]):
+                raise AssertionError(f"replay vs eager: pool {k} differs "
+                                     f"(frozen {frozen})")
+        if frozen and not all(torch.equal(slot0(k, v), slot0(k, before[k]))
+                              for k, v in probe.pool.items()):
+            raise AssertionError("a frozen slot's state moved")
+        checked.append("frozen slot 0" if frozen else "all live")
+    for slot in list(probe._live):
+        probe._finish(slot, 0.0)
+    served = [Request(rid=1000 + i, prompt=p, max_new=4)
+              for i, p in enumerate(prompts)]
+    st = probe.run(served, realtime=False)
+    if st["decode_traces"] != 1 or probe._prefill.traces != 2:
+        raise AssertionError(f"probe: {st['decode_traces']} decode captures, "
+                             f"{probe._prefill.traces} prefill signatures")
+    del probe
+    return {"fills": fills, "checked": checked,
+            "served_prompt_lens": [len(p) for p in prompts]}, served
+
+
+def slot0(key, t):
+    """Slot 0's part of the pool tensor `key` (the slot dim is axis 1 of
+    the cache, axis 0 of the bookkeeping)."""
+    return t[:, 0] if key in ("k", "v") else t[0]
+
+
+def kernel_counts(prof):
+    """Device launches of the CIM kernels in a torch.profiler window, by
+    the name's stem: the split route's term pass and fold, the walk."""
+    names = ("cim_tile_terms", "cim_fold_runs", "cim_walk")
+    out = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            for n in names:
+                out[n] += n in e.name
+    return out
+
+
+def traffic_times(torch, eng, dev, per_exec):
+    """On the idle pool (a step changes nothing there): the decode step
+    replayed and run eagerly (CUDA events, median of 20, host included);
+    the replays' device time by kernel and busy share (torch.profiler),
+    where each of 10 replays must show `per_exec` term passes and folds
+    of the split route on the device; and prefill chunks of 32 and 16 rows
+    on slot 0 through the step function (median of 5, slot reset before
+    each), the last of each profiled: `per_exec` walks at 32 rows,
+    `per_exec` term passes and folds at 16."""
+    from torch.profiler import ProfilerActivity, profile
+    replay = lambda: eng._decode(eng.params, eng.pool)
+    eager = lambda: eng._step(eng.params, eng.pool)
+    for f in (replay, eager):
+        f()
+    replay_ms = median_ms(torch, replay, 20)
+    eager_ms = median_ms(torch, eager, 20)
+    torch.cuda.synchronize()
+    reps = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            replay()
+        torch.cuda.synchronize()
+    by_name = device_us_by_kernel(prof)
+    busy = sum(by_name.values()) / 1e3 / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    counts = {"decode replays": (kernel_counts(prof), {
+        "cim_tile_terms": per_exec * reps, "cim_fold_runs": per_exec * reps,
+        "cim_walk": 0})}
+    chunk_ms = {}
+    for n in (32, 16):
+        toks = torch.zeros((1, n), dtype=torch.long, device=dev)
+        times = []
+        for i in range(6):
+            eng._reset(eng.pool, 0)
+            if i == 5:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    eng._prefill.fun(eng.params, eng.pool, toks, 0)
+                    torch.cuda.synchronize()
+                split = n <= 16
+                counts[f"prefill chunk {n}"] = (kernel_counts(prof), {
+                    "cim_tile_terms": per_exec * split,
+                    "cim_fold_runs": per_exec * split,
+                    "cim_walk": per_exec * (not split)})
+                continue
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            eng._prefill.fun(eng.params, eng.pool, toks, 0)
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        chunk_ms[n] = statistics.median(times)
+    eng._reset(eng.pool, 0)
+    for what, (got, want) in counts.items():
+        if got != want:
+            raise AssertionError(f"{what}: device launches {got}, the path "
+                                 f"needs {want}")
+    return {"decode_step_ms_replayed": replay_ms,
+            "decode_step_ms_eager": eager_ms,
+            "decode_step_device_ms": busy if busy else "not measured",
+            "decode_busy_share": busy / replay_ms if busy else
+            "not measured",
+            "decode_top_kernels_ms": {k: v / 1e3 / reps for k, v in top},
+            "device_launches": {k: v[0] for k, v in counts.items()},
+            "prefill_chunk_ms": chunk_ms}
+
+
+TRAFFIC_PATHS = (("serve-traffic", TRAFFIC, SERVE_ROUTES),
+                 ("serve-traffic-merged", TRAFFIC_MERGED, MERGED_ROUTES))
 
 
 @phase("profile")
@@ -1451,6 +1741,7 @@ def main() -> int:
     stats = {"err": {}, "time": {}, "launches": {}, "profile": [],
              "profile_cnn": []}
     info = device_phase(torch)
+    stats["smi"] = info["nvidia_smi"] if info else "not measured"
     if build_phase(K, stopwatch) is None:
         return 1
     kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats)
@@ -1461,6 +1752,9 @@ def main() -> int:
     for path, conf, routes, text in SERVE_PATHS:
         phase(path)(serve_path)(torch, K, ops, serve, dev, stats, path, conf,
                                 routes, text)
+    for path, conf, routes in TRAFFIC_PATHS:
+        phase(path)(traffic_path)(torch, K, serve, dev, stats, path, conf,
+                                  routes)
     recover_phase(torch, K, dev, stats)
     chip_linear_phase(torch, K, cim, CIMConfig, dev, stats)
     free(torch)

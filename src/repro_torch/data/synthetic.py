@@ -1,6 +1,6 @@
 """Synthetic data (PyTorch port of `repro/data/synthetic.py`: LM tokens,
-the CNNs' cluster images, and the RBM's binary patterns with their
-corruptions).
+the serving traffic stream, the CNNs' cluster images, and the RBM's
+binary patterns with their corruptions).
 
 Every draw comes from an explicit `torch.Generator`, on its device; the
 reference's jax.random streams are not replayed, so the parity tests hand
@@ -15,6 +15,46 @@ def lm_tokens(generator: torch.Generator, batch: int, seq: int, vocab: int):
     """Uniform random token ids (int64, on the generator's device)."""
     return torch.randint(0, vocab, (batch, seq), generator=generator,
                          device=generator.device)
+
+
+class Traffic(tuple):
+    """Named fields of `traffic_requests` (a plain tuple with names)."""
+    __slots__ = ()
+    tokens = property(lambda s: s[0])     # (n, max_len) int64, right-padded 0
+    lengths = property(lambda s: s[1])    # (n,) int64, page multiples
+    mask = property(lambda s: s[2])       # (n, max_len) bool pad mask
+    arrivals = property(lambda s: s[3])   # (n,) f32 Poisson arrival offsets
+    gen = property(lambda s: s[4])        # (n,) int64 tokens to generate
+
+
+def traffic_requests(generator: torch.Generator, n: int, vocab: int, *,
+                     min_len: int = 32, max_len: int = 96, page: int = 32,
+                     rate: float = 50.0, min_gen: int = 4,
+                     max_gen: int = 16) -> Traffic:
+    """Seeded open-loop traffic: n requests with mixed prompt lengths,
+    right-padded token arrays + pad masks, per-request generation budgets
+    and Poisson arrival times (exponential inter-arrivals at `rate`
+    req/s), all on the generator's device.
+
+    Prompt lengths are uniform over PAGE MULTIPLES in [min_len, max_len],
+    so the engine's chunked prefill splits them at page edges as a paged
+    KV allocator would. The same generator state gives the same traffic.
+    """
+    assert min_len % page == 0 and max_len % page == 0 and min_len >= page
+    dev = generator.device
+    pages = torch.randint(min_len // page, max_len // page + 1, (n,),
+                          generator=generator, device=dev)
+    lengths = pages * page
+    tokens = torch.randint(0, vocab, (n, max_len), generator=generator,
+                           device=dev)
+    mask = torch.arange(max_len, device=dev)[None, :] < lengths[:, None]
+    tokens = torch.where(mask, tokens, 0)
+    inter = torch.empty((n,), device=dev).exponential_(
+        generator=generator) / rate
+    arrivals = torch.cumsum(inter, 0).to(torch.float32)
+    gen = torch.randint(min_gen, max_gen + 1, (n,), generator=generator,
+                        device=dev)
+    return Traffic((tokens, lengths, mask, arrivals, gen))
 
 
 def cluster_images(generator: torch.Generator, n: int, hw: int = 16,

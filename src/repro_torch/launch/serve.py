@@ -1,12 +1,30 @@
-"""Serving driver of the port: static-batch greedy decode, optionally with
-every dense-block projection served by its compiled NeuRRAM chip (port of
-the static path of `repro/launch/serve.py`).
+"""Serving driver of the port: static-batch and continuous-batching request
+serving, optionally with every dense-block projection served by its
+compiled NeuRRAM chip (port of `repro/launch/serve.py`, one process).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
       --cim --cim-cores 6144 --layers 4 --batch 4 --prompt-len 64 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+      --cim --cim-cores 6144 --layers 4 --traffic --requests 16 --slots 4
 
-One fixed request batch is prefilled once, then decoded token by token in
-lockstep (greedy), the KV cache updated in place. With --cim each layer's
+Two modes share one compiled chip stack (weight-stationary):
+
+  * default (static batch): one fixed request batch is prefilled once,
+    then decoded token by token in lockstep (greedy), the KV cache
+    updated in place.
+  * --traffic (continuous batching): an open-loop Poisson request stream
+    (data/synthetic.traffic_requests: mixed prompt lengths, per-request
+    generation budgets) drives launch/scheduler.ContinuousBatchingEngine:
+    a slotted KV pool with admission and eviction between decode steps
+    and chunked prefill interleaved with decode. Reports p50/p99 token
+    latency, TTFT and tokens/sec; the decode step compiles ONCE across
+    all occupancy changes (on the card: one captured CUDA graph, replayed
+    every step; asserted here).
+
+Both modes meter the modeled chip energy (obs/chipmeter) and write the
+reference's observability files on request (--metrics-out, --prom-out,
+--trace-out, --summary-out; --strict-jit turns any compilation after
+warmup into an error). With --cim each layer's
 seven projections are compiled onto one simulated chip first (plan ->
 schedule -> program -> calibrate -> pack, `core.cim.compile_chip`), and
 prefill and decode run every projection as one kernel launch. Full-width
@@ -22,22 +40,26 @@ chip's IR drop (alpha A in 1/uS): the planner caps the columns per core
 `--cim-cores 32768`, every projection merges and runs scheduled.
 
 Runs on the card unless `--device cpu` is given; without CUDA it raises.
-Times are CUDA-event times on the card. The continuous-batching mode
-(--traffic), mesh flags and observability outputs are not ported yet.
+Times are CUDA-event times on the card. The mesh flags and multi-process
+serving wait for ROADMAP A13.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 from typing import List, Optional
 
 import torch
 
 from .. import configs
-from ..data import lm_tokens
+from ..data import lm_tokens, traffic_requests
 from ..device import resolve_device
 from ..kernels.cim_mvm import kernel as cim_kernel
+from ..obs import MetricsRegistry, TraceBuffer
+from ..obs.chipmeter import ChipMeter
 from ..obs.clock import stopwatch, timed_call
+from .scheduler import ContinuousBatchingEngine, Request
 from .steps import arch_serving, make_decode_step, make_prefill_step
 
 
@@ -70,12 +92,14 @@ class Generation:
 
 
 def greedy_decode(params, cfg, prompts, gen: int, device, *,
-                  teacher: Optional[torch.Tensor] = None) -> Generation:
+                  teacher: Optional[torch.Tensor] = None,
+                  max_len: Optional[int] = None) -> Generation:
     """Prefill `prompts` (B, S) and decode gen - 1 more tokens greedily.
     teacher: optional (B, >= gen - 1) tokens fed instead of the greedy
-    ones (a second run that must follow the first run's path)."""
+    ones (a second run that must follow the first run's path). max_len:
+    the cache's length (default S + gen)."""
     b, s = prompts.shape
-    cache = arch_serving(cfg, device).init_state(b, s + gen)
+    cache = arch_serving(cfg, device).init_state(b, max_len or s + gen)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
     (logits, cache), t_prefill = timed_call(
@@ -103,17 +127,15 @@ class ServeResult:
     deploy_s: float
 
 
-def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
-                 batch: int = 4, prompt_len: int = 64, gen: int = 32,
-                 cim: bool = False, cim_mode: str = "ideal",
-                 cim_bits: int = 0, cim_cores: int = 0,
-                 cim_ir_drop: float = 0.0, device: Optional[str] = None,
-                 n_layers: Optional[int] = None,
-                 params=None, prompts=None, x_cal=None) -> ServeResult:
-    """Build (or take) params, deploy the chip under `cim`, serve one
-    static batch. The params, prompts and calibration batches are drawn
-    from generators seeded 0, 1 and 7; params / prompts / x_cal, when
-    given, replace those draws (params must already be on `device`)."""
+def deploy(arch: str = "gemma2-9b", *, smoke: bool = False,
+           cim: bool = False, cim_mode: str = "ideal", cim_bits: int = 0,
+           cim_cores: int = 0, cim_ir_drop: float = 0.0,
+           device: Optional[str] = None, n_layers: Optional[int] = None,
+           params=None, x_cal=None):
+    """(cfg, params, deploy seconds): the served config, its params (drawn
+    from a generator seeded 0 unless given, on `device`) and, under
+    `cim`, every projection compiled onto its chip (calibration batches
+    from a generator seeded 7 unless `x_cal` is given)."""
     dev = resolve_device(device)
     cfg = serving_config(arch, smoke=smoke, cim=cim, cim_bits=cim_bits,
                          cim_ir_drop=cim_ir_drop, n_layers=n_layers)
@@ -132,12 +154,173 @@ def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         deploy_s = sw.s
+    return cfg, params, deploy_s
+
+
+def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
+                 batch: int = 4, prompt_len: int = 64, gen: int = 32,
+                 cim: bool = False, cim_mode: str = "ideal",
+                 cim_bits: int = 0, cim_cores: int = 0,
+                 cim_ir_drop: float = 0.0, device: Optional[str] = None,
+                 n_layers: Optional[int] = None,
+                 params=None, prompts=None, x_cal=None) -> ServeResult:
+    """Build (or take) params, deploy the chip under `cim`, serve one
+    static batch. The params, prompts and calibration batches are drawn
+    from generators seeded 0, 1 and 7; params / prompts / x_cal, when
+    given, replace those draws (params must already be on `device`)."""
+    dev = resolve_device(device)
+    cfg, params, deploy_s = deploy(
+        arch, smoke=smoke, cim=cim, cim_mode=cim_mode, cim_bits=cim_bits,
+        cim_cores=cim_cores, cim_ir_drop=cim_ir_drop, device=dev,
+        n_layers=n_layers, params=params, x_cal=x_cal)
     if prompts is None:
         prompts = lm_tokens(torch.Generator(dev).manual_seed(1), batch,
                             prompt_len, cfg.vocab)
     prompts = prompts.to(dev)
     out = greedy_decode(params, cfg, prompts, gen, dev)
     return ServeResult(cfg, params, prompts, out, deploy_s)
+
+
+def traffic_stream(cfg, n_requests: int, *, prompt_len: int, gen: int,
+                   chunk: int, rate: float, device):
+    """(requests, max_len): the open-loop stream --traffic serves, drawn
+    by `data.traffic_requests` from a generator seeded 1 on `device`:
+    prompts in pages of `chunk` tokens up to prompt_len (rounded down to
+    a page), gen // 2 .. gen tokens each, Poisson arrivals at `rate`
+    req/s; max_len is a slot's length."""
+    page = chunk
+    max_prompt = max(prompt_len - prompt_len % page, page)
+    gen_hi = max(gen, 2)
+    tr = traffic_requests(torch.Generator(device).manual_seed(1),
+                          n_requests, cfg.vocab, min_len=page,
+                          max_len=max_prompt, page=page, rate=rate,
+                          min_gen=max(gen // 2, 1), max_gen=gen_hi)
+    toks, lens = tr.tokens.cpu().numpy(), tr.lengths.cpu().numpy()
+    gens, arrivals = tr.gen.cpu().tolist(), tr.arrivals.cpu().tolist()
+    reqs = [Request(rid=i, prompt=toks[i, :lens[i]], max_new=gens[i],
+                    arrival=arrivals[i]) for i in range(n_requests)]
+    return reqs, max_prompt + gen_hi
+
+
+@dataclasses.dataclass
+class TrafficResult:
+    cfg: object
+    params: dict
+    requests: list                # scheduler.Request, results filled in
+    stats: dict                   # ContinuousBatchingEngine.run's summary
+    engine: object
+    deploy_s: float
+
+
+def serve_traffic(arch: str = "gemma2-9b", *, smoke: bool = False,
+                  requests: int = 16, slots: int = 4, chunk: int = 32,
+                  rate: float = 50.0, prompt_len: int = 64, gen: int = 32,
+                  cim: bool = False, cim_mode: str = "ideal",
+                  cim_bits: int = 0, cim_cores: int = 0,
+                  cim_ir_drop: float = 0.0, device: Optional[str] = None,
+                  n_layers: Optional[int] = None,
+                  capture_logits: bool = False, metrics=None, trace=None,
+                  strict_jit: bool = False) -> TrafficResult:
+    """Deploy as `serve_static` does, then serve `traffic_stream`'s
+    requests in real time through a `slots`-slot continuous-batching
+    engine with `chunk`-token prefill chunks."""
+    dev = resolve_device(device)
+    cfg, params, deploy_s = deploy(
+        arch, smoke=smoke, cim=cim, cim_mode=cim_mode, cim_bits=cim_bits,
+        cim_cores=cim_cores, cim_ir_drop=cim_ir_drop, device=dev,
+        n_layers=n_layers)
+    reqs, max_len = traffic_stream(cfg, requests, prompt_len=prompt_len,
+                                   gen=gen, chunk=chunk, rate=rate,
+                                   device=dev)
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=slots,
+                                   max_len=max_len, chunk=chunk,
+                                   capture_logits=capture_logits,
+                                   metrics=metrics, trace=trace,
+                                   strict_jit=strict_jit)
+    stats = eng.run(reqs)
+    return TrafficResult(cfg, params, reqs, stats, eng, deploy_s)
+
+
+def _add_obs_flags(ap):
+    ap.add_argument("--metrics-out", default="",
+                    help="write the metrics registry as JSON at exit")
+    ap.add_argument("--prom-out", default="",
+                    help="write the metrics registry in Prometheus text "
+                         "exposition format at exit")
+    ap.add_argument("--trace-out", default="",
+                    help="write per-request span timelines as Chrome "
+                         "trace-event JSON (open in Perfetto) at exit")
+    ap.add_argument("--summary-out", default="",
+                    help="write the run's summary stats as JSON")
+    ap.add_argument("--strict-jit", action="store_true",
+                    help="make the one-compilation contract a hard "
+                         "assertion: any compilation after warmup raises")
+
+
+def _write_obs(args, metrics, trace=None, summary=None):
+    """Flush whichever observability outputs were requested."""
+    if args.metrics_out:
+        metrics.write_json(args.metrics_out)
+        print(f"metrics: wrote {args.metrics_out}")
+    if args.prom_out:
+        metrics.write_prometheus(args.prom_out)
+        print(f"metrics: wrote {args.prom_out}")
+    if args.trace_out and trace is not None:
+        trace.write(args.trace_out)
+        print(f"trace: wrote {args.trace_out} ({len(trace.events)} events)")
+    if args.summary_out and summary is not None:
+        with open(args.summary_out, "w") as f:
+            json.dump(summary, f, indent=2, sort_keys=True)
+            f.write("\n")
+        print(f"summary: wrote {args.summary_out}")
+
+
+def _print_chip(args, cfg, params, deploy_s):
+    n_packed = sum(1 for k in params["layers"] if k.endswith("_cim"))
+    passes = {k[:-4]: v[0].packed.n_passes
+              for k, v in params["layers"].items() if k.endswith("_cim")}
+    print(f"cim: compiled {n_packed} projection stacks x "
+          f"{cfg.n_layers} layers ({args.cim_mode}, "
+          f"bits={cfg.cim_in_bits}/{cfg.cim_out_bits}, "
+          f"ir_drop={cfg.cim_ir_drop}, tp=1) in {deploy_s:.1f}s; "
+          f"passes per projection {passes}")
+
+
+def _serve_traffic(args, kw):
+    """--traffic: the seeded open-loop stream through the slotted pool;
+    the one-compilation contract is asserted before anything is written."""
+    metrics = MetricsRegistry()
+    trace = TraceBuffer() if args.trace_out else None
+    slots = args.slots or args.batch
+    res = serve_traffic(requests=args.requests, slots=slots,
+                        chunk=args.chunk, rate=args.rate,
+                        prompt_len=args.prompt_len, gen=args.gen,
+                        metrics=metrics, trace=trace,
+                        strict_jit=args.strict_jit, **kw)
+    cfg, stats = res.cfg, res.stats
+    if args.cim:
+        _print_chip(args, cfg, res.params, res.deploy_s)
+    assert stats["decode_traces"] == 1, \
+        f"decode recompiled across occupancy changes: {stats['decode_traces']}"
+    tag = " cim=packed" if args.cim else ""
+    print(f"arch={cfg.name}{tag} traffic: {stats['requests']} reqs "
+          f"slots={slots} chunk={args.chunk} rate={args.rate}/s -> "
+          f"{stats['tokens']} tokens in {stats['wall_s']:.2f}s "
+          f"({stats['tok_per_s']:.1f} tok/s) "
+          f"p50={stats['p50_ms']:.1f}ms p99={stats['p99_ms']:.1f}ms "
+          f"ttft_p50={stats['ttft_p50_ms']:.1f}ms "
+          f"decode_traces={stats['decode_traces']}")
+    if stats["energy_pj"] > 0:
+        print(f"chip energy: {stats['energy_pj']/1e6:.2f} uJ "
+              f"({stats['pj_per_token']/1e3:.1f} nJ/token, "
+              f"{stats['tops_per_w']:.2f} TOPS/W, "
+              f"utilization={stats['utilization']:.2f})")
+    summary = dict(stats)
+    summary.update({"mode": "traffic", "arch": cfg.name,
+                    "cim": bool(args.cim), "slots": slots,
+                    "chunk": args.chunk, "rate": args.rate})
+    _write_obs(args, metrics, trace=trace, summary=summary)
+    return stats
 
 
 def main(argv=None):
@@ -167,24 +350,31 @@ def main(argv=None):
                          "vertical column splits")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--traffic", action="store_true",
+                    help="continuous-batching mode: serve an open-loop "
+                         "Poisson request stream through the slotted pool "
+                         "(launch/scheduler) instead of one static batch")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="--traffic: number of requests in the stream")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="--traffic: pool slots (0 = --batch)")
+    ap.add_argument("--chunk", type=int, default=32,
+                    help="--traffic: prefill chunk size (and prompt page)")
+    ap.add_argument("--rate", type=float, default=50.0,
+                    help="--traffic: Poisson arrival rate (req/s)")
+    _add_obs_flags(ap)
     args = ap.parse_args(argv)
-    res = serve_static(args.arch, smoke=args.smoke, batch=args.batch,
-                       prompt_len=args.prompt_len, gen=args.gen,
-                       cim=args.cim, cim_mode=args.cim_mode,
-                       cim_bits=args.cim_bits, cim_cores=args.cim_cores,
-                       cim_ir_drop=args.cim_ir_drop, device=args.device,
-                       n_layers=args.layers or None)
+    kw = dict(smoke=args.smoke, cim=args.cim, cim_mode=args.cim_mode,
+              cim_bits=args.cim_bits, cim_cores=args.cim_cores,
+              cim_ir_drop=args.cim_ir_drop, device=args.device,
+              n_layers=args.layers or None)
+    if args.traffic:
+        return _serve_traffic(args, dict(kw, arch=args.arch))
+    res = serve_static(args.arch, batch=args.batch,
+                       prompt_len=args.prompt_len, gen=args.gen, **kw)
     cfg, g = res.cfg, res.out
     if args.cim:
-        n_packed = sum(1 for k in res.params["layers"] if k.endswith("_cim"))
-        passes = {k[:-4]: v[0].packed.n_passes
-                  for k, v in res.params["layers"].items()
-                  if k.endswith("_cim")}
-        print(f"cim: compiled {n_packed} projection stacks x "
-              f"{cfg.n_layers} layers ({args.cim_mode}, "
-              f"bits={cfg.cim_in_bits}/{cfg.cim_out_bits}, "
-              f"ir_drop={cfg.cim_ir_drop}, tp=1) in {res.deploy_s:.1f}s; "
-              f"passes per projection {passes}")
+        _print_chip(args, cfg, res.params, res.deploy_s)
     t_decode = sum(g.decode_s) / len(g.decode_s) if g.decode_s else 0.0
     thr = (args.batch / t_decode) if t_decode else float("nan")
     dev = torch.device(args.device)
@@ -194,6 +384,35 @@ def main(argv=None):
           f"prefill={g.prefill_s * 1e3:.1f}ms "
           f"decode={t_decode * 1e3:.1f}ms/tok throughput={thr:.1f} tok/s")
     print("sample token ids:", g.tokens[0, :16].tolist())
+    # the reference's metering of the static path: prefill pushes batch x
+    # prompt rows through every chip, each decode step batch rows
+    metrics = MetricsRegistry()
+    meter = ChipMeter.from_params(res.params, cfg.cim_in_bits,
+                                  cfg.cim_out_bits)
+    metrics.histogram("static_prefill_s",
+                      "static batch prefill seconds").observe(g.prefill_s)
+    meter.count_rows(args.batch * args.prompt_len)
+    h_dec = metrics.histogram("static_decode_step_s",
+                              "static decode step seconds")
+    for dt in g.decode_s:
+        meter.count_rows(args.batch)
+        h_dec.observe(dt)
+    meter.export(metrics)
+    n_tok = args.batch * args.gen
+    energy_pj = meter.energy_pj()
+    summary = {
+        "mode": "static", "arch": cfg.name, "cim": bool(args.cim),
+        "batch": args.batch, "prompt_len": args.prompt_len,
+        "gen": args.gen, "tokens": n_tok,
+        "prefill_ms": g.prefill_s * 1e3,
+        "decode_ms_per_tok": t_decode * 1e3,
+        "tok_per_s": (args.batch / t_decode) if t_decode else 0.0,
+        "mvm_dispatches": meter.mvm_dispatches(),
+        "energy_pj": energy_pj,
+        "pj_per_token": energy_pj / n_tok if n_tok else 0.0,
+        "sample_tokens": g.tokens[0, :16].tolist(),
+    }
+    _write_obs(args, metrics, summary=summary)
     return g.tokens
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
@@ -119,22 +119,26 @@ def _softcap(x, cap: float):
 
 
 def _attn_mask(q_pos, kv_pos, causal, window: int, kv_len):
-    """Boolean (Sq, Sk) mask. kv_len: scalar cache fill (static path)."""
+    """Boolean mask, (Sq, Sk) — or (B, Sq, Sk) when q_pos is (B, Sq) and
+    kv_len a (B,) tensor (the slot pool: every request at its own
+    position). kv_len: the cache fill, an int on the static path."""
     dist = q_pos[..., :, None] - kv_pos[None, :]
     mask = torch.ones(dist.shape, dtype=torch.bool, device=dist.device)
     if causal:
         mask &= dist >= 0
     if window > 0:
         mask &= dist < window
-    if kv_len is not None:
+    if isinstance(kv_len, torch.Tensor):
+        mask = mask & (kv_pos[None, None, :] < kv_len[:, None, None])
+    elif kv_len is not None:
         mask &= kv_pos < kv_len
     return mask
 
 
 def _expand_mask(mask):
-    """Broadcast an (Sq,Sk) mask against (B,H,Sq,Sk) logits (the per-slot
-    (B,Sq,Sk) masks of pool decode arrive with ROADMAP A6)."""
-    return mask[None, None]
+    """Broadcast an (Sq,Sk) or (B,Sq,Sk) mask against (B,H,Sq,Sk)
+    logits."""
+    return mask[None, None] if mask.ndim == 2 else mask[:, None]
 
 
 # KV length above which the reference switches to its chunked online-
@@ -159,8 +163,10 @@ def attention(q, k, v, *, causal: bool, q_pos, kv_pos, window: int = 0,
     logits = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
     logits = _softcap(logits, softcap)
     mask = _attn_mask(q_pos, kv_pos, causal, window, kv_len)
+    # a Python scalar, not a device tensor: no host-to-device copy (legal
+    # inside a CUDA graph capture), the same f32 value
     logits = torch.where(_expand_mask(mask), logits.to(torch.float32),
-                         torch.tensor(-1e30, device=q.device))
+                         -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v if rep == 1 else vf)
 
@@ -233,12 +239,16 @@ def _window(cfg: ArchConfig, layer_idx: int) -> int:
 
 
 def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
-                cache=None, cache_len: Optional[int] = None):
+                cache=None, cache_len=None, write_mask=None):
     """One pre-norm transformer block. Returns (y, cache).
 
     cache: this layer's (k, v) views of the (B, S_max, nkv, hd) cache;
-    the new keys and values are written into them IN PLACE at
-    cache_len (the reference returns an updated copy)."""
+    the new keys and values are written into them IN PLACE at cache_len
+    (the reference returns an updated copy): an int on the static path,
+    or a (B,) tensor of per-slot fills (the slot pool), each row then
+    scattered at its own offset. write_mask: optional (B,) bool; a row
+    where it is False rewrites its cache entry with what was there, so a
+    frozen slot's cache stays bit for bit as it was."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rms_norm(x, p["ln1"])
@@ -251,8 +261,18 @@ def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
 
     if cache is not None:
         ck, cv = cache
-        ck[:, cache_len:cache_len + s] = k
-        cv[:, cache_len:cache_len + s] = v
+        if isinstance(cache_len, torch.Tensor):
+            sidx = cache_len[:, None] + torch.arange(s, device=x.device)
+            bidx = torch.arange(b, device=x.device)[:, None]
+            if write_mask is not None:
+                keep = write_mask[:, None, None, None]
+                k = torch.where(keep, k, ck[bidx, sidx])
+                v = torch.where(keep, v, cv[bidx, sidx])
+            ck[bidx, sidx] = k
+            cv[bidx, sidx] = v
+        else:
+            ck[:, cache_len:cache_len + s] = k
+            cv[:, cache_len:cache_len + s] = v
         kv_pos = torch.arange(ck.shape[1], device=x.device)
         attn = attention(q, ck, cv, causal=True, q_pos=positions,
                          kv_pos=kv_pos, window=window,
@@ -269,6 +289,8 @@ def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
 def _embed(params, tokens, cfg: ArchConfig):
     x = params["embed"][tokens].to(cfg.dtype)
     if cfg.name.startswith("gemma"):
+        # a 0-d CPU tensor: a CUDA kernel reads it as a host scalar, with
+        # no copy to the card (legal inside a CUDA graph capture)
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
     return x
 
@@ -290,7 +312,8 @@ def lm_forward(params, tokens, cfg: ArchConfig):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device=None):
     """Decode cache on `device` (CUDA unless "cpu" is passed): KV of shape
-    (L, B, S, nkv, hd) and the scalar fill."""
+    (L, B, S, nkv, hd) and the fill, an int (the slot pool widens it to a
+    (B,) tensor, `launch/scheduler.init_pool`)."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
@@ -298,18 +321,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
 
 
-def decode_step(params, cache, tokens, cfg: ArchConfig):
+def decode_step(params, cache, tokens, cfg: ArchConfig, write_mask=None):
     """One decode step: tokens (B, S) + cache -> (logits (B, V) of the
     last position, cache). The cache tensors are updated in place; the
-    returned dict carries the new fill."""
+    returned dict carries the new fill. cache["len"] is an int on the
+    static path and a (B,) tensor of per-slot fills on the slot pool's:
+    positions then carry a batch dimension, and each slot's keys and
+    values land at its own fill (rows where `write_mask` is False keep
+    their cache)."""
     x = _embed(params, tokens, cfg)
     pos = cache["len"]
-    positions = pos + torch.arange(tokens.shape[1], device=x.device)
+    ar = torch.arange(tokens.shape[1], device=x.device)
+    positions = pos[:, None] + ar[None] if isinstance(pos, torch.Tensor) \
+        else pos + ar
     for li in range(cfg.n_layers):
         x, _ = dense_block(layer_params(params, li), x, cfg,
                            positions=positions, layer_idx=li,
                            cache=(cache["k"][li], cache["v"][li]),
-                           cache_len=pos)
+                           cache_len=pos, write_mask=write_mask)
     x = rms_norm(x, params["ln_f"])
     logits = _softcap((x[:, -1] @ params["embed"].T).to(torch.float32),
                       cfg.final_softcap)
