@@ -90,6 +90,34 @@ the final result line:
                 path (a check of the path, not an accuracy)
   resnet20      ResNet-20 at 32x32x3, batch 256, relaxed: 21 + 22 launches,
                 plain rerun equal, top-1 agreement
+  train-cnn7    cnn7 at 28x28x1 trained with the reference's noise-resilient
+                recipe (2048 cluster images, 240 steps of 64, weight noise
+                0.15 after a clean half): ms per step clean and noisy (CUDA
+                events), top-1 under weight noise 0, 0.1 and 0.2 (3 trials);
+                a relaxed deploy on 32 images and chip inference on 512 test
+                images (6 + 7 launches) equal to the plain rerun; software
+                and chip top-1 and their agreement
+  chip-in-loop  progressive fine-tuning of that model over its 7 stages (192
+                images, 25 steps per stage, lr 5e-4, noise 0.1) on the Fig.
+                3f chip (IR drop 4e-5, ADC offset spread 0.004: the
+                bit-serial oracle, no kernel launch) and on a relaxed chip
+                (every stage's deploy and chip prefix through cim_mvm, each
+                held against the plain version); test top-1 without and
+                with fine-tuning, seconds and launches per stage
+  train-resnet20  ResNet-20 at 32x32x3, 20 clean steps of 64 with BN state
+                (ms per step; the running means moved); deploy(upto=1, 9,
+                10, 22), one launch per programmed convolution; chip
+                inference on 256 images (22 launches) equal to the plain
+                rerun
+  lstm          the 4-cell LSTM at paper geometry (hidden 112, 50 steps of
+                40 MFCC features, 12 classes; 2048 / 512 keyword series),
+                200 steps of 64 at lr 3e-3, noise 0.15 after a clean half;
+                a relaxed deploy on 16 series; chip inference on the test
+                set: 404 launches, equal to the plain rerun; top-1 of both,
+                ms per step and per chip inference (its device ms in the
+                profile phase); cell 0's three matrices (N = 448, 448, 12)
+                against the plain version in every activation, timed beside
+                their bound
   noisy-matmul  the noise-injection training matmul at the 7-layer CNN's
                 conv5 and a gemma2-9b w_g in training (2 launches), then
                 against its plain version (NOISY_TOL), seed determinism,
@@ -104,7 +132,7 @@ the final result line:
                 decode window (the split route's term and fold kernels
                 timed apart; a decode step that launches the walk fails),
                 three
-                profiled chip inferences of each CNN path (the
+                profiled chip inferences of each CNN path and the LSTM (the
                 single-matrix kernel's and the glue's device ms: the
                 elementwise and concatenation kernels), and the
                 transposed kernel's device time at the RBM's shape, after
@@ -205,6 +233,15 @@ RAGGED_SHAPES = {"M 1": (1, 577, 10), "M 3": (3, 145, 16),
                  "N 500": (5, 300, 500)}
 NOISY_SHAPES = {"cnn7 conv5 training": (12544, 577, 64),
                 "gemma2-9b w_g training": (2048, 3584, 14336)}
+# the training paths: the reference's recipes (benchmarks/bench_accuracy.py,
+# bench_chip_in_loop.py, tests/test_models.py) at the paper's geometry
+TRAIN_CNN7 = dict(hw=28, train=2048, test=512, batch=64, steps=240,
+                  noise=0.15, lr=1e-3, cal=32)
+CHIP_IN_LOOP = dict(train=192, cal=24, ft_steps=25, lr=5e-4, noise=0.1)
+TRAIN_RESNET20 = dict(hw=32, train=2048, batch=64, steps=20, cal=32,
+                      uptos=(1, 9, 10, 22))
+LSTM = dict(train=2048, test=512, batch=64, steps=200, noise=0.15, lr=3e-3,
+            cal=16)
 
 failures = []
 
@@ -1169,7 +1206,11 @@ def profile_prefill(torch, res, dev):
     served model (torch.profiler / CUPTI): every walk launch in start
     order, each layer's seven projections in the model's call order
     (PROJ_ORDER), so the walk's device ms per projection is the mean over
-    the layers; the prefill's device ms by kernel."""
+    the layers; the prefill's device ms by kernel. The profiler can miss
+    the first kernels of its window (on the card it has missed a
+    prefill's first walk launch), so the window opens on another prefill
+    and a marker kernel (`torch.cuda._sleep`), and only what follows the
+    marker is read."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.steps import arch_serving, make_prefill_step
     cfg, prompts = res.cfg, res.prompts
@@ -1180,9 +1221,12 @@ def profile_prefill(torch, res, dev):
         return arch_serving(cfg, dev).init_state(prompts.shape[0], cache_len)
     prefill(res.params, cache(), {"tokens": prompts})
     torch.cuda.synchronize()
-    state = cache()
+    lead, state = cache(), cache()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        prefill(res.params, lead, {"tokens": prompts})
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)          # the marker
         prefill(res.params, state, {"tokens": prompts})
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events()
@@ -1190,6 +1234,11 @@ def profile_prefill(torch, res, dev):
                     key=lambda e: e.time_range.start)
     if not events:
         return {"device_ms": "not measured"}
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    if not marks:
+        raise AssertionError("prefill: the marker kernel is not in the "
+                             "profile")
+    events = [e for e in events if e.time_range.start >= marks[-1]]
     walk = [e.time_range.elapsed_us() / 1e3 for e in events
             if "cim_walk" in e.name]
     if not walk or len(walk) % len(PROJ_ORDER):
@@ -1558,6 +1607,373 @@ def resnet20_phase(torch, K, dev, stats):
     return out
 
 
+def train_step_ms(torch, step, params, data, gen, batch, reps=10):
+    """Median CUDA-event ms of one train step (host included) on a fixed
+    batch, from a copy of the optimizer state (the params are not
+    kept)."""
+    from repro_torch.train.optimizer import adamw_init
+    x, y = data
+    xb, yb = x[:batch], y[:batch]
+    opt = adamw_init(params)
+    step(params, opt, xb, yb, gen)
+    return median_ms(torch, lambda: step(params, opt, xb, yb, gen), reps)
+
+
+def check_plain(torch, a, b, what):
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: the plain rerun differs by "
+                             f"{float((a - b).abs().max())}")
+
+
+def top1(torch, logits, labels):
+    return float((logits.argmax(-1) == labels).to(torch.float32).mean())
+
+
+@phase("train-cnn7")
+def train_cnn7_phase(torch, K, dev, stats):
+    """cnn7 at 28x28x1 trained with the noise-resilient recipe, then chip
+    inference on the relaxed chip: the launches of deploy and inference
+    counted, logits equal to the plain rerun."""
+    from repro_torch.core.types import CIMConfig
+    from repro_torch.data import cluster_images
+    from repro_torch.models import cnn7
+    from repro_torch.obs.clock import stopwatch
+    from repro_torch.train import noisy
+    c = TRAIN_CNN7
+    x, y = cluster_images(torch.Generator(dev).manual_seed(0), c["train"],
+                          hw=c["hw"])
+    xt, yt = cluster_images(torch.Generator(dev).manual_seed(99), c["test"],
+                            hw=c["hw"])
+    params = cnn7.init_full(torch.Generator(dev).manual_seed(1), x[:2])
+    with stopwatch() as sw:
+        params, losses = noisy.train(
+            torch.Generator(dev).manual_seed(2), params, cnn7.apply, (x, y),
+            steps=c["steps"], batch=c["batch"], noise_frac=c["noise"],
+            lr=c["lr"])
+        torch.cuda.synchronize()
+    gen = torch.Generator(dev).manual_seed(3)
+    clean_ms = train_step_ms(torch, noisy.make_train_step(
+        cnn7.apply, 0.0, c["lr"]), params, (x, y), gen, c["batch"])
+    noisy_ms = train_step_ms(torch, noisy.make_train_step(
+        cnn7.apply, c["noise"], 0.3 * c["lr"]), params, (x, y), gen,
+        c["batch"])
+    with torch.no_grad():
+        soft = cnn7.apply(params, xt)
+        sweep = noisy.eval_under_noise(
+            torch.Generator(dev).manual_seed(4), params, cnn7.apply,
+            (xt, yt), (0.0, 0.1, 0.2), n_trials=3)
+        cfg = CIMConfig(in_bits=4, out_bits=8)
+        reset_launches(K)                # the path's run starts here
+        states = cnn7.deploy(params, cfg, x[:c["cal"]], mode="relaxed",
+                             generator=torch.Generator(dev).manual_seed(5))
+        chip = cnn7.chip_apply(states, params, xt, cfg)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)      # ... and ends here
+        stats["launches"]["train-cnn7"] = launches
+        if launches != dict({k: 0 for k in K.LAUNCHES}, cim_mvm=13):
+            raise AssertionError(f"train-cnn7: launches {launches}, the "
+                                 "path needs 6 + 7 cim_mvm")
+        check_plain(torch, chip, cnn7.chip_apply(states, params, xt, cfg,
+                                                 impl="plain"),
+                    "train-cnn7 chip inference")
+    tenth = max(1, len(losses) // 10)
+    first, last = (sum(v) / tenth for v in (losses[:tenth], losses[-tenth:]))
+    if not last < first or not bool(torch.isfinite(chip).all()):
+        raise AssertionError(f"train-cnn7: mean loss of the first tenth "
+                             f"{first}, of the last {last}; or chip logits "
+                             "not finite")
+    stats["cnn7_trained"] = (params, x, y, xt, yt)
+    return {"images": [c["train"], c["hw"], c["hw"], 1],
+            "steps": c["steps"], "batch": c["batch"], "train_s": sw.s,
+            "ms_per_step_clean": clean_ms, "ms_per_step_noisy": noisy_ms,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "software_top1": top1(torch, soft, yt),
+            "top1_under_weight_noise": sweep,
+            "chip_top1_relaxed": top1(torch, chip, yt),
+            "top1_agreement_chip_vs_software": float(
+                (chip.argmax(-1) == soft.argmax(-1)).float().mean()),
+            "launches": launches, "test_images": c["test"]}
+
+
+def finetune_path(torch, K, dev, cnn7, cfg, params, data, test, plain):
+    """Accuracy on the chip without and with progressive fine-tuning, the
+    seconds and cim_mvm launches of each stage; with `plain`, each stage's
+    deploy (from the same generator state) and chip prefix rerun through
+    the plain version and held equal."""
+    from repro_torch.train.chip_in_loop import progressive_finetune
+    from repro_torch.train.noisy import accuracy
+    from repro_torch.obs.clock import now
+    c = CHIP_IN_LOOP
+    x, y = data
+    xt, yt = test
+    with torch.no_grad():
+        s0 = cnn7.deploy_upto(params, cfg, x[:c["cal"]], cnn7.N_STAGES,
+                              generator=torch.Generator(dev).manual_seed(5))
+        acc0 = float(accuracy(cnn7.chip_prefix(s0, params, xt,
+                                               cnn7.N_STAGES, cfg), yt))
+    marks, launches = [], []
+
+    def deploy(g, p, cf, xc, upto):
+        torch.cuda.synchronize()
+        marks.append(now())
+        launches.append(K.LAUNCHES["cim_mvm"])
+        state = g.get_state()
+        s = cnn7.deploy_upto(p, cf, xc, upto, generator=g)
+        if plain:
+            g2 = torch.Generator(dev)
+            g2.set_state(state)
+            sp = cnn7.deploy_upto(p, cf, xc, upto, generator=g2,
+                                  impl="plain")
+            for n in s:
+                for f in ("g_pos", "g_neg", "v_decr", "adc_offset"):
+                    check_plain(torch, getattr(s[n].layer, f),
+                                getattr(sp[n].layer, f),
+                                f"chip-in-loop stage {upto} deploy {n} {f}")
+        return s
+
+    def prefix(s, p, xx, upto):
+        h = cnn7.chip_prefix(s, p, xx, upto, cfg)
+        if plain:
+            check_plain(torch, h, cnn7.chip_prefix(s, p, xx, upto, cfg,
+                                                   impl="plain"),
+                        f"chip-in-loop stage {upto} chip_prefix")
+        return h
+
+    states, ft, accs = progressive_finetune(
+        torch.Generator(dev).manual_seed(5), dict(params), cfg, x, y,
+        deploy_upto=deploy, chip_prefix=prefix, soft_suffix=cnn7.soft_suffix,
+        n_stages=cnn7.N_STAGES, noise_frac=c["noise"], ft_steps=c["ft_steps"],
+        lr=c["lr"])
+    torch.cuda.synchronize()
+    marks.append(now())
+    launches.append(K.LAUNCHES["cim_mvm"])
+    with torch.no_grad():
+        acc1 = float(accuracy(cnn7.chip_prefix(states, ft, xt,
+                                               cnn7.N_STAGES, cfg), yt))
+    return {"test_top1_no_finetune": acc0, "test_top1_finetuned": acc1,
+            "train_top1_per_stage": accs,
+            "s_per_stage": [b - a for a, b in zip(marks, marks[1:])],
+            "cim_mvm_launches_per_stage": [b - a for a, b in
+                                           zip(launches, launches[1:])]}
+
+
+@phase("chip-in-loop")
+def chip_in_loop_phase(torch, K, dev, stats):
+    """Progressive fine-tuning of the trained cnn7 on two chips: the Fig.
+    3f chip (IR drop and an ADC offset spread: the bit-serial oracle, no
+    kernel launch) and a relaxed one (every stage's deploy and chip prefix
+    through cim_mvm, held against the plain version)."""
+    from repro_torch.core.types import CIMConfig, NonIdealityConfig
+    from repro_torch.models import cnn7
+    if "cnn7_trained" not in stats:
+        raise AssertionError("chip-in-loop needs the train-cnn7 model")
+    params, x, y, xt, yt = stats["cnn7_trained"]
+    n = CHIP_IN_LOOP["train"]
+    data = (x[:n], y[:n])
+    out = {}
+    for name, ni, plain in (
+            ("fig3f", NonIdealityConfig(ir_drop_alpha=4e-5,
+                                        adc_offset_sigma=0.004), False),
+            ("relaxed", NonIdealityConfig(), True)):
+        cfg = CIMConfig(in_bits=4, out_bits=8, nonideal=ni)
+        reset_launches(K)                # the path's run starts here
+        res = finetune_path(torch, K, dev, cnn7, cfg, params, data,
+                            (xt, yt), plain)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)      # ... and ends here
+        stats["launches"][f"chip-in-loop-{name}"] = launches
+        # per stage k: min(k, 6) convolutions run during the deploy, and
+        # the prefix's min(k, 6) + (the fc at k = 7)
+        want = [0] * 7 if name == "fig3f" else \
+            [2 * min(k, 6) + (k == 7) for k in range(1, 8)]
+        if res["cim_mvm_launches_per_stage"] != want:
+            raise AssertionError(
+                f"chip-in-loop {name}: launches per stage "
+                f"{res['cim_mvm_launches_per_stage']}, the path needs {want}")
+        out[name] = {**res, "launches": launches}
+    return out
+
+
+@phase("train-resnet20")
+def train_resnet20_phase(torch, K, dev, stats):
+    """ResNet-20 at 32x32x3: clean steps with BN state, partial deploys
+    stopping at the first layer past `upto`, chip inference through the
+    kernel equal to the plain rerun."""
+    from repro_torch.core.types import CIMConfig
+    from repro_torch.data import cluster_images
+    from repro_torch.models import resnet20
+    from repro_torch.obs.clock import stopwatch
+    from repro_torch.train import noisy
+    from repro_torch.train.optimizer import tree_leaves
+    c = TRAIN_RESNET20
+    x, y = cluster_images(torch.Generator(dev).manual_seed(0), c["train"],
+                          hw=c["hw"], channels=3)
+    xt, yt = cluster_images(torch.Generator(dev).manual_seed(99),
+                            CNN_BATCH, hw=c["hw"], channels=3)
+    init = resnet20.init(torch.Generator(dev).manual_seed(1))
+    with stopwatch() as sw:
+        params, losses = noisy.train(
+            torch.Generator(dev).manual_seed(2), init, resnet20.apply,
+            (x, y), steps=c["steps"], batch=c["batch"], noise_frac=0.0,
+            has_bn_state=True)
+        torch.cuda.synchronize()
+    step_ms = train_step_ms(torch, noisy.make_train_step(
+        resnet20.apply, 0.0, 1e-3, has_bn_state=True), params, (x, y),
+        torch.Generator(dev).manual_seed(3), c["batch"])
+    bns = [k for k in params if isinstance(params[k], dict)
+           and "mean" in params[k]]
+    moved = min(float((params[k]["mean"] - init[k]["mean"]).abs().max())
+                for k in bns)
+    if not moved > 0 or any(t.requires_grad for t in tree_leaves(params)):
+        raise AssertionError("train-resnet20: a BN running mean did not "
+                             "move, or a param keeps autograd history")
+    cfg = CIMConfig(in_bits=4, out_bits=8)
+    names = resnet20.conv_layers(params)
+    upto = {}
+    with torch.no_grad():
+        for k in c["uptos"]:
+            reset_launches(K)
+            states = resnet20.deploy(
+                params, cfg, x[:c["cal"]], upto=k,
+                generator=torch.Generator(dev).manual_seed(4))
+            torch.cuda.synchronize()
+            n = K.LAUNCHES["cim_mvm"]
+            # every programmed convolution runs once on the chip
+            if list(states) != names[:k] or n != min(k, len(names) - 1):
+                raise AssertionError(f"train-resnet20: deploy(upto={k}) "
+                                     f"gave {list(states)} in {n} launches")
+            upto[k] = {"layers": len(states), "launches": n}
+        reset_launches(K)                # the path's run starts here
+        chip = resnet20.chip_apply(states, params, xt, cfg)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)      # ... and ends here
+        stats["launches"]["train-resnet20"] = launches
+        if launches != dict({k: 0 for k in K.LAUNCHES}, cim_mvm=22):
+            raise AssertionError(f"train-resnet20: inference launches "
+                                 f"{launches}, the path needs 22 cim_mvm")
+        check_plain(torch, chip, resnet20.chip_apply(states, params, xt, cfg,
+                                                     impl="plain"),
+                    "train-resnet20 chip inference")
+        soft, _ = resnet20.apply(params, xt)
+    return {"steps": c["steps"], "batch": c["batch"], "train_s": sw.s,
+            "ms_per_step": step_ms, "loss_first": losses[0],
+            "loss_last": losses[-1], "bn_running_mean_moved_min": moved,
+            "deploy_upto": upto, "launches": launches,
+            "software_top1": top1(torch, soft, yt),
+            "chip_top1_relaxed": top1(torch, chip, yt)}
+
+
+@phase("lstm")
+def lstm_phase(torch, K, dev, stats):
+    """The 4-cell LSTM at paper geometry trained on keyword MFCCs, a
+    relaxed deploy, chip inference (n_cells * (2 T + 1) launches, equal to
+    the plain rerun), and its three matrix shapes timed against their
+    bound."""
+    from repro_torch.core import cim
+    from repro_torch.core.types import CIMConfig
+    from repro_torch.data import keyword_mfcc
+    from repro_torch.models import lstm
+    from repro_torch.obs.clock import stopwatch
+    from repro_torch.train import noisy
+    c = LSTM
+    x, y = keyword_mfcc(torch.Generator(dev).manual_seed(0), c["train"])
+    xt, yt = keyword_mfcc(torch.Generator(dev).manual_seed(9), c["test"])
+    params = lstm.init(torch.Generator(dev).manual_seed(1))
+
+    def apply_fn(p, xx, generator=None, noise_frac=0.0, train=False):
+        return lstm.apply(p, xx, generator=generator, noise_frac=noise_frac)
+    with stopwatch() as sw:
+        params, losses = noisy.train(
+            torch.Generator(dev).manual_seed(2), params, apply_fn, (x, y),
+            steps=c["steps"], batch=c["batch"], noise_frac=c["noise"],
+            lr=c["lr"])
+        torch.cuda.synchronize()
+    gen = torch.Generator(dev).manual_seed(3)
+    step_ms = {nf: train_step_ms(torch, noisy.make_train_step(
+        apply_fn, nf, c["lr"]), params, (x, y), gen, c["batch"], reps=5)
+        for nf in (0.0, c["noise"])}
+    cfg = CIMConfig(in_bits=4, out_bits=8)
+    with torch.no_grad():
+        soft = apply_fn(params, xt)
+        states = lstm.deploy(params, cfg, x[:c["cal"]],
+                             generator=torch.Generator(dev).manual_seed(4))
+        t = x.shape[1]
+        n_launch = lstm.N_CELLS * (2 * t + 1)
+        reset_launches(K)                # the path's run starts here
+        chip = lstm.chip_apply(states, params, xt, cfg)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)      # ... and ends here
+        stats["launches"]["lstm"] = launches
+        if launches != dict({k: 0 for k in K.LAUNCHES}, cim_mvm=n_launch):
+            raise AssertionError(f"lstm: launches {launches}, the path "
+                                 f"needs {n_launch} cim_mvm")
+        check_plain(torch, chip, lstm.chip_apply(states, params, xt, cfg,
+                                                 impl="plain"),
+                    "lstm chip inference")
+        if not bool(torch.isfinite(chip).all()):
+            raise AssertionError("lstm: chip logits not finite")
+        infer = lambda: lstm.chip_apply(states, params, xt, cfg)
+        ms = median_ms(torch, infer, 3)
+        # its device time by kernel is read in the profile phase
+        stats["profile_cnn"].append(("lstm", infer, ms))
+        shapes = lstm_shapes(torch, K, cim, cfg, states, xt, dev, stats)
+    return {"cells": lstm.N_CELLS, "hidden": lstm.HIDDEN, "t": t,
+            "features": x.shape[2], "classes": lstm.N_CLASSES,
+            "steps": c["steps"], "batch": c["batch"], "train_s": sw.s,
+            "ms_per_step_clean": step_ms[0.0],
+            "ms_per_step_noisy": step_ms[c["noise"]],
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "software_top1": top1(torch, soft, yt),
+            "chip_top1_relaxed": top1(torch, chip, yt),
+            "top1_agreement_chip_vs_software": float(
+                (chip.argmax(-1) == soft.argmax(-1)).float().mean()),
+            "launches": launches, "inference_ms": ms, "shapes": shapes}
+
+
+def lstm_shapes(torch, K, cim, cfg, states, xt, dev, stats):
+    """Cell 0's three matrices at the test batch: the fused forward held
+    against its plain version in every activation it takes, then timed
+    (L2 flushed) beside its bound."""
+    import dataclasses
+    gen = torch.Generator(dev).manual_seed(6)
+    flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB > L2
+    rows = {}
+    m = xt.shape[0]
+    for name in ("ih", "hh", "ho"):
+        cl = states[f"cell0_{name}"]
+        lay = cl.layer
+        k, n = lay.gd.shape
+        xf = torch.randn(m, k - cl.bias_rows, generator=gen, device=dev)
+        for act in ACTIVATIONS:
+            cf = dataclasses.replace(cfg, activation=act)
+            check_equal(torch, cim.forward(lay, xf, cf, bias=cl.alpha,
+                                           bias_rows=cl.bias_rows),
+                        cim.forward(lay, xf, cf, bias=cl.alpha,
+                                    bias_rows=cl.bias_rows, impl="plain"),
+                        f"lstm {name} {act}", stats, "cim_mvm")
+        run = lambda: cim.forward(lay, xf, cfg, bias=cl.alpha,
+                                  bias_rows=cl.bias_rows)
+        run_p = lambda: cim.forward(lay, xf, cfg, bias=cl.alpha,
+                                    bias_rows=cl.bias_rows, impl="plain")
+        ms = median_ms(torch, run, 20, flush)
+        b_ms, b_by, nbytes, flops = cim_mvm_bound(m, k, n,
+                                                  k - cl.bias_rows)
+        g, grid = K.mvm_launch_geometry(m, k, n, k - cl.bias_rows, True,
+                                        dev)
+        rows[name] = {"m": m, "k": k, "n": n, "bias_rows": cl.bias_rows,
+                      "ms": ms, "plain_ms": median_ms(torch, run_p, 5, flush),
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "bound_share": b_ms / ms, "bytes": nbytes,
+                      "flops": flops, "geometry": {**g.as_dict(),
+                                                   "grid": grid}}
+        emit({"phase": "kernel-shape", "kernel": "cim_mvm", "model": "lstm",
+              "matrix": f"cell {name}", **rows[name]})
+    t = stats["time"].setdefault("cim_mvm", {})
+    t["lstm_ms"] = {k: r["ms"] for k, r in rows.items()}
+    t["lstm_bound_ms"] = {k: r["bound_ms"] for k, r in rows.items()}
+    return rows
+
+
 def noisy_tol(torch, NK, x, w, sigma_frac, seed):
     """NOISY_TOL (module docstring) at the reference's default block."""
     k, n = w.shape
@@ -1684,7 +2100,8 @@ def kernels_line(stats):
           "cim_mvm": "one 7-layer CNN chip inference at 28x28, batch 256: "
                      "its 7 launches summed (relaxed conductances; "
                      "fused_host_us: the fused wrapper's host time for "
-                     "them)",
+                     "them; lstm_ms: the LSTM's ih / hh / ho fused "
+                     "launches at batch 512)",
           "noisy_matmul": "a gemma2-9b w_g in training, M 2048, K 3584, "
                           "N 14336, both kernels (weight_ms, sgemm_ms: "
                           "each one's device time in the call; "
@@ -1713,7 +2130,8 @@ def kernels_line(stats):
             **{k: v for k, v in t.items()
                if k in ("device_ms", "bwd_ms", "matmul_only_ms",
                         "weight_ms", "sgemm_ms", "fused_ms", "fused_plain_ms",
-                        "fused_bound_ms", "fused_host_us")
+                        "fused_bound_ms", "fused_host_us", "lstm_ms",
+                        "lstm_bound_ms")
                or k.startswith("prefill_")},
             "ok": not failures})
     return {"kernels": rows}
@@ -1760,6 +2178,14 @@ def main() -> int:
     free(torch)
     cnn7_phase(torch, K, dev, stats)
     resnet20_phase(torch, K, dev, stats)
+    train_cnn7_phase(torch, K, dev, stats)
+    chip_in_loop_phase(torch, K, dev, stats)
+    stats.pop("cnn7_trained", None)
+    free(torch)
+    train_resnet20_phase(torch, K, dev, stats)
+    free(torch)
+    lstm_phase(torch, K, dev, stats)
+    free(torch)
     noisy_matmul_phase(torch, K, dev, stats)
     profile_phase(torch, dev, stats)
 

@@ -6,10 +6,12 @@ transformer's stacked layers, the CNNs' conv / fc / BN dicts and PACT clip
 vectors) and returns the port's params in the same layout.
 
 `chip_states_from_numpy` takes a dict of the reference's deployed
-`ChipLinear`s (`cnn7.deploy`, `resnet20.deploy`), their arrays as numpy,
-and returns the port's: the same programmed conductances, normalizers and
-ADC steps, which the two packages cannot draw alike for `relaxed` or
-`writeverify` programming, prepared for the kernel (`core.cim.prepare`).
+`ChipLinear`s (`cnn7.deploy` / `deploy_upto`, `resnet20.deploy`,
+`lstm.deploy`), their arrays as numpy, and returns the port's: the same
+programmed conductances, normalizers, ADC steps and measured ADC offsets,
+which the two packages cannot draw alike for `relaxed` or `writeverify`
+programming or an offset spread, prepared for the kernel
+(`core.cim.prepare`); `layer_from_numpy` does it for one `CIMLayer`.
 """
 from __future__ import annotations
 
@@ -29,20 +31,22 @@ def params_from_numpy(tree):
     return torch.from_numpy(a)
 
 
+def layer_from_numpy(layer):
+    """A reference CIMLayer (arrays that convert with np.asarray) -> the
+    port's, float32 CPU tensors, prepared (gd, 1 / norm and the offsets
+    in counts formed)."""
+    from .core.cim import LAYER_FIELDS, CIMLayer, prepare
+    return prepare(CIMLayer(*(torch.from_numpy(
+        np.array(getattr(layer, f), dtype=np.float32))
+        for f in LAYER_FIELDS)))
+
+
 def chip_states_from_numpy(states):
     """name -> reference ChipLinear (fields layer, bias_rows, alpha,
-    signed; layer a CIMLayer whose arrays convert with np.asarray) -> name
-    -> the port's `models.nn.ChipLinear` of float32 CPU tensors."""
-    from .core.cim import LAYER_FIELDS, CIMLayer, prepare
+    signed) -> name -> the port's `models.nn.ChipLinear` of float32 CPU
+    tensors."""
     from .models.nn import ChipLinear
-
-    def f32(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    out = {}
-    for name, s in states.items():
-        layer = prepare(CIMLayer(*(f32(getattr(s.layer, f))
-                                   for f in LAYER_FIELDS)))
-        out[name] = ChipLinear(layer, int(np.asarray(s.bias_rows)),
-                               f32(s.alpha), bool(np.asarray(s.signed)))
-    return out
+    return {name: ChipLinear(
+        layer_from_numpy(s.layer), int(np.asarray(s.bias_rows)),
+        torch.from_numpy(np.array(s.alpha, dtype=np.float32)),
+        bool(np.asarray(s.signed))) for name, s in states.items()}

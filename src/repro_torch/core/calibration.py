@@ -78,23 +78,58 @@ def tile_partial_sums(x_int, g_pos, g_neg, tile, cfg: CIMConfig,
     raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction!r}")
 
 
-def measure_adc_offsets(n_cols: int, cfg: CIMConfig, device=None):
-    """Neuron-testing mode: zero input through the neurons reveals
-    per-neuron offsets. The ideal datapath has none."""
-    if cfg.nonideal.adc_offset_sigma > 0.0:
-        raise NotImplementedError(
-            "ADC offset spread is a per-phase non-ideality, not ported yet")
-    return torch.zeros((n_cols,), dtype=torch.float32, device=device)
+def measure_adc_offsets(generator: Optional[torch.Generator], n_cols: int,
+                        cfg: CIMConfig, device=None):
+    """Neuron-testing mode: zero input through the neurons reveals the
+    per-neuron offsets, which the controller stores and cancels
+    digitally: N(0, adc_offset_sigma^2) per column from `generator`, or
+    zeros on `device` where the configuration has no spread."""
+    sigma = cfg.nonideal.adc_offset_sigma
+    if sigma <= 0.0:
+        return torch.zeros((n_cols,), dtype=torch.float32, device=device)
+    if generator is None:
+        raise ValueError("the ADC offset spread needs a generator")
+    return sigma * torch.randn((n_cols,), generator=generator,
+                               device=generator.device)
 
 
 def calibrate_layer(x_int_cal, g_pos, g_neg, cfg: CIMConfig,
-                    coverage: float = 0.999) -> LayerCalibration:
-    """x_int_cal: (B_cal, R) integer activations from the *training set*."""
-    offs = measure_adc_offsets(g_pos.shape[1], cfg, g_pos.device)
+                    coverage: float = 0.999, *,
+                    generator: Optional[torch.Generator] = None
+                    ) -> LayerCalibration:
+    """x_int_cal: (B_cal, R) integer activations from the *training set*.
+    The offsets are measured first (drawn from `generator` under a
+    spread); the analog pass runs with them present, so v_decr covers the
+    offset-shifted charge."""
+    offs = measure_adc_offsets(generator, g_pos.shape[1], cfg, g_pos.device)
     # analog-only pass: only q_analog is read, so the ADC runs without an
-    # activation (the oracle refuses the stochastic neuron)
+    # activation (no stochastic draw)
     out = cim_mvm_ref(x_int_cal, g_pos, g_neg, 1.0,
                       dataclasses.replace(cfg, activation="none"),
-                      adc_offset=offs)
+                      adc_offset=offs, bit_serial=False)
     return LayerCalibration(calibrate_v_decr(out.q_analog, cfg, coverage),
                             offs)
+
+
+def search_v_read(x_int_cal, g_pos, g_neg, cfg: CIMConfig,
+                  candidates=(0.2, 0.3, 0.4, 0.5, 0.6), *,
+                  generator: Optional[torch.Generator] = None) -> float:
+    """Grid-search the read voltage: a larger V_read raises the SNR but
+    worsens the IR-drop droop (non-linear). Score: minus the mean squared
+    error of the analog output / V_read against the ideal linear MVM on
+    the calibration batch; the first best candidate wins. Under an offset
+    spread every candidate sees the same offsets, drawn once from
+    `generator` (the reference reuses one key)."""
+    gd = g_pos - g_neg
+    norm = torch.sum(g_pos + g_neg, dim=0)
+    ideal = (x_int_cal.to(torch.float32) @ gd) / norm
+    offs = measure_adc_offsets(generator, g_pos.shape[1], cfg, g_pos.device)
+    best_v, best_score = cfg.v_read, -float("inf")
+    for v in candidates:
+        c = dataclasses.replace(cfg, v_read=float(v), activation="none")
+        out = cim_mvm_ref(x_int_cal, g_pos, g_neg, 1.0, c, adc_offset=offs,
+                          bit_serial=False)
+        score = -float(torch.mean((out.q_analog / v - ideal) ** 2))
+        if score > best_score:
+            best_v, best_score = float(v), score
+    return best_v

@@ -28,8 +28,11 @@ constant, quantized on load; the de-normalized digital output in x @ W
 units with measured ADC offsets cancelled). `program` runs the verifier's
 `exact-dot` check on every programmed matrix and `prepare`s it: gd = G+ -
 G-, the normalizer's inverse and the integer offset counts are formed
-once, not per call. Configurations that need the reference's bit-serial
-oracle (per-phase non-idealities, the oracle's stochastic neuron) raise.
+once, not per call. Configurations with a per-phase non-ideality (IR
+drop, wire R, coupling, an ADC offset spread) or the stochastic neuron
+take the reference's own route for them, the bit-serial oracle
+(`kernels/cim_mvm/ref.py`, `_needs_ref`), with the same quantization,
+offset cancellation and dequantization around it.
 
 Randomness (programming noise, synthetic calibration batches) comes from
 an explicit `torch.Generator`; callers that must match the JAX reference
@@ -54,6 +57,7 @@ from .verify import check_layer, verify_chip
 from .writeverify import iterative_program
 from ..kernels.cim_mvm import kernel as _K
 from ..kernels.cim_mvm.ops import cim_mvm_packed
+from ..kernels.cim_mvm.ref import cim_mvm_ref, dequantize_output
 
 # the programmed state of a CIMLayer, as the reference's CIMLayer has it
 LAYER_FIELDS = ("g_pos", "g_neg", "w_max", "norm", "v_decr", "adc_offset",
@@ -104,9 +108,10 @@ def program(w, cfg: CIMConfig, in_alpha=1.0, x_cal=None,
     ('ideal', 'relaxed' or 'writeverify') and calibrate it.
 
     x_cal: optional (B_cal, R) float calibration activations; None draws a
-    synthetic batch. Programming noise, then the synthetic batch, are drawn
-    from `generator` (a fresh one seeded 0 on w's device if None). Runs the
-    verifier's per-matrix `exact-dot` check.
+    synthetic batch. Programming noise, then the synthetic batch, then the
+    ADC offsets of an offset spread are drawn from `generator` (a fresh one
+    seeded 0 on w's device if None). Runs the verifier's per-matrix
+    `exact-dot` check.
     """
     gen = generator or torch.Generator(w.device).manual_seed(0)
     if mode == "ideal":
@@ -126,32 +131,56 @@ def program(w, cfg: CIMConfig, in_alpha=1.0, x_cal=None,
     if x_cal is None:
         x_cal = synthetic_x_cal(w.shape[0], in_alpha, gen)
     x_int_cal, _ = quantize_to_int(x_cal, in_alpha, cfg.in_bits, signed=True)
-    cal = calibrate_layer(x_int_cal, c.g_pos, c.g_neg, cfg)
+    cal = calibrate_layer(x_int_cal, c.g_pos, c.g_neg, cfg, generator=gen)
     return prepare(CIMLayer(
         c.g_pos, c.g_neg, c.w_max, c.norm, cal.v_decr, cal.adc_offset,
         torch.tensor(float(in_alpha), dtype=torch.float32, device=w.device)))
 
 
 def forward(layer: CIMLayer, x, cfg: CIMConfig, *, bias=None,
-            bias_rows: int = 0, seed: int = 0, impl: str = "auto"):
+            bias_rows: int = 0, seed: int = 0, impl: str = "auto",
+            generator: Optional[torch.Generator] = None):
     """y ~= x @ W through the chip datapath of one prepared matrix. x:
     (B, R - bias_rows) float; the last bias_rows weight rows are driven
     with `bias` (0-d). One launch of the single-matrix kernel, the input
     quantization, the digital offset cancellation (offsets measured during
     calibration) and the dequantization fused in; impl="plain" forces its
     plain version (on-card comparison only). seed: the reference's salt
-    of the stochastic neuron, which this path refuses."""
-    if _needs_ref(cfg):
-        raise NotImplementedError(
-            "per-phase non-idealities and the oracle's stochastic neuron "
-            "need the reference's bit-serial oracle, which is not ported")
+    of the kernel's stochastic neuron, which this path does not take.
+
+    Where the reference's `_needs_ref` holds (a per-phase non-ideality or
+    the stochastic neuron), the layer runs the bit-serial oracle instead,
+    with its stored offsets present; the coupling noise and the
+    stochastic neuron draw from `generator`."""
     if layer.gd is None:
         raise ValueError("the layer is not prepared: pass it through "
                          "core.cim.prepare once after programming")
+    if _needs_ref(cfg):
+        return _oracle_forward(layer, x, cfg, bias, bias_rows, generator)
     return _K.cim_forward(
         x.contiguous(), layer.gd, layer.inv_norm, layer.v_decr,
         layer.off_counts, layer.norm, layer.w_max, layer.in_alpha, cfg,
         bias=bias, bias_rows=bias_rows, impl=impl)
+
+
+def _oracle_forward(layer: CIMLayer, x, cfg: CIMConfig, bias,
+                    bias_rows: int, generator):
+    """The reference's forward on its oracle route: the bias rows
+    appended, quantize_to_int, the bit-serial oracle with the layer's
+    ADC offsets in the charge, their counts cancelled (activation
+    'none'), dequantize_output."""
+    if bias_rows:
+        x = torch.cat([x, bias.expand(x.shape[0], bias_rows).to(x.dtype)],
+                      dim=-1)
+    x_int, scale = quantize_to_int(x, layer.in_alpha, cfg.in_bits,
+                                   signed=True)
+    counts = cim_mvm_ref(x_int, layer.g_pos, layer.g_neg, layer.v_decr, cfg,
+                         generator=generator, adc_offset=layer.adc_offset,
+                         bit_serial=True).counts
+    if cfg.activation == "none":
+        counts = counts - layer.off_counts[None, :]
+    return dequantize_output(counts, layer.v_decr, layer.norm, layer.w_max,
+                             scale, cfg)
 
 
 def _needs_ref(cfg: CIMConfig) -> bool:

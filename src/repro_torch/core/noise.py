@@ -8,8 +8,9 @@ std after 3 programming iterations. sigma(g) is a smooth bump plus floor,
 scaled down with iterative-programming iterations (29% at 3 iterations).
 
 Every draw comes from an explicit `torch.Generator` on the tensor's device.
-The reference's `lfsr_noise` (the oracle's stochastic neuron) is not
-ported: the port's stochastic neuron is the kernels' hash epilogue.
+`lfsr_noise` is the bit-serial oracle's stochastic neuron; the kernels'
+stochastic epilogue draws its uniforms from the counter hash instead
+(`kernels/prng.py`).
 """
 from __future__ import annotations
 
@@ -49,3 +50,13 @@ def weight_noise(generator: torch.Generator, w, noise_frac: float):
     wmax = torch.max(torch.abs(w))
     return w + noise_frac * wmax * torch.randn(
         w.shape, generator=generator, device=w.device, dtype=w.dtype)
+
+
+def lfsr_noise(generator: torch.Generator, shape, scale):
+    """Pseudo-random injection emulating the XOR'd counter-propagating
+    LFSR chains of stochastic neuron sampling (paper Extended Data Fig.
+    1d): spatially uncorrelated uniform(-scale, +scale) noise added to the
+    integrator charge, drawn from `generator` on its device. `scale` may
+    be a 0-d tensor."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -scale + u * (2 * scale)

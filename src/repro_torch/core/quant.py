@@ -2,7 +2,10 @@
 datapath (PyTorch port of `repro/core/quant.py`).
 
 `torch.round` rounds half to even, as `jnp.round` does, so both packages
-put a value that sits exactly on a .5 tie on the same integer.
+put a value that sits exactly on a .5 tie on the same integer. PACT's clip
+is `jnp.clip`'s composition, a maximum then a minimum, so its gradient
+splits a tie with a bound evenly as JAX's does (`torch.clamp` gives the
+whole gradient to x there, and none to alpha).
 """
 from __future__ import annotations
 
@@ -24,10 +27,10 @@ def pact_quantize(x, alpha, bits: int, signed: bool = False):
     if signed:
         # binary (1-bit) inputs keep one magnitude level {-1, 0, 1}
         n = max((1 << (bits - 1)) - 1, 1)
-        xc = torch.clamp(x, -alpha, alpha)
+        xc = torch.minimum(torch.maximum(x, -alpha), alpha)
         return _round_ste(xc * n / alpha) * alpha / n
     n = (1 << bits) - 1
-    xc = torch.clamp(x, torch.zeros_like(alpha), alpha)
+    xc = torch.minimum(torch.maximum(x, torch.zeros_like(alpha)), alpha)
     return _round_ste(xc * n / alpha) * alpha / n
 
 

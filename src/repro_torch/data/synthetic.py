@@ -1,12 +1,14 @@
 """Synthetic data (PyTorch port of `repro/data/synthetic.py`: LM tokens,
-the serving traffic stream, the CNNs' cluster images, and the RBM's
-binary patterns with their corruptions).
+the serving traffic stream, the CNNs' cluster images, the LSTM's keyword
+MFCC series, and the RBM's binary patterns with their corruptions).
 
 Every draw comes from an explicit `torch.Generator`, on its device; the
 reference's jax.random streams are not replayed, so the parity tests hand
 both packages the same numpy data instead.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -85,6 +87,39 @@ def compose_images(protos, labels, eps, noise: float = 0.25):
     smooth = torch.nn.functional.conv2d(planes, box, padding=1)
     smooth = smooth.reshape(k, c, hw, hw).permute(0, 2, 3, 1)
     return torch.clamp(smooth[labels] + noise * eps, 0.0, 1.0)
+
+
+def keyword_mfcc(generator: torch.Generator, n: int, t: int = 50,
+                 f: int = 40, classes: int = 12, noise: float = 0.4,
+                 proto_seed: int = 11):
+    """Synthetic MFCC series (the paper's 50 x 40 speech commands): class
+    frequency trajectories + noise. The per-class frequencies (U[0.3, 3))
+    and amplitudes (U[0.5, 2)) come from their own generator seeded
+    `proto_seed`, so sets drawn from different generators share the task;
+    labels, phases (U[0, 2 pi)) and noise from `generator`. Returns ((n,
+    t, f) float32, (n,) int64 labels), on the generator's device."""
+    dev = generator.device
+    proto = torch.Generator(dev).manual_seed(proto_seed)
+    freq = 0.3 + 2.7 * torch.rand((classes, f), generator=proto, device=dev)
+    amp = 0.5 + 1.5 * torch.rand((classes, f), generator=proto, device=dev)
+    labels = torch.randint(0, classes, (n,), generator=generator, device=dev)
+    phase = 2 * math.pi * torch.rand((n, 1, f), generator=generator,
+                                     device=dev)
+    eps = torch.randn((n, t, f), generator=generator, device=dev)
+    return compose_mfcc(freq, amp, labels, phase, eps, noise), labels
+
+
+def compose_mfcc(freq, amp, labels, phase, eps, noise: float = 0.4):
+    """The deterministic half of `keyword_mfcc`: x[b, s] = amp[label] *
+    sin(freq[label] * 2 pi s / t + phase[b]) + noise * eps[b, s], for
+    (classes, f) freq / amp, (n,) labels, (n, 1, f) phases and (n, t, f)
+    eps."""
+    t = eps.shape[1]
+    ts = torch.arange(t, device=eps.device, dtype=torch.float32)[
+        None, :, None] / t * 2 * math.pi
+    x = amp[labels][:, None, :] * torch.sin(freq[labels][:, None, :] * ts
+                                            + phase)
+    return x + noise * eps
 
 
 def binary_patterns(generator: torch.Generator, n: int, d: int = 784,

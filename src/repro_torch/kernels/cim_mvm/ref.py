@@ -1,22 +1,28 @@
-"""Plain-torch model of one NeuRRAM MVM (PyTorch port of
-`repro/kernels/cim_mvm/ref.py`).
+"""Plain-torch model of one NeuRRAM MVM, the bit-serial oracle (PyTorch
+port of `repro/kernels/cim_mvm/ref.py`; paper Methods, 'Implementation of
+MVM with multi-bit inputs and outputs').
 
-  input phase:  the settled output voltage of a column is
-                    V_j = V_read * (x_int @ (G+ - G-))_j / norm_j
-                (the voltage-mode conductance normalization; the bit-serial
-                pulses fold into x_int because the datapath is linear)
+  input phase:  an n-bit signed input is sent as (n-1) ternary pulse
+                phases; phase k's settled output voltage is
+                    V_j^k = V_read * (p_k @ (G+ - G-))_j / norm_j
+                (the voltage-mode conductance normalization), integrated
+                for 2^k cycles, so the charge is
+                    Q_j = V_read * (x_int @ Gd)_j / norm_j  (+ non-idealities)
   output phase: sign bit from comparator polarity; magnitude by counting
                 charge-decrement steps of size v_decr until the polarity
                 flips (early-stopped at N_max = 2^(out_bits-1)-1 steps),
-                with ReLU / tanh / sigmoid fused into the conversion.
+                with ReLU / tanh / sigmoid fused into the conversion; the
+                stochastic neuron adds LFSR noise to the integrator and
+                emits the comparator bit.
 
-Only the algebraic (`bit_serial=False`) path is ported, with the one
-non-ideality that path models: IR drop, an input-drive droop that grows with
-the total conductance the active rows source. The other per-phase
-non-idealities need the bit-serial walk and raise. So does the stochastic
-neuron: the reference draws its noise from a jax.random key, a stream the
-port does not replay (the port's stochastic neuron is the kernels' hash
-epilogue, kernels/prng.py).
+`bit_serial=True` walks the pulse phases, which the per-phase
+non-idealities need: IR droop from each phase's own load, crossbar wire
+attenuation, coupling noise scaled by the active pulses, ADC offsets (given
+or drawn). `bit_serial=False` is the algebraic identity sum_k 2^k p_k =
+x_int (the same where the datapath is linear; the calibration's analog
+pass). Draws (coupling, the offset spread, the stochastic neuron) come
+from an explicit `torch.Generator`, in that order, where the reference
+splits its key; they are held to the reference by their statistics.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...core.noise import lfsr_noise
+from ...core.quant import int_bit_planes
 from ...core.types import CIMConfig
 
 
@@ -50,8 +58,17 @@ def pwl_tanh_counts(steps, n_max: int):
     return torch.clamp(torch.floor(out), max=float(n_max))
 
 
-def adc_convert(q, cfg: CIMConfig, v_decr):
-    """Neuron output phase: charge -> signed counts with fused activation."""
+def _need(generator, what: str):
+    if generator is None:
+        raise ValueError(f"{what} needs a generator (the reference asserts "
+                         "a PRNG key)")
+
+
+def adc_convert(q, cfg: CIMConfig, v_decr, *,
+                generator: Optional[torch.Generator] = None):
+    """Neuron output phase: charge -> signed counts with fused activation
+    (the stochastic neuron's comparator bit: LFSR noise from
+    `generator`)."""
     n_max = cfg.out_mag_levels
     sign = torch.sign(q)
     # round-to-nearest: the comparator flips when the cumulative decrement
@@ -66,43 +83,68 @@ def adc_convert(q, cfg: CIMConfig, v_decr):
             out = torch.floor((out + n_max) / 2.0)  # shift to [0, n_max]
         return out.to(torch.int32)
     if cfg.activation == "stochastic":
-        raise NotImplementedError(
-            "the oracle's stochastic neuron needs the reference's jax.random "
-            "noise stream, which is not ported; the kernels' stochastic "
-            "epilogue is the port's stochastic neuron")
+        _need(generator, "the stochastic neuron")
+        noise = lfsr_noise(generator, q.shape, v_decr * n_max)
+        return (q + noise > 0).to(torch.int32)
     return (sign * torch.clamp(steps, max=float(n_max))).to(torch.int32)
 
 
-def _check_ideal(cfg: CIMConfig) -> None:
-    ni = cfg.nonideal
-    if ni.wire_r_alpha > 0 or ni.coupling_sigma > 0 \
-            or ni.adc_offset_sigma > 0:
-        raise NotImplementedError(
-            "per-phase non-idealities need the bit-serial oracle, which is "
-            "not ported yet")
-
-
 def cim_mvm_ref(x_int, g_pos, g_neg, v_decr, cfg: CIMConfig, *,
-                adc_offset: Optional[torch.Tensor] = None) -> CIMOutput:
-    """Oracle CIM MVM, the reference's `bit_serial=False` path: the ideal
-    datapath plus IR drop. x_int: (B, R) integers; g_pos/g_neg: (R, C)
-    uS; v_decr: scalar or (C,)."""
-    _check_ideal(cfg)
+                generator: Optional[torch.Generator] = None,
+                adc_offset: Optional[torch.Tensor] = None,
+                bit_serial: bool = True) -> CIMOutput:
+    """Oracle CIM MVM. x_int: (B, R) integers; g_pos / g_neg: (R, C) uS;
+    v_decr: scalar or (C,); adc_offset: (C,) volts, or None to draw the
+    spread `cfg.nonideal.adc_offset_sigma` from `generator`.
+    bit_serial=True walks the per-bit pulse phases (needed when per-phase
+    non-idealities are on); bit_serial=False uses the algebraic identity
+    (coupling, which lives between phases, is then not modeled)."""
+    ni = cfg.nonideal
     gd = g_pos - g_neg
-    norm = torch.sum(g_pos + g_neg, dim=0)
-    xf = x_int.to(torch.float32)
-    v_in = xf * cfg.v_read
-    alpha = cfg.nonideal.ir_drop_alpha
-    if alpha > 0.0:
-        # (i)+(ii): the input drive droops with the total current the active
-        # rows source, nonlinear in the input pattern
-        load = torch.abs(xf) @ torch.sum(g_pos + g_neg, dim=1)
-        droop = torch.clamp(1.0 - alpha * load, 0.7, 1.0)
-        v_in = v_in * droop[:, None]
-    q = (v_in @ gd) / norm
+    gsum = g_pos + g_neg
+    gtot_row = torch.sum(gsum, dim=1)     # total conductance per input wire
+    norm = torch.sum(gsum, dim=0)
+
+    def settle(pulses):
+        """Pulse phases (..., B, R) -> settled column voltages (..., B,
+        C)."""
+        pf = pulses.to(torch.float32)
+        v_in = pf * cfg.v_read
+        if ni.ir_drop_alpha > 0.0:
+            # (i)+(ii): the input drive droops with the total current the
+            # active rows source, nonlinear in the input pattern
+            load = torch.abs(pf) @ gtot_row
+            droop = torch.clamp(1.0 - ni.ir_drop_alpha * load, 0.7, 1.0)
+            v_in = v_in * droop[..., None]
+        v_out = (v_in @ gd) / norm
+        if ni.wire_r_alpha > 0.0:
+            # (iii): crossbar wire resistance, an output attenuation growing
+            # with the column's total conductance
+            v_out = v_out * (1.0 - ni.wire_r_alpha * norm / torch.max(norm))
+        return v_out
+
+    if bit_serial:
+        planes = int_bit_planes(x_int, cfg.in_mag_bits)      # (K, B, R)
+        v_phases = settle(planes)                            # (K, B, C)
+        q = v_phases[0] * float(2 ** (cfg.in_mag_bits - 1))
+        for k in range(1, cfg.in_mag_bits):                  # MSB first
+            q = q + v_phases[k] * float(2 ** (cfg.in_mag_bits - 1 - k))
+        if ni.coupling_sigma > 0.0:
+            _need(generator, "coupling noise")
+            n_active = torch.sum(torch.abs(planes), dim=(0, 2)).to(
+                torch.float32)
+            q = q + (ni.coupling_sigma * torch.sqrt(n_active + 1.0))[:, None] \
+                * torch.randn(q.shape, generator=generator, device=q.device)
+    else:
+        q = settle(x_int)
+
     if adc_offset is not None:
         q = q + adc_offset[None, :]
-    return CIMOutput(adc_convert(q, cfg, v_decr), q)
+    elif ni.adc_offset_sigma > 0.0:
+        _need(generator, "the ADC offset spread")
+        q = q + ni.adc_offset_sigma * torch.randn(
+            (q.shape[-1],), generator=generator, device=q.device)[None, :]
+    return CIMOutput(adc_convert(q, cfg, v_decr, generator=generator), q)
 
 
 def dequantize_output(counts, v_decr, norm, w_max, in_scale, cfg: CIMConfig):

@@ -3,10 +3,12 @@
 
 Every weight matrix has two execution paths:
 
-  * SOFTWARE path (float): PACT-quantized activations and, for
-    noise-resilient training (paper Fig. 3c), Gaussian weight noise
-    (`noisy_linear` / `noisy_conv`, drawn from a torch.Generator). The
-    training loop itself is not ported yet.
+  * SOFTWARE path (float, differentiable): PACT-quantized activations
+    (straight-through rounding) and, for noise-resilient training (paper
+    Fig. 3c, `train/noisy.py`), Gaussian weight noise (`noisy_linear` /
+    `noisy_conv`, drawn from a torch.Generator). Like the reference's
+    training, it multiplies by the noisy weight in plain PyTorch; the
+    noisy-matmul kernel is on no training path of either package.
   * CHIP path (inference, integer): the weight (with bias and folded batch
     norm merged in, paper Fig. 4c) is programmed onto simulated RRAM with
     the bias-as-rows scheme, calibrated (`deploy_linear`), and executed
@@ -197,12 +199,16 @@ def deploy_linear(p, cfg: CIMConfig, alpha, x_cal=None, signed: bool = False,
 
 
 def chip_linear(cl: ChipLinear, x, cfg: CIMConfig, seed: int = 0,
-                impl: str = "auto"):
+                impl: str = "auto",
+                generator: Optional[torch.Generator] = None):
     """x: (B, n_in) float -> (B, n_out) float through the chip datapath:
     one launch of the single-matrix kernel, the bias rows driven at
-    `cl.alpha` inside it (impl="plain": its plain version)."""
+    `cl.alpha` inside it (impl="plain": its plain version); the
+    bit-serial oracle where `cfg` needs it (`core.cim.forward`; its
+    draws from `generator`)."""
     return cim_api.forward(cl.layer, x, cfg, bias=cl.alpha,
-                           bias_rows=cl.bias_rows, seed=seed, impl=impl)
+                           bias_rows=cl.bias_rows, seed=seed, impl=impl,
+                           generator=generator)
 
 
 def chip_conv(cl: ChipLinear, x, cfg: CIMConfig, kh: int, kw_: int,

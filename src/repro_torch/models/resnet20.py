@@ -5,7 +5,9 @@ deployment, 3-b unsigned activations, 4-b first layer).
 The He et al. CIFAR variant: stem conv(16), 3 stages x 3 blocks x 2 convs
 of widths (16, 32, 64), two 1x1 projection shortcuts, global average pool,
 fc. `deploy` programs the 21 convolutions and the fc (one single-matrix
-kernel launch per convolution during deploy, 22 per inference).
+kernel launch per convolution during deploy, 22 per inference), or, with
+`upto`, the first layers of `conv_layers` only (chip-in-the-loop
+training).
 """
 from __future__ import annotations
 
@@ -150,13 +152,16 @@ def chip_apply(states, params, x, cfg: CIMConfig, impl: str = "auto"):
 
 
 def deploy(params, cfg: CIMConfig, x_cal, mode: str = "relaxed",
-           generator: Optional[torch.Generator] = None):
-    """Program every layer in order, calibrating each on the chip outputs
-    of the previous ones. Programming noise from `generator` (a fresh one
-    seeded 0 on x_cal's device if None). The reference's `upto` (a partial
-    deploy for chip-in-the-loop training) waits for the training slice."""
+           generator: Optional[torch.Generator] = None,
+           upto: int = 10 ** 9):
+    """Program layers in `conv_layers` order, calibrating each on the chip
+    outputs of the previous ones; `upto` limits how many are programmed
+    (the walk stops at the first layer past it, as the reference's does).
+    Programming noise from `generator` (a fresh one seeded 0 on x_cal's
+    device if None)."""
     gen = generator or torch.Generator(x_cal.device).manual_seed(0)
     fold = folded_params(params)
+    names = conv_layers(params)[:upto]
     states: Dict = {}
 
     def conv(name, x, k, alpha_in, stride=1):
@@ -167,6 +172,8 @@ def deploy(params, cfg: CIMConfig, x_cal, mode: str = "relaxed",
             mode=mode, generator=gen)
         return nn.chip_conv(states[name], x, cfg, k, k, stride=stride)
 
+    if "stem" not in names:
+        return states
     # calibration activations flow through the chip as it is built
     h = nn.quant_act(x_cal, 1.0, FIRST_ACT_BITS, signed=False)
     h = nn.quant_act(torch.relu(conv("stem", h, 3, 1.0)), params["alpha"][0],
@@ -176,13 +183,19 @@ def deploy(params, cfg: CIMConfig, x_cal, mode: str = "relaxed",
         for b in range(BLOCKS_PER_STAGE):
             pre = f"s{s}b{b}"
             st = stride if b == 0 else 1
+            if pre + "c1" not in names:
+                return states
             identity = h
             y = nn.quant_act(
                 torch.relu(conv(pre + "c1", h, 3, params["alpha"][ai - 1],
                                 st)),
                 params["alpha"][ai], ACT_BITS, signed=False)
+            if pre + "c2" not in names:
+                return states
             y = conv(pre + "c2", y, 3, params["alpha"][ai])
             if pre + "proj" in fold:
+                if pre + "proj" not in names:
+                    return states
                 identity = conv(pre + "proj", h, 1, params["alpha"][ai - 1],
                                 st)
             elif st != 1:
@@ -190,7 +203,8 @@ def deploy(params, cfg: CIMConfig, x_cal, mode: str = "relaxed",
             h = nn.quant_act(torch.relu(y + identity), params["alpha"][ai],
                              ACT_BITS, signed=False)
             ai += 1
-    states["fc"] = nn.deploy_linear(
-        fold["fc"], cfg, params["alpha"][ai - 1],
-        x_cal=nn.avg_pool_global(h), mode=mode, generator=gen)
+    if "fc" in names:
+        states["fc"] = nn.deploy_linear(
+            fold["fc"], cfg, params["alpha"][ai - 1],
+            x_cal=nn.avg_pool_global(h), mode=mode, generator=gen)
     return states

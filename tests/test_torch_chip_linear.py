@@ -300,15 +300,24 @@ def test_forward_matches_reference(relaxed_layer):
                   + 1e-6 * np.abs(want).max())
 
 
-def test_forward_needs_the_oracle_for_what_it_models():
-    """Per-phase non-idealities and the oracle's stochastic neuron need
-    the bit-serial oracle (not ported): forward raises."""
+def test_forward_needs_the_oracle_for_what_it_models(monkeypatch):
+    """Per-phase non-idealities and the oracle's stochastic neuron take
+    the bit-serial oracle, not the kernel: forward launches nothing there,
+    and the oracle's draws need a generator (the reference asserts a
+    key)."""
     from repro_torch.core.types import NonIdealityConfig
     lay = tcim.program(torch.randn(8, 4), CIMConfig(), mode="ideal")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the kernel ran")
+    monkeypatch.setattr(K, "cim_forward", refuse)
     for cfg in (CIMConfig(activation="stochastic"),
                 CIMConfig(nonideal=NonIdealityConfig(coupling_sigma=0.1))):
-        with pytest.raises(NotImplementedError, match="oracle"):
+        with pytest.raises(ValueError, match="generator"):
             tcim.forward(lay, torch.randn(2, 8), cfg)
+        y = tcim.forward(lay, torch.randn(2, 8), cfg,
+                         generator=torch.Generator().manual_seed(0))
+        assert y.shape == (2, 4) and bool(torch.isfinite(y).all())
 
 
 # ----------------------------------------------------- verifier: exact-dot

@@ -330,7 +330,8 @@ def test_ir_drop_oracle_droop_matches():
                              bit_serial=False).q_analog)
         qt = to_numpy(tref(to_torch(x), to_torch(gp), to_torch(gn), 1.0,
                            CIMConfig(nonideal=NonIdealityConfig(
-                               ir_drop_alpha=alpha))).q_analog)
+                               ir_drop_alpha=alpha)),
+                           bit_serial=False).q_analog)
         np.testing.assert_allclose(qt, qj, rtol=1e-5,
                                    atol=1e-6 * np.abs(qj).max())
 
@@ -338,7 +339,7 @@ def test_ir_drop_oracle_droop_matches():
 def test_stochastic_calibration_reads_charge_only():
     """A stochastic layer calibrates on the charge alone: `calibrate_layer`
     gives the reference's v_decr, while the oracle itself refuses the
-    stochastic neuron, whose noise stream (jax.random) is not ported."""
+    stochastic neuron without a generator (the reference asserts a key)."""
     import jax
     import jax.numpy as jnp
     from repro.core.calibration import calibrate_layer as jcal
@@ -354,7 +355,7 @@ def test_stochastic_calibration_reads_charge_only():
     cfg = CIMConfig(activation="stochastic")
     vt = tcal(to_torch(x), to_torch(gp), to_torch(gn), cfg).v_decr
     np.testing.assert_allclose(float(vt), float(vj), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    with pytest.raises(ValueError, match="stochastic"):
         tref(to_torch(x), to_torch(gp), to_torch(gn), 1.0, cfg)
 
 

@@ -163,7 +163,7 @@ def test_cim_mvm_ref_matches():
     oj = jref.cim_mvm_ref(jnp.asarray(x), jnp.asarray(gp), jnp.asarray(gn),
                           vd, jtypes.CIMConfig(), bit_serial=False)
     ot = tref.cim_mvm_ref(to_torch(x), to_torch(gp), to_torch(gn), vd,
-                          ttypes.CIMConfig())
+                          ttypes.CIMConfig(), bit_serial=False)
     qj = np.asarray(oj.q_analog)
     np.testing.assert_allclose(to_numpy(ot.q_analog), qj, rtol=1e-5,
                                atol=1e-6 * np.abs(qj).max())
