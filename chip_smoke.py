@@ -137,6 +137,35 @@ the final result line:
                 elementwise and concatenation kernels), and the
                 transposed kernel's device time at the RBM's shape, after
                 every timed run
+  engine        core.CIMEngine on two full-width gemma2-9b matrices (w_g,
+                w_o; relaxed, 4096 cores, a clip per matrix and direction):
+                forward launches at M = 4 and 64, transposed at 4 and 64,
+                each bit for bit against its plain version; then
+                core.multicore_mvm_packed(cfg=None), the exact tiled
+                matmul, on the w_g plan at M = 4 and 32: bit for bit
+                against its plain version, and within f32 rounding of
+                torch.matmul (TF32 off)
+  serve-moe     full-width deepseek-moe-16b (2 of 28 layers, random
+                weights from a seed) on 2048 cores: one chip per layer
+                (attention and shared experts) and one per (layer,
+                expert), all single-pass; batch 4, prompt 64, 8 tokens;
+                launches (4 + 3 + 3 x 64) per layer and token, all packed
+                (static prefill: 30 rows per expert group, the walk;
+                decode: 4, the split route); prefill and two decode steps
+                rerun through the plain versions, logits equal
+  serve-moe-merged  1 layer on 260 cores: the layer chip's seven
+                projections and each expert's ew_g and ew_i merged into
+                passes (scheduled kernel), ew_o single-pass (packed); 4
+                tokens; the same checks
+  serve-traffic-moe  the serve-moe chips behind the engine (slots 4, chunk
+                32, the 16 requests of serve-traffic): dropless dispatch
+                forced by the engine, one capture, a replay equal to the
+                eager step, every request equal to it served alone (no
+                plain rerun of the stream and no static baseline: the
+                plain MoE step is ~400 plain projections)
+  profile-moe   the profile phase's windows for serve-moe and
+                serve-moe-merged (they run after `profile`: their chips do
+                not fit beside the dense models the profile phase holds)
   kernels       one line per the contract below, then the result line
 
 Tolerances: every kernel and its plain version must agree bit for bit in
@@ -171,6 +200,7 @@ FP64_FLOPS_PER_S = 67e12         # H100 SXM FP64 peak (tensor cores; 34 on CUDA 
 SMOKE_ATOL = 1e-4                # smoke logits are O(1); f32 roundings
 TRAFFIC_ATOL = 1e-4              # LOGIT_ATOL of tests/test_torch_serve.py
 SPIN_CYCLES = 1_000_000          # ~0.5 ms at 1.98 GHz: covers a wrapper's host time
+PAD_KERNELS = 64                 # spin kernels a profiler window opens on
 LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wo": (4096, 3584),
          "w_g": (3584, 14336), "w_o": (14336, 3584)}
 FULL_LAYER = {"wq": (3584, 4096), "wk": (3584, 2048), "wv": (3584, 2048),
@@ -192,10 +222,29 @@ IRDROP = dict(n_layers=2, batch=4, prompt_len=64, gen=4, cim_cores=32768,
 TRAFFIC = dict(n_layers=4, cim_cores=6144, slots=4, chunk=32, requests=16,
                prompt_len=64, gen=32, rate=50.0)
 TRAFFIC_MERGED = dict(TRAFFIC, cim_cores=3072)
+# deepseek-moe-16b at full width (d 2048, 64 routed experts of width 1408,
+# top-6, 2 shared experts): one chip per layer (attention and shared
+# experts: 1040 tiles) and one per (layer, expert) (280 tiles). 2048 cores
+# keep every chip single-pass; on 260 (the fewest the layer chip fits) the
+# layer chip's seven projections and each expert's ew_g and ew_i merge into
+# passes, ew_o (88 tiles) stays single-pass
+MOE = "deepseek-moe-16b"
+MOE_EXPERTS = 64
+SERVE_MOE = dict(n_layers=2, batch=4, prompt_len=64, gen=8, cim_cores=2048)
+MERGED_MOE = dict(n_layers=1, batch=4, prompt_len=64, gen=4, cim_cores=260)
+TRAFFIC_MOE = dict(TRAFFIC, n_layers=2, cim_cores=2048)
+# the CIMEngine phase: two full-width gemma2-9b matrices, both directions,
+# a clip of their own per matrix and direction
+ENGINE = dict(cores=4096, fwd_rows=(4, 64), bwd_rows=(4, 64),
+              mvm_rows=(4, 32), alpha={"w_g": 3.0, "w_o": 2.0},
+              alpha_bwd={"w_g": 1.5, "w_o": 2.5})
 # projections per layer on each kernel (the plans the chips compile to)
 SERVE_ROUTES = {"cim_mvm_packed": 7}
 MERGED_ROUTES = {"cim_mvm_packed": 4, "cim_mvm_scheduled": 3}
 IRDROP_ROUTES = {"cim_mvm_scheduled": 7}
+SERVE_MOE_ROUTES = {"cim_mvm_packed": 4 + 3 + 3 * MOE_EXPERTS}
+MERGED_MOE_ROUTES = {"cim_mvm_scheduled": 7 + 2 * MOE_EXPERTS,
+                     "cim_mvm_packed": MOE_EXPERTS}
 RECOVER = ["--pixels", "784", "--labels", "10", "--hidden", "120",
            "--batch", "64", "--cycles", "10", "--mode", "ideal"]
 SOURCES = {k: f"src/repro_torch/kernels/{v}"
@@ -593,22 +642,60 @@ def time_level(torch, ops, p, x, flush):
     return row
 
 
-def profiled_ms(torch, fn, name, reps, flush):
-    """Median device time of the kernel whose name holds `name`, one launch
-    per call of fn, each call after an L2 flush (torch.profiler / CUPTI):
-    the kernel alone, without the wrapper's host work (and its cast of x
-    to int8)."""
+def marked_window(torch, lead, body):
+    """The device events of body() in a torch.profiler (CUPTI) window, in
+    start order. The profiler can miss the first kernels of its window (on
+    the card it has missed a prefill's first walk launch, a decode
+    replay's first split-route pair, and a lead launch with the marker
+    after it), so the window opens on a pause, PAD_KERNELS short spin
+    kernels and lead(), then a marker kernel (`torch.cuda._sleep`), and
+    only what follows the last spin kernel is read. [] when the profiler
+    shows no device events, None when it shows no spin kernel."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    lead()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(50)
+        lead()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)          # the marker
+        body()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type.name == "CUDA"),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        return []
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    if not marks:
+        return None
+    return [e for e in events if e.time_range.start >= marks[-1]]
+
+
+def marked_events(torch, what, lead, body):
+    """`marked_window`'s events, where a window without its marker fails
+    `what`."""
+    events = marked_window(torch, lead, body)
+    if events is None:
+        raise AssertionError(f"{what}: the marker kernel is not in the "
+                             "profile")
+    return events
+
+
+def profiled_ms(torch, fn, name, reps, flush):
+    """Median device time of the kernel whose name holds `name`, one launch
+    per call of fn, each call after an L2 flush (torch.profiler / CUPTI,
+    `marked_window`): the kernel alone, without the wrapper's host work
+    (and its cast of x to int8)."""
+    def body():
         for _ in range(reps):
             flush.zero_()
             fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type.name == "CUDA" and name in e.name]
+    us = [e.time_range.elapsed_us()
+          for e in marked_window(torch, fn, body) or [] if name in e.name]
     if len(us) != reps:
         return "not measured"
     return statistics.median(us) / 1e3
@@ -786,23 +873,31 @@ def compare_runs(torch, ref, other, what, atol):
     return err
 
 
-def serve_and_check(torch, K, ops, serve, dev, stats, path, conf, routes):
+def layer0_chips(v):
+    """Layer 0's chips of a deployed '<name>_cim' stack: one, or one per
+    expert."""
+    return v[0] if isinstance(v[0], list) else [v[0]]
+
+
+def serve_and_check(torch, K, ops, serve, dev, stats, path, conf, routes,
+                    arch="gemma2-9b"):
     """Serve `conf` with the launch counts set to 0 just before and read
-    just after. The chip's projections must route as `routes` says, and
-    each kernel must launch once per projection, layer and token. Then
-    prefill and two decode steps rerun through the plain versions on the
-    same chip, fed the kernel run's tokens: logits equal. Returns
-    (result, launches, plain err)."""
+    just after. The chips must route as `routes` says (per layer, an
+    expert stack counts one chip per expert), and each kernel must launch
+    once per chip, layer and token. Then prefill and two decode steps
+    rerun through the plain versions on the same chip, fed the kernel
+    run's tokens: logits equal. Returns (result, launches, plain err)."""
     reset_launches(K)                    # the path's run starts here
-    res = serve.serve_static("gemma2-9b", cim=True, device=str(dev), **conf)
+    res = serve.serve_static(arch, cim=True, device=str(dev), **conf)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)          # ... and ends here
     stats["launches"][path] = launches
     got = {}
     for k, v in res.params["layers"].items():
         if k.endswith("_cim"):
-            r = v[0].packed.route()
-            got[r] = got.get(r, 0) + 1
+            for c in layer0_chips(v):
+                r = c.packed.route()
+                got[r] = got.get(r, 0) + 1
     if got != routes:
         raise AssertionError(f"{path}: projections route {got}, expected "
                              f"{routes}")
@@ -844,34 +939,45 @@ SERVE_PATHS = (
      "ir_drop_alpha 2e-7"))
 
 
-def serve_path(torch, K, ops, serve, dev, stats, path, conf, routes, text):
+def serve_path(torch, K, ops, serve, dev, stats, path, conf, routes, text,
+               arch="gemma2-9b", queue="profile"):
     """One serve path: its timed run and plain rerun; the deployed model
-    is kept for the profile phase, which runs after every timed run (a
-    profiled window can slow the host's launches after it)."""
+    is kept for the profile phase (`queue`), which runs after the timed
+    runs (a profiled window can slow the host's launches after it)."""
     torch.cuda.reset_peak_memory_stats(dev)
     res, launches, err = serve_and_check(torch, K, ops, serve, dev, stats,
-                                         path, conf, routes)
-    stats["profile"].append((path, res))
+                                         path, conf, routes, arch)
+    stats[queue].append((path, res))
     return {"config": text, **serve_numbers(res, conf), "launches": launches,
             "plain_max_abs_logit_err": err,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "plans": plan_summary(res.params)}
 
 
-def traffic_path(torch, K, serve, dev, stats, path, conf, routes):
+def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
+                 arch="gemma2-9b", deployed=None, full=True):
     """Continuous batching of `conf` through the port's engine, with the
     launch counts set to 0 just before the run (warmup and capture
     included) and read just after; then the engine's checks (module
-    docstring) and its times."""
+    docstring) and its times. deployed: a static serve path's result
+    whose chips the engine serves instead of deploying its own; full:
+    also the plain rerun of every request and the static baseline."""
     from repro_torch.launch import scheduler
     from repro_torch.launch.scheduler import ContinuousBatchingEngine
+    torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(K)                    # the path's run starts here
-    res = serve.serve_traffic("gemma2-9b", cim=True, device=str(dev),
-                              capture_logits=True, **conf)
+    if deployed is None:
+        res = serve.serve_traffic(arch, cim=True, device=str(dev),
+                                  capture_logits=True, **conf)
+    else:
+        res = engine_traffic(serve, deployed, conf, dev)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)          # ... and ends here
     stats["launches"][path] = launches
     eng, st = res.engine, res.stats
+    if arch != "gemma2-9b" and not eng.cfg.moe_dropless:
+        raise AssertionError(f"{path}: the engine serves {arch} with "
+                             "capacity dispatch, not dropless")
     if st["decode_traces"] != 1:
         raise AssertionError(f"{path}: {st['decode_traces']} decode "
                              "captures, the contract is 1")
@@ -900,10 +1006,11 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes):
                                  f"{len(r.tokens)} of {r.max_new} tokens "
                                  "or non-finite logits")
     replay, probe = replay_equals_eager(torch, res, eng)
-    # each request alone on the static path, same cache length
+    # each request alone on the static path with the engine's config (an
+    # MoE arch's dropless dispatch), same cache length
     alone_err = 0.0
     for r in res.requests + probe:
-        g = serve.greedy_decode(res.params, res.cfg,
+        g = serve.greedy_decode(res.params, eng.cfg,
                                 torch.as_tensor(r.prompt[None]).long()
                                 .to(dev), r.max_new, dev,
                                 max_len=eng.max_len)
@@ -916,29 +1023,41 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes):
     if alone_err > TRAFFIC_ATOL:
         raise AssertionError(f"{path}: pool vs alone logits differ by "
                              f"{alone_err} > {TRAFFIC_ATOL}")
-    # the plain versions, every request (the probe's too) admitted as soon
-    # as a slot frees
-    plain = ContinuousBatchingEngine(
-        res.cfg.replace(cim_impl="plain"), res.params, n_slots=eng.n_slots,
-        max_len=eng.max_len, chunk=eng.chunk, capture_logits=True)
-    copies = [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
-                      arrival=r.arrival) for r in res.requests + probe]
-    plain.run(copies, realtime=False)
-    for r, q in zip(res.requests + probe, copies):
-        if q.tokens != r.tokens or any(
-                not (a == b).all() for a, b in zip(r.logits, q.logits)):
-            raise AssertionError(f"{path}: request {r.rid}: the plain "
-                                 "rerun's tokens or logits differ")
+    extra = {}
+    if full:
+        # the plain versions, every request (the probe's too) admitted as
+        # soon as a slot frees
+        plain = ContinuousBatchingEngine(
+            eng.cfg.replace(cim_impl="plain"), res.params,
+            n_slots=eng.n_slots, max_len=eng.max_len, chunk=eng.chunk,
+            capture_logits=True)
+        copies = [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
+                          arrival=r.arrival) for r in res.requests + probe]
+        plain.run(copies, realtime=False)
+        for r, q in zip(res.requests + probe, copies):
+            if q.tokens != r.tokens or any(
+                    not (a == b).all() for a, b in zip(r.logits, q.logits)):
+                raise AssertionError(f"{path}: request {r.rid}: the plain "
+                                     "rerun's tokens or logits differ")
+        del plain
+        extra["plain_rerun"] = "equal"
     times = traffic_times(torch, eng, dev, per_exec)
-    # the static baseline at equal load: the same requests in arrival
-    # order, in lockstep batches of `slots`, left-padded, realtime
-    copies = [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
-                      arrival=r.arrival) for r in res.requests]
-    static = scheduler.serve_static(res.cfg, res.params, copies,
-                                    batch=eng.n_slots, max_len=eng.max_len)
-    out = {"config": f"gemma2-9b full width, {conf['n_layers']} of 42 "
-                     f"layers, {conf['cim_cores']} cores, slots "
-                     f"{conf['slots']}, chunk {conf['chunk']}",
+    if full:
+        # the static baseline at equal load: the same requests in arrival
+        # order, in lockstep batches of `slots`, left-padded, realtime
+        copies = [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
+                          arrival=r.arrival) for r in res.requests]
+        static = scheduler.serve_static(eng.cfg, res.params, copies,
+                                        batch=eng.n_slots,
+                                        max_len=eng.max_len)
+        extra["static_baseline"] = {k: static[k] for k in (
+            "tokens", "wall_s", "tok_per_s", "p50_ms", "p99_ms",
+            "utilization", "pj_per_token")}
+    out = {"config": f"{arch} full width, {conf['n_layers']} of "
+                     f"{serve.configs.get(arch).n_layers} layers, "
+                     f"{conf['cim_cores']} cores, slots {conf['slots']}, "
+                     f"chunk {conf['chunk']}"
+                     + (", the serve path's chips" if deployed else ""),
            "nvidia_smi": stats["smi"], "deploy_s": res.deploy_s,
            **{k: st[k] for k in ("requests", "tokens", "wall_s",
                                  "tok_per_s", "p50_ms", "p99_ms",
@@ -953,14 +1072,28 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes):
            "packed_launches_per_execution": conf["n_layers"] * routes.get(
                "cim_mvm_packed", 0),
            "launches_per_replay": eng._decode.fun.per_replay,
+           "moe_dropless": eng.cfg.moe_dropless,
            "replay_vs_eager": replay, "alone_max_abs_logit_err": alone_err,
-           "plain_rerun": "equal", **times,
-           "static_baseline": {k: static[k] for k in (
-               "tokens", "wall_s", "tok_per_s", "p50_ms", "p99_ms",
-               "utilization", "pj_per_token")}}
-    del res, eng, plain
+           **times, **extra,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del res, eng
     free(torch)
     return out
+
+
+def engine_traffic(serve, deployed, conf, dev):
+    """serve.serve_traffic's stream and engine on an already deployed
+    static serve path's model (its chips, its config): a TrafficResult."""
+    from repro_torch.launch.scheduler import ContinuousBatchingEngine
+    cfg, params = deployed.cfg, deployed.params
+    reqs, max_len = serve.traffic_stream(
+        cfg, conf["requests"], prompt_len=conf["prompt_len"],
+        gen=conf["gen"], chunk=conf["chunk"], rate=conf["rate"], device=dev)
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=conf["slots"],
+                                   max_len=max_len, chunk=conf["chunk"],
+                                   capture_logits=True)
+    st = eng.run(reqs)
+    return serve.TrafficResult(cfg, params, reqs, st, eng, deployed.deploy_s)
 
 
 def replay_equals_eager(torch, res, eng):
@@ -1033,15 +1166,15 @@ def slot0(key, t):
     return t[:, 0] if key in ("k", "v") else t[0]
 
 
-def kernel_counts(prof):
-    """Device launches of the CIM kernels in a torch.profiler window, by
-    the name's stem: the split route's term pass and fold, the walk."""
+def kernel_counts(events):
+    """Device launches of the CIM kernels among a profiler window's device
+    events, by the name's stem: the split route's term pass and fold, the
+    walk."""
     names = ("cim_tile_terms", "cim_fold_runs", "cim_walk")
     out = dict.fromkeys(names, 0)
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            for n in names:
-                out[n] += n in e.name
+    for e in events:
+        for n in names:
+            out[n] += n in e.name
     return out
 
 
@@ -1053,8 +1186,8 @@ def traffic_times(torch, eng, dev, per_exec):
     of the split route on the device; and prefill chunks of 32 and 16 rows
     on slot 0 through the step function (median of 5, slot reset before
     each), the last of each profiled: `per_exec` walks at 32 rows,
-    `per_exec` term passes and folds at 16."""
-    from torch.profiler import ProfilerActivity, profile
+    `per_exec` term passes and folds at 16. Each profiled window opens on
+    a lead call and a marker (`marked_window`)."""
     replay = lambda: eng._decode(eng.params, eng.pool)
     eager = lambda: eng._step(eng.params, eng.pool)
     for f in (replay, eager):
@@ -1063,31 +1196,30 @@ def traffic_times(torch, eng, dev, per_exec):
     eager_ms = median_ms(torch, eager, 20)
     torch.cuda.synchronize()
     reps = 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def replays():
         for _ in range(reps):
             replay()
-        torch.cuda.synchronize()
-    by_name = device_us_by_kernel(prof)
+    events = marked_events(torch, "decode replays", replay, replays)
+    by_name = device_us_by_kernel(events)
     busy = sum(by_name.values()) / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    counts = {"decode replays": (kernel_counts(prof), {
+    counts = {"decode replays": (kernel_counts(events), {
         "cim_tile_terms": per_exec * reps, "cim_fold_runs": per_exec * reps,
         "cim_walk": 0})}
     chunk_ms = {}
     for n in (32, 16):
         toks = torch.zeros((1, n), dtype=torch.long, device=dev)
         times = []
+        chunk = lambda: eng._prefill.fun(eng.params, eng.pool, toks, 0)
         for i in range(6):
             eng._reset(eng.pool, 0)
             if i == 5:
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    eng._prefill.fun(eng.params, eng.pool, toks, 0)
-                    torch.cuda.synchronize()
+                events = marked_events(
+                    torch, f"prefill chunk {n}", chunk,
+                    lambda: (eng._reset(eng.pool, 0), chunk()))
                 split = n <= 16
-                counts[f"prefill chunk {n}"] = (kernel_counts(prof), {
+                counts[f"prefill chunk {n}"] = (kernel_counts(events), {
                     "cim_tile_terms": per_exec * split,
                     "cim_fold_runs": per_exec * split,
                     "cim_walk": per_exec * (not split)})
@@ -1144,22 +1276,146 @@ def profile_phase(torch, dev, stats):
     return out
 
 
-def plan_summary(params):
-    """Per projection of layer 0: slots, live tiles, passes, runs, bn."""
+@phase("profile-moe")
+def profile_moe_phase(torch, dev, stats):
+    """The profile phase's prefill and decode windows for the MoE serve
+    paths, after their timed runs and the traffic path that serves the
+    serve-moe chips."""
     out = {}
-    for k, v in params["layers"].items():
-        if k.endswith("_cim"):
-            p = v[0].packed
-            out[k[:-4]] = {"slots": p.n_tiles, "tiles": len(live_slots(p)),
-                           "passes": p.n_passes, "runs": len(p.out_col),
-                           "bn": p.bn}
+    while stats["profile_moe"]:
+        path, res = stats["profile_moe"].pop(0)
+        out[path] = {"prefill": profile_prefill(torch, res, dev),
+                     **profile_decode(torch, res, dev)}
+        del res
+        free(torch)
     return out
 
 
-def device_us_by_kernel(prof):
-    """Device microseconds per kernel name of a torch.profiler window."""
+@phase("engine")
+def engine_phase(torch, K, dev, stats):
+    """`core.CIMEngine` on two full-width gemma2-9b matrices (w_g, w_o),
+    relaxed, programmed for both directions with a clip per matrix and
+    direction (`ENGINE`), on a single-pass 4096-core chip: forward
+    launches (packed kernel: split route at 4 rows, the walk at 64) and
+    transposed ones (the walk), each held against its plain version bit
+    for bit; then `core.multicore_mvm_packed(cfg=None)`, the exact tiled
+    matmul, on the w_g plan over the weights rounded onto the 2^-23 grid
+    with integer x (|x| <= 127, so every tile's FP64 dot is exact) at 4
+    and 32 rows: bit for bit against its plain version, and against
+    torch.matmul (TF32 off) within (K + 2) 2^-24 |x| @ |W|, the f32
+    error bound of any summation order. Launches counted from the first
+    engine launch to the last kernel launch."""
+    from repro_torch.core import CIMEngine, multicore_mvm_packed
+    from repro_torch.core.mapping import pack_tiles
+    from repro_torch.core.types import CIMConfig, CoreSpec
+    from repro_torch.obs.clock import stopwatch
+    gen = torch.Generator(dev).manual_seed(11)
+    shapes = {n: FULL_LAYER[n] for n in ("w_g", "w_o")}
+    w = {n: torch.randn(r, c, generator=gen, device=dev) / r ** 0.5
+         for n, (r, c) in shapes.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = CIMEngine(CIMConfig(), CoreSpec(n_cores=ENGINE["cores"]),
+                    mode="relaxed", device=dev)
+    with stopwatch() as sw:
+        eng.program(w, in_alpha=ENGINE["alpha"], directions=("fwd", "bwd"),
+                    in_alpha_bwd=ENGINE["alpha_bwd"], generator=gen)
+        torch.cuda.synchronize()
+    for d, want in (("fwd", ENGINE["alpha"]), ("bwd", ENGINE["alpha_bwd"])):
+        got = {n: float(p.layer.in_alpha)
+               for n, p in eng.chip.layers_for(d).items()}
+        if got != want:
+            raise AssertionError(f"engine {d} clips {got} != {want}")
+    routes = {(n, d): eng.chip.layers_for(d)[n].packed.route()
+              for n in shapes for d in ("fwd", "bwd")}
+    wg = torch.round(w["w_g"] * 2.0 ** 23) / 2.0 ** 23
+    pt = pack_tiles(eng.plan.tiles_for("w_g"), wg)
+    calls = []                   # (what, kernel, x, launch, plain)
+    for n, (r, c) in shapes.items():
+        for d, rows, k in (("fwd", ENGINE["fwd_rows"], r),
+                           ("bwd", ENGINE["bwd_rows"], c)):
+            for m in rows:
+                x = torch.randn(m, k, generator=gen, device=dev)
+                calls.append((f"engine {n} {d} M={m}", routes[(n, d)], x,
+                              lambda x, n=n, d=d, i="auto":
+                              eng.forward(n, x, direction=d, impl=i)))
+    for m in ENGINE["mvm_rows"]:
+        x = torch.randint(-127, 128, (m, shapes["w_g"][0]), generator=gen,
+                          device=dev).to(torch.float32)
+        calls.append((f"multicore_mvm_packed w_g M={m}", "cim_mvm_packed",
+                      x, lambda x, i="auto":
+                      multicore_mvm_packed(x, pt, impl=i)))
+    torch.cuda.synchronize()
+    reset_launches(K)                    # the path's launches start here
+    outs = [fn(x) for _, _, x, fn in calls]
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)          # ... and end here
+    stats["launches"]["engine"] = launches
+    want = {}
+    for _, kernel, _, _ in calls:
+        want[kernel] = want.get(kernel, 0) + 1
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"engine: launches {launches}, the calls "
+                             f"need {want}")
+    for (what, kernel, x, fn), y in zip(calls, outs):
+        check_equal(torch, y, fn(x, i="plain"), what, stats, kernel)
+    mm = {}
+    for (what, _, x, _), y in zip(calls, outs):
+        if what.startswith("multicore"):
+            ref = x @ wg
+            band = (wg.shape[0] + 2) * 2.0 ** -24 * (x.abs() @ wg.abs())
+            err = (y - ref).abs()
+            if bool((err > band).any()):
+                raise AssertionError(f"{what}: off torch.matmul by more "
+                                     "than f32 rounding")
+            mm[what] = {"max_abs_err_vs_matmul": float(err.max()),
+                        "max_err_over_bound": float((err / band).max())}
+    out = {"config": "gemma2-9b " + " and ".join(
+               f"{n} ({r} x {c})" for n, (r, c) in shapes.items())
+               + f", relaxed, {ENGINE['cores']} cores, fwd and bwd",
+           "program_s": sw.s, "routes": {f"{n} {d}": r
+                                         for (n, d), r in routes.items()},
+           "clips": {"fwd": ENGINE["alpha"], "bwd": ENGINE["alpha_bwd"]},
+           "launches": launches, "plain": "equal", "matmul": mm,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del eng, calls, outs, pt, wg, w
+    free(torch)
+    return out
+
+
+def plan_summary(params):
+    """Per projection of layer 0: slots, live tiles, passes, runs, bn (and
+    the chips of an expert stack, all on one plan)."""
+    out = {}
+    for k, v in params["layers"].items():
+        if k.endswith("_cim"):
+            chips = layer0_chips(v)
+            p = chips[0].packed
+            out[k[:-4]] = {"slots": p.n_tiles, "tiles": len(live_slots(p)),
+                           "passes": p.n_passes, "runs": len(p.out_col),
+                           "bn": p.bn, "chips": len(chips)}
+    return out
+
+
+def call_order(params):
+    """Layer 0's packed launches in the model's call order: PROJ_ORDER for
+    a dense layer; for an MoE layer the attention projections, each
+    expert's ew_g, then ew_i, then ew_o (expert 0 first), then the shared
+    experts' sw_g, sw_i, sw_o (`models/moe.moe_ffn`)."""
+    lay = params["layers"]
+    if "ew_g_cim" not in lay:
+        return list(PROJ_ORDER)
+    n_e = len(lay["ew_g_cim"][0])
+    return ["wq", "wk", "wv", "wo"] + [n for n in ("ew_g", "ew_i", "ew_o")
+                                       for _ in range(n_e)] \
+        + ["sw_g", "sw_i", "sw_o"]
+
+
+def device_us_by_kernel(events):
+    """Device microseconds per kernel name among a profiler window's
+    events."""
     by_name = {}
-    for e in prof.events():
+    for e in events:
         if e.device_type.name == "CUDA":
             key = e.name.replace("(anonymous namespace)::", "")
             key = key.split("(")[0][:60]
@@ -1182,7 +1438,7 @@ def profile_inference(torch, fn, reps, event_ms):
             fn()
         torch.cuda.synchronize()
         wall = now() - t0
-    by_name = device_us_by_kernel(prof)
+    by_name = device_us_by_kernel(prof.events())
     busy = sum(by_name.values())
     if not busy:
         return {"device_ms_per_inference": "not measured"}
@@ -1206,49 +1462,32 @@ def profile_prefill(torch, res, dev):
     served model (torch.profiler / CUPTI): every walk launch in start
     order, each layer's seven projections in the model's call order
     (PROJ_ORDER), so the walk's device ms per projection is the mean over
-    the layers; the prefill's device ms by kernel. The profiler can miss
-    the first kernels of its window (on the card it has missed a
-    prefill's first walk launch), so the window opens on another prefill
-    and a marker kernel (`torch.cuda._sleep`), and only what follows the
-    marker is read."""
-    from torch.profiler import ProfilerActivity, profile
+    the layers; the prefill's device ms by kernel. The window opens on
+    another prefill and a marker (`marked_window`)."""
     from repro_torch.launch.steps import arch_serving, make_prefill_step
     cfg, prompts = res.cfg, res.prompts
     prefill = make_prefill_step(cfg)
     cache_len = prompts.shape[1] + 1
 
-    def cache():
-        return arch_serving(cfg, dev).init_state(prompts.shape[0], cache_len)
-    prefill(res.params, cache(), {"tokens": prompts})
-    torch.cuda.synchronize()
-    lead, state = cache(), cache()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prefill(res.params, lead, {"tokens": prompts})
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1000)          # the marker
-        prefill(res.params, state, {"tokens": prompts})
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type.name == "CUDA"),
-                    key=lambda e: e.time_range.start)
+    states = [arch_serving(cfg, dev).init_state(prompts.shape[0],
+                                                cache_len) for _ in range(3)]
+    run = lambda: prefill(res.params, states.pop(), {"tokens": prompts})
+    events = marked_events(torch, "prefill", run, run)
     if not events:
         return {"device_ms": "not measured"}
-    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
-    if not marks:
-        raise AssertionError("prefill: the marker kernel is not in the "
-                             "profile")
-    events = [e for e in events if e.time_range.start >= marks[-1]]
     walk = [e.time_range.elapsed_us() / 1e3 for e in events
             if "cim_walk" in e.name]
-    if not walk or len(walk) % len(PROJ_ORDER):
+    order = call_order(res.params)
+    if not walk or len(walk) % len(order):
         raise AssertionError(f"prefill: {len(walk)} walk launches, not "
-                             f"{len(PROJ_ORDER)} per layer")
-    n_layers = len(walk) // len(PROJ_ORDER)
-    per_proj = {n: sum(walk[i::len(PROJ_ORDER)]) / n_layers
-                for i, n in enumerate(PROJ_ORDER)}
+                             f"{len(order)} per layer")
+    n_layers = len(walk) // len(order)
+    per_proj = {}                # an expert projection: all its experts
+    for i, n in enumerate(order):
+        per_proj[n] = per_proj.get(n, 0.0) + sum(walk[i::len(order)]) \
+            / n_layers
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    top = sorted(device_us_by_kernel(prof).items(), key=lambda kv: -kv[1])
+    top = sorted(device_us_by_kernel(events).items(), key=lambda kv: -kv[1])
     return {"m": prompts.numel(), "layers": n_layers,
             "device_ms": busy, "walk_ms": sum(walk),
             "walk_ms_per_projection": per_proj,
@@ -1292,7 +1531,7 @@ def profile_decode(torch, res, dev):
             tok = torch.argmax(logits, -1)[:, None]
         torch.cuda.synchronize()
         wall = now() - t0
-    by_name = device_us_by_kernel(prof)
+    by_name = device_us_by_kernel(prof.events())
     busy = sum(by_name.values())
     if not busy:
         return {"device_ms_per_step": "not measured"}
@@ -2137,6 +2376,41 @@ def kernels_line(stats):
     return {"kernels": rows}
 
 
+def moe_phases(torch, K, ops, serve, dev, stats):
+    """The engine phase, then the MoE serve paths (static on single-pass
+    and merged chips, continuous batching on the single-pass chips of
+    serve-moe) and their profile. They run after the profile phase has
+    freed the dense models: their ~30 GB of chips do not fit beside
+    them."""
+    # what a failed profile phase left held would not fit beside them
+    for queue in ("profile", "profile_cnn"):
+        stats[queue].clear()
+    free(torch)
+    engine_phase(torch, K, dev, stats)
+    text = "deepseek-moe-16b full width, {} of 28 layers, {} cores"
+    moe = phase("serve-moe")(serve_path)(
+        torch, K, ops, serve, dev, stats, "serve-moe", SERVE_MOE,
+        SERVE_MOE_ROUTES, text.format(SERVE_MOE["n_layers"],
+                                      SERVE_MOE["cim_cores"]),
+        MOE, "profile_moe")
+    phase("serve-moe-merged")(serve_path)(
+        torch, K, ops, serve, dev, stats, "serve-moe-merged", MERGED_MOE,
+        MERGED_MOE_ROUTES, text.format(MERGED_MOE["n_layers"],
+                                       MERGED_MOE["cim_cores"]),
+        MOE, "profile_moe")
+    served = dict(stats["profile_moe"]).get("serve-moe") if moe else None
+    if served is None:
+        failures.append("serve-traffic-moe")
+        emit({"phase": "serve-traffic-moe", "ok": False,
+              "error": "no serve-moe chips to serve"})
+    else:
+        phase("serve-traffic-moe")(traffic_path)(
+            torch, K, serve, dev, stats, "serve-traffic-moe", TRAFFIC_MOE,
+            SERVE_MOE_ROUTES, MOE, deployed=served, full=False)
+    del served
+    profile_moe_phase(torch, dev, stats)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -2157,7 +2431,7 @@ def main() -> int:
 
     dev = serve.resolve_device("cuda")
     stats = {"err": {}, "time": {}, "launches": {}, "profile": [],
-             "profile_cnn": []}
+             "profile_cnn": [], "profile_moe": []}
     info = device_phase(torch)
     stats["smi"] = info["nvidia_smi"] if info else "not measured"
     if build_phase(K, stopwatch) is None:
@@ -2188,6 +2462,7 @@ def main() -> int:
     free(torch)
     noisy_matmul_phase(torch, K, dev, stats)
     profile_phase(torch, dev, stats)
+    moe_phases(torch, K, ops, serve, dev, stats)
 
     emit(kernels_line(stats))
     if failures or info is None:

@@ -2,11 +2,13 @@
 ported so far)."""
 from __future__ import annotations
 
-from . import gemma2_9b
+from . import deepseek_moe_16b, gemma2_9b, llama4_maverick
 from ..models.transformer import ArchConfig
 
 _MODULES = {
     "gemma2-9b": gemma2_9b,
+    "deepseek-moe-16b": deepseek_moe_16b,
+    "llama4-maverick-400b-a17b": llama4_maverick,
 }
 
 ARCH_NAMES = list(_MODULES)

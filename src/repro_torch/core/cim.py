@@ -19,6 +19,10 @@
 `compile_chip` composes them into a `CompiledChip` and, by default, runs
 the chip-IR verifier (`core.verify.verify_chip`) over it. `packed_forward`
 serves one packed layer: quantize, one kernel launch, rescale.
+`CIMEngine` holds one compiled chip on its device and serves it by name
+and direction, one launch per forward. The PACT input clip (`in_alpha`,
+`in_alpha_bwd`) is a float or a per-name dict; a name the dict lacks
+takes 1.0, as in the reference (`_alpha_for`).
 
 `program` / `forward` are the per-matrix path (`models/nn.chip_linear` /
 `chip_conv`, the CNN deploys): one programmed matrix through ONE launch
@@ -42,7 +46,7 @@ programmed layers (`convert.chip_states_from_numpy`), instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -341,12 +345,23 @@ def schedule_chip(plan: Plan, names: Sequence[str]
     return {n: schedule_tiles(plan.tiles_for(n)) for n in names}
 
 
+Alpha = Union[float, Dict[str, float]]
+
+
+def _alpha_for(in_alpha: Alpha, name: str) -> float:
+    """The PACT clip of `name`: the float, or the dict's entry (1.0 where
+    it has none, as the reference's `_alpha_for`)."""
+    return (in_alpha.get(name, 1.0)
+            if isinstance(in_alpha, dict) else in_alpha)
+
+
 def program_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig, *,
-                 mode: str = "relaxed", in_alpha: float = 1.0,
+                 mode: str = "relaxed", in_alpha: Alpha = 1.0,
                  x_cal: Optional[Dict[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None):
     """Stage 3 (PROGRAM): conductances + whole-matrix calibration per
-    matrix, in sorted name order. Returns (name -> CIMLayer, name ->
+    matrix, in sorted name order, each at its own clip
+    (`_alpha_for(in_alpha, name)`). Returns (name -> CIMLayer, name ->
     calibration batch); the same batch drives stage 4. Programming noise
     comes from `generator` (a fresh one seeded 0 if None)."""
     layers: Dict[str, CIMLayer] = {}
@@ -354,10 +369,11 @@ def program_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig, *,
     prog_gen = generator
     for name in sorted(weights):
         w = weights[name]
-        xc = _batch(x_cal, name, w.shape[0], in_alpha, generator, w.device)
+        alpha = _alpha_for(in_alpha, name)
+        xc = _batch(x_cal, name, w.shape[0], alpha, generator, w.device)
         if prog_gen is None:
             prog_gen = torch.Generator(w.device).manual_seed(0)
-        layers[name] = program(w, cfg, in_alpha=in_alpha, x_cal=xc,
+        layers[name] = program(w, cfg, in_alpha=alpha, x_cal=xc,
                                mode=mode, generator=prog_gen)
         batches[name] = xc
     return layers, batches
@@ -377,25 +393,26 @@ def _batch(x_cal, name: str, width: int, in_alpha: float, generator,
 def calibrate_chip(layers: Dict[str, CIMLayer], plan: Plan,
                    batches: Dict[str, torch.Tensor], cfg: CIMConfig, *,
                    direction: str = "fwd",
-                   in_alpha: Optional[float] = None
+                   in_alpha: Optional[Alpha] = None
                    ) -> Dict[str, torch.Tensor]:
     """Stage 4 (CALIBRATE): one v_decr per tile in `direction`; batches
-    live in the direction's input space, in_alpha overrides the forward
-    clip for the transpose direction."""
-    return {n: calibrate_tile_v_decr(layers[n], plan.tiles_for(n),
-                                     batches[n], cfg, direction=direction,
-                                     in_alpha=in_alpha)
-            for n in layers}
+    live in the direction's input space, in_alpha (float or per-name)
+    overrides the forward clip for the transpose direction."""
+    return {n: calibrate_tile_v_decr(
+        layers[n], plan.tiles_for(n), batches[n], cfg, direction=direction,
+        in_alpha=None if in_alpha is None else _alpha_for(in_alpha, n))
+        for n in layers}
 
 
 def pack_chip(layers: Dict[str, CIMLayer], plan: Plan,
               schedules: Dict[str, TileSchedule], cfg: CIMConfig,
               v_decrs: Dict[str, torch.Tensor], *, direction: str = "fwd",
               packed: Optional[Dict[str, PackedCIMLayer]] = None,
-              in_alpha: float = 1.0) -> Dict[str, PackedCIMLayer]:
+              in_alpha: Alpha = 1.0) -> Dict[str, PackedCIMLayer]:
     """Stage 5 (PACK). direction='bwd' packs the transpose view of an
     already packed forward chip (`packed`), sharing its gd_tiles stacks;
-    in_alpha is then the transpose direction's input clip."""
+    in_alpha (float or per-name) is then the transpose direction's input
+    clip."""
     if direction == "fwd":
         return {n: pack_cim_layer(layers[n], plan.tiles_for(n), cfg,
                                   v_decr=v_decrs[n], schedule=schedules[n])
@@ -422,7 +439,8 @@ def pack_chip(layers: Dict[str, CIMLayer], plan: Plan,
             lay.g_pos, lay.g_neg, lay.w_max,
             torch.sum(lay.g_pos + lay.g_neg, dim=1), torch.max(v_decrs[n]),
             torch.zeros((lay.g_pos.shape[0],), device=dev),
-            torch.tensor(in_alpha, dtype=torch.float32, device=dev))
+            torch.tensor(_alpha_for(in_alpha, n), dtype=torch.float32,
+                         device=dev))
         out[n] = PackedCIMLayer(lay_bwd, p_bwd)
     return out
 
@@ -437,17 +455,21 @@ def _oracle_only(cfg: CIMConfig) -> bool:
 
 def compile_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig,
                  spec: CoreSpec = CoreSpec(), mode: str = "relaxed", *,
-                 plan: Optional[Plan] = None, in_alpha: float = 1.0,
+                 reqs: Optional[Sequence[MatrixReq]] = None,
+                 plan: Optional[Plan] = None, in_alpha: Alpha = 1.0,
                  x_cal: Optional[Dict[str, torch.Tensor]] = None,
                  directions: Sequence[str] = ("fwd",),
-                 in_alpha_bwd: float = 1.0,
+                 in_alpha_bwd: Alpha = 1.0,
                  x_cal_bwd: Optional[Dict[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None,
                  verify: str = "strict") -> CompiledChip:
     """Run plan -> schedule -> program -> calibrate -> pack over one chip's
     weight matrices (name -> (R, C), all on one device).
 
-    plan: optional pre-built Plan overriding stage 1 (a custom mapping,
+    reqs: optional MatrixReqs for stage 1 (their intensities steer
+    duplication); one plain req per weight by default. in_alpha /
+    in_alpha_bwd: PACT clips, a float or per-name (1.0 for a missing
+    name). plan: optional pre-built Plan overriding stage 1 (a custom mapping,
     such as the pixel-interleaved RBM, or one layer's plan reused for
     every layer of a stack of equal shapes). x_cal: optional per-name
     (B_cal, R) calibration activations; missing names draw synthetic
@@ -469,8 +491,12 @@ def compile_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig,
         raise ValueError(f"directions must be ('fwd',) or ('fwd','bwd'), "
                          f"got {directions}")
     if plan is None:
-        plan = plan_chip([MatrixReq(n, int(w.shape[0]), int(w.shape[1]))
-                          for n, w in weights.items()], cfg, spec)
+        reqs = list(reqs) if reqs is not None else [
+            MatrixReq(n, int(w.shape[0]), int(w.shape[1]))
+            for n, w in weights.items()]
+        if {r.name for r in reqs} != set(weights):
+            raise ValueError("reqs names must match weights names")
+        plan = plan_chip(reqs, cfg, spec)
     else:
         for n, w in weights.items():
             ts = plan.tiles_for(n)
@@ -490,8 +516,9 @@ def compile_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig,
     packed = pack_chip(layers, plan, schedules, cfg, v_decrs)
     bwd_packed: Dict[str, PackedCIMLayer] = {}
     if "bwd" in directions:
-        batches_bwd = {n: _batch(x_cal_bwd, n, w.shape[1], in_alpha_bwd,
-                                 generator, w.device)
+        batches_bwd = {n: _batch(x_cal_bwd, n, w.shape[1],
+                                 _alpha_for(in_alpha_bwd, n), generator,
+                                 w.device)
                        for n, w in sorted(weights.items())}
         v_decrs_bwd = calibrate_chip(layers, plan, batches_bwd, cfg,
                                      direction="bwd", in_alpha=in_alpha_bwd)
@@ -504,3 +531,76 @@ def compile_chip(weights: Dict[str, torch.Tensor], cfg: CIMConfig,
     if verify == "strict":
         verify_chip(chip)
     return chip
+
+
+class CIMEngine:
+    """Serves one CompiledChip on `device`: compile once (`program`), then
+    each `forward` is ONE launch of the layer's kernel — packed,
+    scheduled or, for direction "bwd", transposed (`packed_forward`).
+
+        eng = CIMEngine(cfg, mode="relaxed", device="cuda")
+        eng.program({"fc1": w1, "fc2": w2})       # plan ... pack
+        y = eng.forward("fc1", x)
+
+    The weights are moved to `device` before programming, so the chip's
+    state lives where it serves; `device` is CUDA unless "cpu" is passed
+    (the CPU runs the kernels' plain versions). Configurations with a
+    per-phase non-ideality other than IR drop need the bit-serial oracle
+    and raise, as in the reference.
+    """
+
+    def __init__(self, cfg: CIMConfig, spec: CoreSpec = CoreSpec(),
+                 mode: str = "relaxed", device=None):
+        from ..device import resolve_device
+        if _oracle_only(cfg):
+            raise ValueError(
+                "CIMEngine serves the fused kernel path only; per-phase "
+                "non-idealities require the bit-serial oracle")
+        self.cfg = cfg
+        self.spec = spec
+        self.mode = mode
+        self.device = resolve_device(device)
+        self.chip: Optional[CompiledChip] = None
+
+    @property
+    def plan(self) -> Optional[Plan]:
+        return self.chip.plan if self.chip is not None else None
+
+    @property
+    def layers(self) -> Dict[str, PackedCIMLayer]:
+        return self.chip.layers if self.chip is not None else {}
+
+    def program(self, weights: Dict[str, torch.Tensor], *,
+                reqs: Optional[Sequence[MatrixReq]] = None,
+                plan: Optional[Plan] = None, in_alpha: Alpha = 1.0,
+                x_cal: Optional[Dict[str, torch.Tensor]] = None,
+                directions: Sequence[str] = ("fwd",),
+                in_alpha_bwd: Alpha = 1.0,
+                x_cal_bwd: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> Plan:
+        """Compile `weights` into a fresh chip (the old one is dropped);
+        see `compile_chip`. With directions=("fwd", "bwd") every matrix
+        also serves transposed. Returns the plan."""
+        dev = self.device
+        on = lambda d: None if d is None else {
+            n: torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for n, v in d.items()}
+        self.chip = compile_chip(
+            on(weights), self.cfg, self.spec, self.mode, reqs=reqs,
+            plan=plan, in_alpha=in_alpha, x_cal=on(x_cal),
+            directions=directions, in_alpha_bwd=in_alpha_bwd,
+            x_cal_bwd=on(x_cal_bwd), generator=generator)
+        return self.chip.plan
+
+    def forward(self, name: str, x, *, direction: str = "fwd",
+                seed: int = 0, impl: str = "auto"):
+        """y ~= x @ W_name (direction "fwd", SL->BL) or x @ W_name.T
+        ("bwd", BL->SL, over the same programmed cells): one kernel
+        launch (impl="plain": its plain version)."""
+        if self.chip is None:
+            raise ValueError("the engine holds no chip: call program first")
+        return packed_forward(self.chip.layers_for(direction)[name], x,
+                              self.cfg, seed=seed, impl=impl)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.layers

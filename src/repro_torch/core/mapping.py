@@ -24,6 +24,10 @@ paper Fig. 2a + Methods 'Weight mapping strategy onto multiple CIM cores').
     4e-g). It shares the forward `gd_tiles` stack by reference and builds
     only the per-row normalizer, ADC steps and denorms, in its own fused
     slot order; `tile_slot` maps each slot to its stack position.
+  * `multicore_mvm_packed`: a packed plan in one launch — the CIM datapath
+    under a CIMConfig, or with cfg None the exact tiled matmul (the
+    kernel's identity epilogue). `multicore_mvm` is the readable per-tile
+    loop in plain PyTorch, kept as the reference keeps it.
 
 The planner and scheduler work on Python metadata. The pack is batched
 tensor code: a (R, C) matrix viewed as (row_block, bk, col_block, bn)
@@ -621,6 +625,58 @@ def pack_tiles_transposed(tiles: Sequence[Tile], packed: PackedPlan, *,
         gd_tiles=packed.gd_tiles,           # SHARED: one conductance set
         inv_norm_tiles=inv_t[:, None, :], v_decr_tiles=vd_t,
         denorm_tiles=den_t[:, None, :])
+
+
+def multicore_mvm_packed(x, packed: PackedPlan, cfg=None, *, seed: int = 0,
+                         scheduled=None, fused: bool = True,
+                         impl: str = "auto"):
+    """A whole layer's tile plan in ONE kernel launch (the packed,
+    scheduled or transposed kernel, by the plan; `scheduled` forces the
+    scheduled kernel onto a single-pass plan).
+
+    With a CIMConfig, the CIM datapath on integer-valued x (ADC counts
+    accumulated per the plan's denorm_tiles). With cfg None, the exact
+    tiled matmul x @ W (identity epilogue, n_max 1, v_read 1.0): each
+    tile's dot in FP64, rounded once to f32, the tiles summed in f32 in
+    slot order. On the card the split route (packed and scheduled plans,
+    M <= 16) reads any float x; the walk (M > 16, and every transposed
+    launch) reads x as int8, so there x must hold integers |x| <= 127 and
+    anything else raises. fused=False (the per-slot partial baseline)
+    raises: not ported (ROADMAP A10). impl="plain" forces the plain
+    version."""
+    from ..kernels.cim_mvm import kernel as K
+    from ..kernels.cim_mvm.ops import cim_mvm_packed, packed_call
+    if cfg is not None:
+        return cim_mvm_packed(x, packed, cfg, seed=seed, scheduled=scheduled,
+                              fused=fused, impl=impl)
+    walk = packed.transpose or not K.split_route(x.shape[0])
+    if impl != "plain" and x.device.type == "cuda" and walk and not bool(
+            ((x == torch.round(x)) & (x.abs() <= 127)).all()):
+        raise ValueError(
+            f"the walk ({x.shape[0]} rows, plan '{packed.layer}') reads x "
+            "as int8: an exact matmul there takes integers |x| <= 127")
+    return packed_call(x, packed, activation="identity", n_max=1,
+                       v_read=1.0, seed=seed, scheduled=scheduled,
+                       fused=fused, impl=impl)
+
+
+def multicore_mvm(x, weight, plan_tiles: Sequence[Tile], matmul_fn):
+    """y = x @ weight tile by tile with digital partial sums: the
+    reference's readable per-tile loop (one product per tile, plain
+    PyTorch; `multicore_mvm_packed` is the one-launch path).
+
+    matmul_fn(x_tile, w_tile, tile) -> (B, tile.cols) performs one core's
+    MVM (exact, noisy or chip-simulated); row-split partial sums
+    accumulate in f32, tile by tile in plan order."""
+    b = x.shape[0]
+    y = torch.zeros((b, weight.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    for t in plan_tiles:
+        cols = slice(t.col0, t.col0 + t.cols)
+        yt = matmul_fn(x[:, t.row0:t.row0 + t.rows],
+                       weight[t.row0:t.row0 + t.rows, cols], t)
+        y[:, cols] = y[:, cols] + yt
+    return y
 
 
 def interleave_assignment(n_units: int, n_cores: int, device=None):

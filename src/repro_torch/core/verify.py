@@ -59,6 +59,11 @@ stage, layer, tile/slot and invariant, before anything launches.
                                    small enough that the kernel's FP64
                                    tile dot (of the route's length, bk) is
                                    exact for |x| <= 127
+  deploy    stack-geometry         every chip of a deployed stack (a
+                                   layer list, or a layer x expert list of
+                                   lists) shares one static plan geometry
+                                   and tensor shapes, as the reference's
+                                   stacked pytrees must
   chip      schedule-pack          the packed pass structure matches the
                                    stage-2 schedule
             shared-stack           a transpose pack reuses the forward
@@ -554,12 +559,59 @@ def verify_chip(chip):
     return chip
 
 
+_STACK_FIELDS = ("bk", "bn", "n_rows", "n_cols", "row_block", "col_block",
+                 "seq_slot", "n_passes", "transpose", "tile_slot", "out_slot",
+                 "out_col")
+_STACK_TENSORS = ("gd_tiles", "inv_norm_tiles", "v_decr_tiles",
+                  "denorm_tiles")
+
+
+def _stack_members(node, kind):
+    """The `kind` leaves of a (nested) list of them, else None."""
+    out = []
+    for x in node:
+        if isinstance(x, list):
+            sub = _stack_members(x, kind)
+            if sub is None:
+                return None
+            out += sub
+        elif isinstance(x, kind):
+            out.append(x)
+        else:
+            return None
+    return out
+
+
+def check_stack(plans: Sequence[PackedPlan], *,
+                layer: Optional[str] = None) -> None:
+    """A deployed stack's chips share the first one's static geometry and
+    tensor shapes (the reference stacks them into one pytree, which
+    requires it; the port's launches rely on it per layer and expert)."""
+    first = plans[0]
+    name = layer if layer is not None else first.layer
+    for i, p in enumerate(plans[1:], 1):
+        for f in _STACK_FIELDS:
+            if getattr(p, f) != getattr(first, f):
+                raise ChipVerifyError(
+                    "deploy", "stack-geometry",
+                    f"chip {i} of the stack has {f} {getattr(p, f)!r}, chip "
+                    f"0 {getattr(first, f)!r}", layer=name)
+        for f in _STACK_TENSORS:
+            if getattr(p, f).shape != getattr(first, f).shape:
+                raise ChipVerifyError(
+                    "deploy", "stack-geometry",
+                    f"chip {i} of the stack has {f} of shape "
+                    f"{tuple(getattr(p, f).shape)}, chip 0 "
+                    f"{tuple(getattr(first, f).shape)}", layer=name)
+
+
 def verify_deployed(tree):
     """Verify every chip artifact reachable in a deployed tree (dicts,
     lists, tuples and dataclasses, as the port's deploys build them):
-    CompiledChips get `verify_chip`, PackedPlans `check_packed`. Returns
-    the tree."""
-    from .cim import CompiledChip        # cim imports this module
+    CompiledChips get `verify_chip`, PackedPlans `check_packed`, and a
+    list (or list of lists: layer x expert) of PackedCIMLayers
+    `check_stack`. Returns the tree."""
+    from .cim import CompiledChip, PackedCIMLayer   # cim imports this module
     stack = [tree]
     while stack:
         node = stack.pop()
@@ -569,6 +621,10 @@ def verify_deployed(tree):
             verify_chip(node)
         elif isinstance(node, dict):
             stack.extend(node.values())
+        elif isinstance(node, list) and node and \
+                (members := _stack_members(node, PackedCIMLayer)):
+            check_stack([m.packed for m in members])
+            stack.extend(members)
         elif isinstance(node, (list, tuple)):
             stack.extend(node)
         elif dataclasses.is_dataclass(node) and not isinstance(node, type):

@@ -85,11 +85,12 @@ def packed_call(x, packed, *, activation: str, n_max: int, v_read: float,
 
 
 def cim_mvm_packed(x_int, packed, cfg: CIMConfig, *, seed: int = 0,
-                   scheduled=None, impl: str = "auto"):
+                   scheduled=None, fused: bool = True, impl: str = "auto"):
     """Packed whole-layer CIM MVM returning the digitally accumulated
     (B, C) float32 output — summed ADC counts when the plan was packed
     with fold_norm=False, de-normalized charge units with fold_norm=True.
     x_int: (B, R) integer-valued activations over the full weight rows."""
     return packed_call(x_int, packed, activation=cfg.activation,
                        n_max=cfg.out_mag_levels, v_read=cfg.v_read,
-                       seed=seed, scheduled=scheduled, impl=impl)
+                       seed=seed, scheduled=scheduled, fused=fused,
+                       impl=impl)

@@ -28,9 +28,11 @@ of the same request served alone through the static path, with logits
 within rounding: every per-row computation (the packed CIM projections
 with static PACT alphas, norms, softmax) is independent of which other
 slots are occupied, but attention's batched products and the chunked
-prefill may round in another order. The reference's MoE rule (dropless
-dispatch, forced on by its engine) arrives with the MoE archs (ROADMAP
-A7), a mesh with A13; the port's configs are dense.
+prefill may round in another order. For MoE archs the engine forces
+dropless dispatch (`moe_dropless`, as the reference's engine does): with
+capacity-factor dispatch co-batched requests would compete for expert
+capacity, and a request's tokens would depend on its neighbours. A mesh
+waits for ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -128,6 +130,10 @@ class ContinuousBatchingEngine:
                  metrics: Optional[MetricsRegistry] = None,
                  trace: Optional[TraceBuffer] = None,
                  strict_jit: bool = False):
+        if cfg.n_experts > 0 and not cfg.moe_dropless:
+            # the engine's contract: co-batched requests must not compete
+            # for expert capacity (module docstring)
+            cfg = cfg.replace(moe_dropless=True)
         self.cfg = cfg
         # last gate before the steps close over the chip stacks: a corrupt
         # packed artifact fails here with a named invariant

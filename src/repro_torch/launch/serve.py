@@ -6,6 +6,18 @@ compiled NeuRRAM chip (port of `repro/launch/serve.py`, one process).
       --cim --cim-cores 6144 --layers 4 --batch 4 --prompt-len 64 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
       --cim --cim-cores 6144 --layers 4 --traffic --requests 16 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-moe-16b --cim --cim-cores 2048 --layers 2 --gen 8
+
+Archs: gemma2-9b (dense), deepseek-moe-16b and llama4-maverick-400b-a17b
+(MoE; llama4 only at --smoke: one full-width layer's experts exceed a
+card). Under --cim an MoE arch compiles each layer's attention and
+shared-expert projections onto one chip and each routed expert onto one
+of its own (`models/moe.py`); every expert runs one launch per
+projection and step. Full-width deepseek-moe-16b needs 1040 cores for
+its layer chips and 280 for each expert chip to stay single-pass
+(`--cim-cores 2048`), and a depth cut: a layer's 588 M weights take about
+10 GB.
 
 Two modes share one compiled chip stack (weight-stationary):
 
@@ -276,11 +288,17 @@ def _write_obs(args, metrics, trace=None, summary=None):
 
 
 def _print_chip(args, cfg, params, deploy_s):
-    n_packed = sum(1 for k in params["layers"] if k.endswith("_cim"))
-    passes = {k[:-4]: v[0].packed.n_passes
-              for k, v in params["layers"].items() if k.endswith("_cim")}
-    print(f"cim: compiled {n_packed} projection stacks x "
-          f"{cfg.n_layers} layers ({args.cim_mode}, "
+    stacks = {k[:-4]: v for k, v in params["layers"].items()
+              if k.endswith("_cim")}
+    # an expert stack is a per-layer list of per-expert chips
+    first = {k: v[0][0] if isinstance(v[0], list) else v[0]
+             for k, v in stacks.items()}
+    passes = {k: c.packed.n_passes for k, c in first.items()}
+    experts = sum(1 for v in stacks.values() if isinstance(v[0], list))
+    per_expert = f" ({experts} of them one chip per expert, " \
+        f"{cfg.n_experts} experts)" if experts else ""
+    print(f"cim: compiled {len(stacks)} projection stacks{per_expert} x "
+          f"{len(next(iter(stacks.values())))} layers ({args.cim_mode}, "
           f"bits={cfg.cim_in_bits}/{cfg.cim_out_bits}, "
           f"ir_drop={cfg.cim_ir_drop}, tp=1) in {deploy_s:.1f}s; "
           f"passes per projection {passes}")
@@ -325,7 +343,8 @@ def _serve_traffic(args, kw):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-9b")
+    ap.add_argument("--arch", default="gemma2-9b",
+                    choices=configs.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

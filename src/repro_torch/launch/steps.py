@@ -1,7 +1,7 @@
 """Prefill / decode step functions, the slot pool's steps and the
 arch-dispatch table the serving driver runs through (PyTorch port of the
-serving half of `repro/launch/steps.py`; the dense family only — the
-recurrent and MoE families wait for ROADMAP A7/A8)."""
+serving half of `repro/launch/steps.py`; the dense and MoE families —
+the recurrent family waits for ROADMAP A8)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple

@@ -27,10 +27,15 @@ reproduces the reference's pairing of patch and weight entries. `SAME`
 padding is XLA's: total = max((out - 1) * s + k - in, 0), the smaller
 half before (asymmetric at stride 2).
 
-`deploy_transformer_cim` compiles each layer's dense projections onto one
-simulated chip (`core.cim.compile_chip`) and returns params augmented
-with '<name>_cim' entries: a list with one PackedCIMLayer per layer, which
-`models/transformer.cim_linear` serves through `packed_linear`.
+`deploy_transformer_cim` compiles each layer's dense and shared-expert
+projections onto one simulated chip (`core.cim.compile_chip`) and each
+routed expert of each layer onto a chip of its own (the paper's
+power-gated cores), and returns params augmented with '<name>_cim'
+entries: a list with one PackedCIMLayer per layer (experts: per layer, a
+list with one per expert), which `models/transformer.cim_linear` and
+`models/moe.moe_ffn` serve through `packed_linear`. As in the reference,
+the dense layers of llama4's interleave ('dense_layers') are not
+deployed: they serve float under --cim.
 `deploy_rbm_cim` compiles an RBM onto one bidirectional chip.
 
 At one tensor-parallel shard the reference compiles every projection as
@@ -46,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import cim as cim_api
+from ..core.cim import Alpha
 from ..core.noise import weight_noise
 from ..core.quant import pact_quantize
 from ..core.types import CIMConfig, CoreSpec, NonIdealityConfig
@@ -222,13 +228,57 @@ def chip_conv(cl: ChipLinear, x, cfg: CIMConfig, kh: int, kw_: int,
 
 # --------------------------------------------- packed CIM serving (engine)
 
-# Dense-block projections the packed serving path covers (the reference's
-# shared-expert keys join with MoE, ROADMAP A7).
-PACKED_PROJ_KEYS = ("wq", "wk", "wv", "wo", "w_g", "w_i", "w_o")
+# Projections the packed serving path covers: dense-block and shared-
+# expert projections (one chip per layer), routed-expert stacks (one chip
+# per layer and expert).
+PACKED_PROJ_KEYS = ("wq", "wk", "wv", "wo", "w_g", "w_i", "w_o",
+                    "sw_g", "sw_i", "sw_o")
+PACKED_EXPERT_KEYS = ("ew_g", "ew_i", "ew_o")
+
+
+def _check_alpha_names(in_alpha: Alpha, names) -> None:
+    """A per-name in_alpha dict may only name projections of the stack."""
+    if isinstance(in_alpha, dict):
+        unknown = sorted(set(in_alpha) - set(names))
+        if unknown:
+            raise ValueError(
+                f"in_alpha names {unknown} match no projection in this "
+                f"stack (stack names: {sorted(names)}) — a typo here would "
+                "silently deploy the projection at the default clip")
+
+
+def _group_alpha(in_alpha: Alpha, names) -> Alpha:
+    """A per-name in_alpha dict restricted to one deploy group's names
+    (the whole dict is checked against every group up front)."""
+    if not isinstance(in_alpha, dict):
+        return in_alpha
+    return {n: a for n, a in in_alpha.items() if n in names}
+
+
+def _compile_stack(stacked_w, ccfg, mode, in_alpha, spec, x_cal, generator,
+                   plan=None):
+    """deploy_packed_stack's work; also returns the plan, which depends
+    only on the shapes and so serves every chip of equal shapes."""
+    names = sorted(stacked_w)
+    _check_alpha_names(in_alpha, names)
+    n_layers = stacked_w[names[0]].shape[0]
+    if x_cal is not None and len(x_cal) != n_layers:
+        raise ValueError(f"x_cal has {len(x_cal)} layers, the stack "
+                         f"{n_layers}")
+    out: Dict[str, List[cim_api.PackedCIMLayer]] = {n: [] for n in names}
+    for li in range(n_layers):
+        chip = cim_api.compile_chip(
+            {n: stacked_w[n][li].to(torch.float32) for n in names},
+            ccfg, spec or CoreSpec(), mode, plan=plan, in_alpha=in_alpha,
+            x_cal=None if x_cal is None else x_cal[li], generator=generator)
+        plan = chip.plan
+        for n in names:
+            out[n].append(chip.layers[n])
+    return out, plan
 
 
 def deploy_packed_stack(stacked_w: Dict[str, torch.Tensor], ccfg: CIMConfig,
-                        *, mode: str = "ideal", in_alpha: float = 3.0,
+                        *, mode: str = "ideal", in_alpha: Alpha = 3.0,
                         spec: Optional[CoreSpec] = None,
                         x_cal: Optional[List[Dict[str, Any]]] = None,
                         generator: Optional[torch.Generator] = None
@@ -237,34 +287,25 @@ def deploy_packed_stack(stacked_w: Dict[str, torch.Tensor], ccfg: CIMConfig,
 
     stacked_w: name -> (L, R, C) stacked weights. Each layer index gets
     its own `compile_chip` run (one chip per transformer layer).
-    x_cal: optional per-layer list of name -> (B_cal, R) calibration
-    activations (the parity seam with the reference, whose batches come
-    from jax.random); without it the batches are drawn from `generator`.
-    Returns name -> [PackedCIMLayer per layer]. The plan depends only on
-    the shapes, so the first layer's plan serves every layer.
+    in_alpha: the PACT clip, a float or per-name dict; a dict naming a
+    projection the stack lacks raises (a typo would otherwise deploy that
+    projection at the 1.0 fallback). x_cal: optional per-layer list of
+    name -> (B_cal, R) calibration activations (the parity seam with the
+    reference, whose batches come from jax.random); without it the
+    batches are drawn from `generator`. Returns name -> [PackedCIMLayer
+    per layer]. The plan depends only on the shapes, so the first layer's
+    plan serves every layer.
     """
-    names = sorted(stacked_w)
-    n_layers = stacked_w[names[0]].shape[0]
-    if x_cal is not None and len(x_cal) != n_layers:
-        raise ValueError(f"x_cal has {len(x_cal)} layers, the stack "
-                         f"{n_layers}")
-    spec = spec or CoreSpec()
-    out: Dict[str, List[cim_api.PackedCIMLayer]] = {n: [] for n in names}
-    plan = None
-    for li in range(n_layers):
-        chip = cim_api.compile_chip(
-            {n: stacked_w[n][li].to(torch.float32) for n in names},
-            ccfg, spec, mode, plan=plan, in_alpha=in_alpha,
-            x_cal=None if x_cal is None else x_cal[li], generator=generator)
-        plan = chip.plan
-        for n in names:
-            out[n].append(chip.layers[n])
-    return out
+    return _compile_stack(stacked_w, ccfg, mode, in_alpha, spec, x_cal,
+                          generator)[0]
 
 
-def packed_linear(pcl, x, ccfg: CIMConfig, *, impl: str = "auto"):
-    """x: (B, n_in) float -> (B, n_out) float through one packed launch."""
-    return cim_api.packed_forward(pcl, x.to(torch.float32), ccfg, impl=impl)
+def packed_linear(pcl, x, ccfg: CIMConfig, *, seed: int = 0,
+                  impl: str = "auto"):
+    """x: (B, n_in) float -> (B, n_out) float through one packed launch
+    (seed: the stochastic neuron's salt)."""
+    return cim_api.packed_forward(pcl, x.to(torch.float32), ccfg, seed=seed,
+                                  impl=impl)
 
 
 def arch_cim_config(arch_cfg) -> CIMConfig:
@@ -277,18 +318,31 @@ def arch_cim_config(arch_cfg) -> CIMConfig:
 
 
 def deploy_transformer_cim(params, arch_cfg, *, mode: str = "ideal",
-                           in_alpha: float = 3.0,
+                           in_alpha: Alpha = 3.0,
                            mesh_shape: Optional[Dict[str, int]] = None,
                            spec: Optional[CoreSpec] = None,
-                           x_cal: Optional[List[Dict[str, Any]]] = None):
-    """Compile every packed-servable projection of a dense transformer
-    onto CIM chips (one chip per layer) and return params augmented with
-    '<name>_cim' entries, re-verified by the chip-IR verifier.
+                           x_cal: Optional[List[Dict[str, Any]]] = None,
+                           x_cal_experts: Optional[
+                               List[List[Dict[str, Any]]]] = None):
+    """Compile every packed-servable projection of a transformer onto CIM
+    chips and return params augmented with '<name>_cim' entries,
+    re-verified by the chip-IR verifier.
 
-    x_cal: optional per-layer name -> (64, R) calibration batches; without
-    it they are drawn from a torch.Generator seeded 7 on the params'
-    device. mesh_shape: a 'model' width above 1 raises (sharded deploys
-    are ROADMAP A13).
+    One chip per layer carries the dense-block and shared-expert
+    projections (PACKED_PROJ_KEYS). The routed experts (PACKED_EXPERT_KEYS,
+    (L, E, R, C) stacks) get one chip per (layer, expert), which
+    `moe.moe_ffn` serves; each '<name>_cim' expert entry is a per-layer
+    list of per-expert PackedCIMLayers ([L][E]). Every expert chip has
+    the same shapes, so the first one's plan serves them all.
+
+    in_alpha: the PACT clip, a float or a per-name dict over both groups
+    (an unknown name raises). x_cal: optional per-layer name -> (64, R)
+    calibration batches for the layer chips; x_cal_experts: optional
+    per-layer, per-expert name -> (64, R) batches for the expert chips
+    (the reference draws them from jax.random, which the port cannot
+    replay: the parity tests hand them in). Missing batches are drawn from
+    a torch.Generator seeded 7 on the params' device. mesh_shape: a
+    'model' width above 1 raises (sharded deploys are ROADMAP A13).
     """
     if "layers" not in params or "wq" not in params["layers"]:
         raise ValueError(
@@ -297,14 +351,35 @@ def deploy_transformer_cim(params, arch_cfg, *, mode: str = "ideal",
     if int((mesh_shape or {}).get("model", 1)) > 1:
         raise NotImplementedError(
             "tensor-parallel CIM deploys are not ported yet (ROADMAP A13)")
-    stacked = {n: params["layers"][n] for n in PACKED_PROJ_KEYS
-               if n in params["layers"]}
-    gen = torch.Generator(params["layers"]["wq"].device).manual_seed(7)
-    new_layers = dict(params["layers"])
+    layers = params["layers"]
+    stacked = {n: layers[n] for n in PACKED_PROJ_KEYS if n in layers}
+    expert_w = {n: layers[n] for n in PACKED_EXPERT_KEYS if n in layers}
+    _check_alpha_names(in_alpha, list(stacked) + list(expert_w))
+    ccfg = arch_cim_config(arch_cfg)
+    gen = torch.Generator(layers["wq"].device).manual_seed(7)
+    new_layers = dict(layers)
     for n, pcls in deploy_packed_stack(
-            stacked, arch_cim_config(arch_cfg), mode=mode, in_alpha=in_alpha,
-            spec=spec, x_cal=x_cal, generator=gen).items():
+            stacked, ccfg, mode=mode,
+            in_alpha=_group_alpha(in_alpha, stacked), spec=spec,
+            x_cal=x_cal, generator=gen).items():
         new_layers[n + "_cim"] = pcls
+    if expert_w:
+        names = sorted(expert_w)
+        n_layers, n_experts = expert_w[names[0]].shape[:2]
+        alpha = _group_alpha(in_alpha, names)
+        plan = None
+        per_exp = []
+        for e in range(n_experts):
+            xc = None if x_cal_experts is None else \
+                [x_cal_experts[li][e] for li in range(n_layers)]
+            chips, plan = _compile_stack(
+                {n: expert_w[n][:, e] for n in names}, ccfg, mode, alpha,
+                spec, xc, gen, plan=plan)
+            per_exp.append(chips)
+        for n in names:
+            new_layers[n + "_cim"] = [[per_exp[e][n][li]
+                                       for e in range(n_experts)]
+                                      for li in range(n_layers)]
     out = dict(params)
     out["layers"] = new_layers
     return verify_deployed(out)

@@ -1,17 +1,23 @@
-"""Dense decoder LM backbone (PyTorch port of the dense family of
+"""Decoder LM backbone (PyTorch port of the dense and MoE families of
 `repro/models/transformer.py`).
 
 GQA attention with gemma2's details — attention-logit and final-logit
 softcaps, alternating local (even layers) / global (odd layers) sliding
-window attention, the sqrt(d_model) embedding scale and tied unembedding
-— and a SwiGLU MLP. Params are a dict of tensors in the reference's
-layout: per-layer weights stacked as (L, in, out) under params['layers'].
-The reference's `lax.scan` over layers is a Python loop here.
+window attention, the sqrt(d_model) embedding scale, tied or untied
+unembedding — and either a SwiGLU MLP or a fine-grained MoE FFN with
+shared experts (`models/moe.py`: deepseek-moe, llama4). llama4's 1:1
+dense/MoE interleave (`moe_every=2`) keeps its dense layers under
+params['dense_layers'] beside the MoE ones in params['layers']; the
+layers run in pairs, dense first. Params are a dict of tensors in the
+reference's layout: per-layer weights stacked as (L, in, out) (experts
+(L, E, in, out)). The reference's `lax.scan` over layers is a Python loop
+here.
 
 Every projection can route through the NeuRRAM CIM path (`cim_linear`):
 with cim_mode="packed" and a deployed '<name>_cim' entry
 (models/nn.deploy_transformer_cim), the projection runs on its compiled
-chip through the packed kernel.
+chip through the packed or scheduled kernel, and each routed expert on
+its own chip.
 """
 from __future__ import annotations
 
@@ -27,8 +33,7 @@ from ..device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """A dense decoder. The unembedding is tied to the embedding (gemma2,
-    the one arch ported so far; untied archs arrive with their configs)."""
+    """A decoder LM: dense, or MoE when n_experts > 0."""
     name: str = "dense"
     n_layers: int = 4
     d_model: int = 256
@@ -41,7 +46,18 @@ class ArchConfig:
     final_softcap: float = 0.0   # gemma2: 30.0
     local_window: int = 0        # sliding window size for local layers
     alt_local_global: bool = False  # gemma2: alternate local/global
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_expert: int = 0            # expert FFN width (fine-grained MoE)
+    moe_every: int = 1           # llama4: MoE on every 2nd layer
+    # Dropless dispatch: every routed token kept (capacity = T). The
+    # capacity-factor path makes a token's output depend on which other
+    # tokens share the batch; launch/scheduler forces this on.
+    moe_dropless: bool = False
     dtype: Any = torch.bfloat16
+    tie_embeddings: bool = False
     rope_theta: float = 1e6
     # NeuRRAM CIM technique: off | packed (serve the dense-block
     # projections through their compiled chips, one kernel launch each)
@@ -65,20 +81,22 @@ class ArchConfig:
 
 # --------------------------------------------------------------- CIM linear
 
-def cim_linear(x, w, cfg: ArchConfig, *, packed=None):
+def cim_linear(x, w, cfg: ArchConfig, *, seed: int = 0, packed=None):
     """Route a matmul through the paper's technique, selected by cim_mode.
 
     off:    plain x @ w.
     packed: the programmed chip datapath — `packed` is this projection's
-            PackedCIMLayer; the whole tile plan is one kernel launch.
-            Without a deployed plan, packed mode keeps the float path.
+            PackedCIMLayer; the whole tile plan is one kernel launch
+            (seed: the stochastic neuron's salt, the reference's per
+            call site). Without a deployed plan, packed mode keeps the
+            float path.
     """
     if cfg.cim_mode == "packed" and packed is not None:
         from . import nn as nn_mod
         ccfg = nn_mod.arch_cim_config(cfg)
         shape = x.shape
         y = nn_mod.packed_linear(packed, x.reshape(-1, shape[-1]), ccfg,
-                                 impl=cfg.cim_impl)
+                                 seed=seed, impl=cfg.cim_impl)
         return y.reshape(*shape[:-1], y.shape[-1]).to(x.dtype)
     if cfg.cim_mode in ("off", "packed"):
         return x @ w
@@ -87,10 +105,11 @@ def cim_linear(x, w, cfg: ArchConfig, *, packed=None):
         "come with the training slice, ROADMAP A11)")
 
 
-def routed_linear(x, p, name: str, cfg: ArchConfig):
+def routed_linear(x, p, name: str, cfg: ArchConfig, *, seed: int = 0):
     """`cim_linear` over `p[name]`, picking up the deployed `p[name +
     '_cim']` entry when present."""
-    return cim_linear(x, p[name], cfg, packed=p.get(name + "_cim"))
+    return cim_linear(x, p[name], cfg, seed=seed,
+                      packed=p.get(name + "_cim"))
 
 
 # ------------------------------------------------------------------- layers
@@ -171,36 +190,52 @@ def attention(q, k, v, *, causal: bool, q_pos, kv_pos, window: int = 0,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v if rep == 1 else vf)
 
 
-def mlp(x, wi, wg, wo, cfg: ArchConfig, packed=(None, None, None)):
+def mlp(x, wi, wg, wo, cfg: ArchConfig, seed: int = 0,
+        packed=(None, None, None)):
     """SwiGLU MLP. packed: optional (w_i, w_g, w_o) PackedCIMLayers."""
     pi, pg, po = packed
-    h = F.silu(cim_linear(x, wg, cfg, packed=pg)) \
-        * cim_linear(x, wi, cfg, packed=pi)
-    return cim_linear(h, wo, cfg, packed=po)
+    h = F.silu(cim_linear(x, wg, cfg, seed=seed, packed=pg)) \
+        * cim_linear(x, wi, cfg, seed=seed + 1, packed=pi)
+    return cim_linear(h, wo, cfg, seed=seed + 2, packed=po)
 
 
-def routed_mlp(x, p, cfg: ArchConfig):
+def routed_mlp(x, p, cfg: ArchConfig, *, seed: int = 5):
     """`mlp` routed by param name (`w_i/w_g/w_o` + optional `_cim`)."""
-    return mlp(x, p["w_i"], p["w_g"], p["w_o"], cfg,
+    return mlp(x, p["w_i"], p["w_g"], p["w_o"], cfg, seed=seed,
                packed=(p.get("w_i_cim"), p.get("w_g_cim"), p.get("w_o_cim")))
 
 
 # ------------------------------------------------------------ param init
 
 def _dense_layer_params(gen: torch.Generator, cfg: ArchConfig, n_layers: int):
-    """Per-layer weights stacked over `n_layers`: normal / sqrt(fan_in)."""
+    """Per-layer weights stacked over `n_layers`: normal / sqrt(fan_in).
+    MoE layers (n_experts > 0) carry the router, the routed experts'
+    (L, E, in, out) stacks and, with shared experts, their fused SwiGLU
+    (width d_expert * n_shared_experts) in place of the MLP."""
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     d, f = cfg.d_model, cfg.d_ff
     dev, dtype = gen.device, cfg.dtype
 
     def s(*sh):
         w = torch.randn((n_layers, *sh), generator=gen, device=dev)
-        return (w * (1.0 / math.sqrt(sh[0]))).to(dtype)
+        return (w * (1.0 / math.sqrt(sh[-2]))).to(dtype)
 
     p = {"wq": s(d, nh * hd), "wk": s(d, nkv * hd), "wv": s(d, nkv * hd),
          "wo": s(nh * hd, d)}
     p["ln1"] = torch.ones((n_layers, d), dtype=dtype, device=dev)
     p["ln2"] = torch.ones((n_layers, d), dtype=dtype, device=dev)
+    if cfg.n_experts > 0:
+        de, e = cfg.d_expert or f, cfg.n_experts
+        p["router"] = s(d, e)
+        p["ew_g"] = s(e, d, de)
+        p["ew_i"] = s(e, d, de)
+        p["ew_o"] = s(e, de, d)
+        if cfg.n_shared_experts > 0:
+            ds = de * cfg.n_shared_experts
+            p["sw_g"] = s(d, ds)
+            p["sw_i"] = s(d, ds)
+            p["sw_o"] = s(ds, d)
+        return p
     p["w_g"] = s(d, f)
     p["w_i"] = s(d, f)
     p["w_o"] = s(f, d)
@@ -210,21 +245,48 @@ def _dense_layer_params(gen: torch.Generator, cfg: ArchConfig, n_layers: int):
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Dict:
     """Random params from a torch.Generator seeded with `seed`, made on
     `device` (CUDA unless "cpu" is passed; the full-width embedding alone
-    is 3.7 GB in f32)."""
+    is 3.7 GB in f32). An untied arch gets its own `unembed` (d, V); the
+    1:1 interleave (`moe_every=2`) n_layers / 2 dense layers under
+    'dense_layers' and as many MoE layers under 'layers'."""
     device = resolve_device(device)
     gen = torch.Generator(device).manual_seed(seed)
-    return {
+    params = {
         "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                               device=device) * 0.02).to(cfg.dtype),
         "ln_f": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
-        "layers": _dense_layer_params(gen, cfg, cfg.n_layers),
     }
+    if not cfg.tie_embeddings:
+        params["unembed"] = (torch.randn((cfg.d_model, cfg.vocab),
+                                         generator=gen, device=device)
+                             * 0.02).to(cfg.dtype)
+    if cfg.n_experts > 0 and cfg.moe_every > 1:
+        if cfg.moe_every != 2:
+            raise ValueError("only the 1:1 dense/MoE interleave "
+                             "(moe_every=2) is supported")
+        n = cfg.n_layers // 2
+        params["dense_layers"] = _dense_layer_params(
+            gen, cfg.replace(n_experts=0), n)
+        params["layers"] = _dense_layer_params(gen, cfg, n)
+        return params
+    params["layers"] = _dense_layer_params(gen, cfg, cfg.n_layers)
+    return params
 
 
 def layer_params(params, li: int) -> Dict:
-    """Layer li's params: a view of each (L, ...) weight stack and that
-    layer's entry of each deployed '<name>_cim' list."""
-    return {k: v[li] for k, v in params["layers"].items()}
+    """Block li's params: a view of each (L, ...) weight stack and that
+    layer's entry of each deployed '<name>_cim' list. Under the 1:1
+    interleave block li is dense layer li // 2 when li is even, else MoE
+    layer li // 2."""
+    stack = params["layers"]
+    if "dense_layers" in params:
+        stack = params["dense_layers"] if li % 2 == 0 else stack
+        li //= 2
+    return {k: v[li] for k, v in stack.items()}
+
+
+def _unembed(params, cfg: ArchConfig):
+    """The (d, V) unembedding: the embedding's transpose when tied."""
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
 
 
 # ------------------------------------------------------------ layer bodies
@@ -252,9 +314,9 @@ def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
     b, s, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rms_norm(x, p["ln1"])
-    q = routed_linear(h, p, "wq", cfg).reshape(b, s, nh, hd)
-    k = routed_linear(h, p, "wk", cfg).reshape(b, s, nkv, hd)
-    v = routed_linear(h, p, "wv", cfg).reshape(b, s, nkv, hd)
+    q = routed_linear(h, p, "wq", cfg, seed=1).reshape(b, s, nh, hd)
+    k = routed_linear(h, p, "wk", cfg, seed=2).reshape(b, s, nkv, hd)
+    v = routed_linear(h, p, "wv", cfg, seed=3).reshape(b, s, nkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = _window(cfg, layer_idx)
@@ -281,9 +343,12 @@ def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
         attn = attention(q, k, v, causal=True, q_pos=positions,
                          kv_pos=positions, window=window,
                          softcap=cfg.attn_softcap)
-    x = x + routed_linear(attn.reshape(b, s, nh * hd), p, "wo", cfg)
+    x = x + routed_linear(attn.reshape(b, s, nh * hd), p, "wo", cfg, seed=4)
     h2 = rms_norm(x, p["ln2"])
-    return x + routed_mlp(h2, p, cfg), cache
+    if "ew_g" in p:                 # MoE FFN (dense and MoE interleave)
+        from . import moe
+        return x + moe.moe_ffn(p, h2, cfg), cache
+    return x + routed_mlp(h2, p, cfg, seed=5), cache
 
 
 def _embed(params, tokens, cfg: ArchConfig):
@@ -303,7 +368,7 @@ def lm_forward(params, tokens, cfg: ArchConfig):
         x, _ = dense_block(layer_params(params, li), x, cfg,
                            positions=positions, layer_idx=li)
     x = rms_norm(x, params["ln_f"])
-    logits = x @ params["embed"].T             # tied unembedding
+    logits = x @ _unembed(params, cfg)
     return _softcap(logits.to(torch.float32), cfg.final_softcap)
 
 
@@ -340,7 +405,7 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, write_mask=None):
                            cache=(cache["k"][li], cache["v"][li]),
                            cache_len=pos, write_mask=write_mask)
     x = rms_norm(x, params["ln_f"])
-    logits = _softcap((x[:, -1] @ params["embed"].T).to(torch.float32),
+    logits = _softcap((x[:, -1] @ _unembed(params, cfg)).to(torch.float32),
                       cfg.final_softcap)
     return logits, {"k": cache["k"], "v": cache["v"],
                     "len": pos + tokens.shape[1]}

@@ -16,8 +16,12 @@ entry, exactly (one float product of integer counts):
 
 The port's deploy keeps a per-layer LIST of PackedCIMLayers under
 params["layers"]["<name>_cim"] (the reference stacks layers on a leading
-axis of one pytree); an entry's `n_stack` is the list's length, which is
-the reference's layers x one tensor-parallel shard.
+axis of one pytree), and for routed experts a per-layer list of
+per-expert lists; an entry's `n_stack` is the number of chips in it, the
+reference's product of the stack's leading dims: layers x one
+tensor-parallel shard, or layers x experts. An expert entry thus meters
+all E expert chips per token, not only the top-k a token reaches — the
+reference's modeled energy, which the port reproduces.
 """
 from __future__ import annotations
 
@@ -62,15 +66,23 @@ def _iter_cim_entries(tree, prefix=""):
             yield from _iter_cim_entries(v, prefix + str(k) + "/")
 
 
+def _chips(obj) -> list:
+    """The PackedCIMLayers of a (nested) list of them, or a bare one."""
+    if isinstance(obj, list):
+        return [c for x in obj for c in _chips(x)]
+    return [obj]
+
+
 def _entry_from_packed(name: str, obj, in_bits: int, out_bits: int,
                        direction: str = "fwd") -> ChipEntry:
     """A ChipEntry from a per-layer list of PackedCIMLayers (one chip per
-    layer, all on one plan) or a bare PackedCIMLayer (one chip)."""
-    layers = obj if isinstance(obj, list) else [obj]
-    plan = layers[0].packed
+    layer, all on one plan), a per-layer list of per-expert lists (one
+    chip per layer and expert) or a bare PackedCIMLayer (one chip)."""
+    chips = _chips(obj)
+    plan = chips[0].packed
     return ChipEntry(name=name, direction=direction,
                      rows=int(plan.n_rows), cols=int(plan.n_cols),
-                     n_stack=len(layers), partition="none",
+                     n_stack=len(chips), partition="none",
                      in_bits=int(in_bits), out_bits=int(out_bits))
 
 

@@ -70,7 +70,8 @@ def served():
     ref_stats = ref_eng.run(ref_reqs, realtime=False)
 
     pnp = jax.tree_util.tree_map(np.asarray, params)
-    stacked = {n: pnp["layers"][n] for n in tnn.PACKED_PROJ_KEYS}
+    stacked = {n: pnp["layers"][n] for n in tnn.PACKED_PROJ_KEYS
+               if n in pnp["layers"]}
     x_cal = reference_x_cal(jax.random.PRNGKey(7), stacked, 3.0)
     tcfg, tparams, _ = tserve.deploy(
         "gemma2-9b", smoke=True, cim=True, device="cpu",

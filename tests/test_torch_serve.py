@@ -169,15 +169,16 @@ def test_chips_exercise_their_routes(served, served_chip):
     from repro_torch.kernels.cim_mvm import ops
     for s in (served, served_chip):
         layers = s["res"].params["layers"]
-        routes = {layers[n + "_cim"][0].packed.route()
-                  for n in tnn.PACKED_PROJ_KEYS}
+        names = [n for n in tnn.PACKED_PROJ_KEYS if n + "_cim" in layers]
+        assert len(names) == 7
+        routes = {layers[n + "_cim"][0].packed.route() for n in names}
         if s["chip"] == "cim_cores=4":
             assert "cim_mvm_scheduled" in routes
         else:
             assert routes == {"cim_mvm_packed"}
         if s["chip"] == "cim_ir_drop=2e-7":
             assert {layers[n + "_cim"][0].packed.bn
-                    for n in tnn.PACKED_PROJ_KEYS} == {47}
+                    for n in names} == {47}
 
 
 def test_lm_forward_float_path_matches():
