@@ -166,6 +166,34 @@ the final result line:
   profile-moe   the profile phase's windows for serve-moe and
                 serve-moe-merged (they run after `profile`: their chips do
                 not fit beside the dense models the profile phase holds)
+  serve-rwkv6   full-width rwkv6-7b (4 of 32 layers, random weights from a
+                seed) on 8192 cores: one chip per layer (wr wk wv wg wo cr
+                ck cv, single-pass), the decay LoRA and the S recurrence
+                float; batch 4, prompt 64, 32 tokens; launches 8 per layer
+                and token, all packed (prefill: the walk; decode: the
+                split route); prefill and two decode steps rerun through
+                the plain versions, logits equal; peak memory with no
+                other phase's chips held
+  serve-traffic-rwkv6  serve-rwkv6's chips behind the engine (slots 4,
+                chunk 32, the 16 requests of serve-traffic): one capture,
+                launches per replay and per chunk (profiler), a probe
+                engine's replay equal to the eager step (every slot live,
+                then one frozen: its S, x_tm and x_cm unmoved), every
+                request equal to it served alone (no plain rerun of the
+                stream and no static baseline)
+  profile-rwkv6 the profile phase's windows for serve-rwkv6, then its chips
+                are freed
+  serve-zamba2  full-width zamba2-7b, 6 of 81 layers (one group of mamba2
+                layers and the shared attention block), 8192 cores: one
+                chip per layer (in_proj out_proj w_g w_i w_o) and one for
+                the shared block; batch 4, prompt 64, 8 tokens; 5 launches
+                per layer and 7 per run of the block, per token; the same
+                checks
+  serve-traffic-zamba2  its chips behind the engine, chunk 64 (mamba2's
+                scan chunk) on prompts of 64: the same checks (the frozen
+                slot's h and KV unmoved)
+  profile-zamba2  its profile windows (per projection the mean over the
+                layers; the shared block's per run)
   kernels       one line per the contract below, then the result line
 
 Tolerances: every kernel and its plain version must agree bit for bit in
@@ -245,6 +273,35 @@ IRDROP_ROUTES = {"cim_mvm_scheduled": 7}
 SERVE_MOE_ROUTES = {"cim_mvm_packed": 4 + 3 + 3 * MOE_EXPERTS}
 MERGED_MOE_ROUTES = {"cim_mvm_scheduled": 7 + 2 * MOE_EXPERTS,
                      "cim_mvm_packed": MOE_EXPERTS}
+# the recurrent family at full width, on 8192-core chips (every chip
+# single-pass): rwkv6-7b (d 4096, 64 heads of 64, d_ff 14336, vocab 65536;
+# a layer chip of 6656 tiles: wr wk wv wg wo cr 512 each, ck cv 1792) and
+# zamba2-7b (d 3584, 112 SSM heads of 64, state 64, d_ff 14336, vocab
+# 32000; a layer chip of 7084 tiles: in_proj 1596, out_proj 784, w_g w_i
+# w_o 1568 each; the shared attention block's chip 6272). zamba2 runs one
+# full group of 6 layers and its shared block; its engine prefills in
+# chunks of 64, its scan's chunk, on prompts of 64
+RWKV, ZAMBA = "rwkv6-7b", "zamba2-7b"
+SERVE_RWKV = dict(n_layers=4, batch=4, prompt_len=64, gen=32, cim_cores=8192)
+SERVE_ZAMBA = dict(n_layers=6, batch=4, prompt_len=64, gen=8, cim_cores=8192)
+TRAFFIC_RWKV = dict(TRAFFIC, n_layers=4, cim_cores=8192)
+TRAFFIC_ZAMBA = dict(TRAFFIC, n_layers=6, cim_cores=8192, chunk=64)
+RWKV_ROUTES = {"cim_mvm_packed": 8}
+ZAMBA_ROUTES = {"cim_mvm_packed": 5}
+# chips outside the layer stack, per arch: launches per run of the block
+# (zamba2's shared block runs once per group of hybrid_attn_every layers)
+SHARED_ROUTES = {ZAMBA: {"cim_mvm_packed": 7}}
+# per recurrent arch: its static path, its engine path on the same chips
+RECURRENT_PATHS = (
+    (RWKV, "serve-rwkv6", SERVE_RWKV, "serve-traffic-rwkv6", TRAFFIC_RWKV,
+     RWKV_ROUTES, "rwkv6-7b full width, 4 of 32 layers, 8192 cores"),
+    (ZAMBA, "serve-zamba2", SERVE_ZAMBA, "serve-traffic-zamba2",
+     TRAFFIC_ZAMBA, ZAMBA_ROUTES,
+     "zamba2-7b full width, 6 of 81 layers (one group and the shared "
+     "block), 8192 cores"))
+# each layer's projections in the model's call order
+RWKV_ORDER = ("wr", "wk", "wv", "wg", "wo", "ck", "cr", "cv")
+MAMBA_ORDER = ("in_proj", "out_proj", "w_g", "w_i", "w_o")
 RECOVER = ["--pixels", "784", "--labels", "10", "--hidden", "120",
            "--batch", "64", "--cycles", "10", "--mode", "ideal"]
 SOURCES = {k: f"src/repro_torch/kernels/{v}"
@@ -879,12 +936,32 @@ def layer0_chips(v):
     return v[0] if isinstance(v[0], list) else [v[0]]
 
 
+def token_launches(K, cfg, routes, arch):
+    """Launches per kernel for one token through the model: `routes` per
+    layer, and an arch's chips outside the stack (SHARED_ROUTES: zamba2's
+    shared block, once per group)."""
+    shared = SHARED_ROUTES.get(arch, {})
+    runs = cfg.n_layers // cfg.hybrid_attn_every if shared else 0
+    return {k: routes.get(k, 0) * cfg.n_layers + shared.get(k, 0) * runs
+            for k in K.LAUNCHES}
+
+
+def chip_routes(chips):
+    """Kernel -> chips that route to it, among `chips`."""
+    got = {}
+    for c in chips:
+        r = c.packed.route()
+        got[r] = got.get(r, 0) + 1
+    return got
+
+
 def serve_and_check(torch, K, ops, serve, dev, stats, path, conf, routes,
                     arch="gemma2-9b"):
     """Serve `conf` with the launch counts set to 0 just before and read
     just after. The chips must route as `routes` says (per layer, an
-    expert stack counts one chip per expert), and each kernel must launch
-    once per chip, layer and token. Then prefill and two decode steps
+    expert stack counts one chip per expert; SHARED_ROUTES the chips
+    outside the stack), and each kernel must launch once per chip, run
+    of its layer or block, and token. Then prefill and two decode steps
     rerun through the plain versions on the same chip, fed the kernel
     run's tokens: logits equal. Returns (result, launches, plain err)."""
     reset_launches(K)                    # the path's run starts here
@@ -892,17 +969,16 @@ def serve_and_check(torch, K, ops, serve, dev, stats, path, conf, routes,
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)          # ... and ends here
     stats["launches"][path] = launches
-    got = {}
-    for k, v in res.params["layers"].items():
-        if k.endswith("_cim"):
-            for c in layer0_chips(v):
-                r = c.packed.route()
-                got[r] = got.get(r, 0) + 1
-    if got != routes:
-        raise AssertionError(f"{path}: projections route {got}, expected "
-                             f"{routes}")
-    want = {k: routes.get(k, 0) * conf["n_layers"] * conf["gen"]
-            for k in K.LAUNCHES}
+    got = chip_routes(c for k, v in res.params["layers"].items()
+                      if k.endswith("_cim") for c in layer0_chips(v))
+    shared = chip_routes(v for k, v in res.params.get("shared_attn",
+                                                      {}).items()
+                         if k.endswith("_cim"))
+    if got != routes or shared != SHARED_ROUTES.get(arch, {}):
+        raise AssertionError(f"{path}: projections route {got} (shared "
+                             f"{shared}), expected {routes}")
+    want = {k: n * conf["gen"] for k, n in
+            token_launches(K, res.cfg, routes, arch).items()}
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, the path needs "
                              f"{want}")
@@ -975,7 +1051,7 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
     launches = dict(K.LAUNCHES)          # ... and ends here
     stats["launches"][path] = launches
     eng, st = res.engine, res.stats
-    if arch != "gemma2-9b" and not eng.cfg.moe_dropless:
+    if eng.cfg.n_experts > 0 and not eng.cfg.moe_dropless:
         raise AssertionError(f"{path}: the engine serves {arch} with "
                              "capacity dispatch, not dropless")
     if st["decode_traces"] != 1:
@@ -985,13 +1061,13 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
     # eager run, replays) runs each projection once per layer; the profiled
     # replays in traffic_times show the replays' kernels on the device
     runs = {"prefill": eng._prefill.calls, "decode": eng._decode.calls}
-    per_exec = conf["n_layers"] * sum(routes.values())
+    per_token = token_launches(K, eng.cfg, routes, arch)
+    per_exec = sum(per_token.values())
     if sum(eng._decode.fun.per_replay.values()) != per_exec:
         raise AssertionError(f"{path}: the captured step holds "
                              f"{eng._decode.fun.per_replay} launches, the "
                              f"path needs {per_exec}")
-    want = {k: routes.get(k, 0) * conf["n_layers"] * sum(runs.values())
-            for k in K.LAUNCHES}
+    want = {k: n * sum(runs.values()) for k, n in per_token.items()}
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, the path needs "
                              f"{want} ({runs} executions)")
@@ -1005,15 +1081,15 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
             raise AssertionError(f"{path}: request {r.rid} returned "
                                  f"{len(r.tokens)} of {r.max_new} tokens "
                                  "or non-finite logits")
-    replay, probe = replay_equals_eager(torch, res, eng)
+    replay, probe, probe_len = replay_equals_eager(torch, res, eng)
     # each request alone on the static path with the engine's config (an
-    # MoE arch's dropless dispatch), same cache length
+    # MoE arch's dropless dispatch), its engine's cache length
     alone_err = 0.0
-    for r in res.requests + probe:
+    for r, max_len in [(r, eng.max_len) for r in res.requests] + \
+            [(r, probe_len) for r in probe]:
         g = serve.greedy_decode(res.params, eng.cfg,
                                 torch.as_tensor(r.prompt[None]).long()
-                                .to(dev), r.max_new, dev,
-                                max_len=eng.max_len)
+                                .to(dev), r.max_new, dev, max_len=max_len)
         if g.tokens[0].tolist() != r.tokens:
             raise AssertionError(f"{path}: request {r.rid}'s pool tokens "
                                  f"{r.tokens} != alone {g.tokens[0]}")
@@ -1069,8 +1145,7 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
            "warmup_executions": {"prefill": runs["prefill"] - chunks,
                                  "decode": runs["decode"] - steps},
            "launches": launches,
-           "packed_launches_per_execution": conf["n_layers"] * routes.get(
-               "cim_mvm_packed", 0),
+           "packed_launches_per_execution": per_token["cim_mvm_packed"],
            "launches_per_replay": eng._decode.fun.per_replay,
            "moe_dropless": eng.cfg.moe_dropless,
            "replay_vs_eager": replay, "alone_max_abs_logit_err": alone_err,
@@ -1097,32 +1172,36 @@ def engine_traffic(serve, deployed, conf, dev):
 
 
 def replay_equals_eager(torch, res, eng):
-    """A second engine on the same chip, warmed for chunks of 32 and 16
-    rows: one request per slot admitted and prefilled (fills 32, 48 and
-    64: the 48-token prompt's second chunk, 16 rows on the split route,
-    lands at offset 32), then one replayed decode step held against the
-    step function run eagerly on a clone of the pool, bit for bit — with
-    every slot live, then with slot 0 frozen (its state must not move).
-    The slots are freed, and the same prompts are served through the
-    engine's run (realtime=False); those requests are returned for the
-    checks the traffic's requests go through."""
+    """A second engine on the same chip, warmed for chunks of c and c / 2
+    rows (c the engine's chunk): one request per slot admitted and
+    prefilled (prompts of c, 2c, 1.5c and c / 2 tokens cut from the
+    traffic's: the 1.5c prompt's second chunk, c / 2 rows, lands at
+    offset c; at c = 32 16 rows on the split route), then one replayed
+    decode step held against the step function run eagerly on a clone of
+    the pool, bit for bit — with every slot live, then with slot 0 frozen
+    (its state must not move). The slots are freed, and the same prompts
+    are served through the engine's run (realtime=False); those requests
+    and the probe's cache length are returned for the checks the
+    traffic's requests go through."""
+    import numpy as np
     from repro_torch.launch.scheduler import ContinuousBatchingEngine, Request
+    c = eng.chunk
+    max_len = max(eng.max_len, 2 * c + 4)
     probe = ContinuousBatchingEngine(res.cfg, res.params,
-                                     n_slots=eng.n_slots, max_len=eng.max_len,
-                                     chunk=eng.chunk, capture_logits=True)
-    by_len = sorted(res.requests, key=lambda r: len(r.prompt))
-    prompts = [by_len[(i * (len(by_len) - 1)) // max(eng.n_slots - 1, 1)]
-               .prompt for i in range(eng.n_slots)]
-    prompts[-2] = by_len[-1].prompt[:eng.chunk * 3 // 2]
-    probe.warmup({eng.chunk, eng.chunk // 2})
+                                     n_slots=eng.n_slots, max_len=max_len,
+                                     chunk=c, capture_logits=True)
+    stream = np.concatenate([r.prompt for r in res.requests])
+    lens = [c, 2 * c, c * 3 // 2, c // 2][-eng.n_slots:]
+    cuts = np.cumsum([0] + lens)
+    prompts = [stream[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    probe.warmup({c, c // 2})
     probe.jitwatch.seal()
     for i, p in enumerate(prompts):
         probe._admit(Request(rid=1000 + i, prompt=p, max_new=4))
     while probe._jobs:
         probe._prefill_one_chunk(0.0)
     fills = probe.pool["len"].tolist()
-    if eng.chunk * 3 // 2 not in fills or \
-            len(set(fills)) < min(3, eng.n_slots):
+    if c * 3 // 2 not in fills or len(set(fills)) < min(3, eng.n_slots):
         raise AssertionError(f"replay vs eager: fills {fills}, not mixed "
                              "with a half chunk")
     checked = []
@@ -1157,13 +1236,13 @@ def replay_equals_eager(torch, res, eng):
                              f"{probe._prefill.traces} prefill signatures")
     del probe
     return {"fills": fills, "checked": checked,
-            "served_prompt_lens": [len(p) for p in prompts]}, served
+            "served_prompt_lens": [len(p) for p in prompts]}, served, max_len
 
 
 def slot0(key, t):
     """Slot 0's part of the pool tensor `key` (the slot dim is axis 1 of
-    the cache, axis 0 of the bookkeeping)."""
-    return t[:, 0] if key in ("k", "v") else t[0]
+    the cache and the recurrent state, axis 0 of the bookkeeping)."""
+    return t[0] if key in ("len", "active", "tok") else t[:, 0]
 
 
 def kernel_counts(events):
@@ -1183,11 +1262,12 @@ def traffic_times(torch, eng, dev, per_exec):
     replayed and run eagerly (CUDA events, median of 20, host included);
     the replays' device time by kernel and busy share (torch.profiler),
     where each of 10 replays must show `per_exec` term passes and folds
-    of the split route on the device; and prefill chunks of 32 and 16 rows
-    on slot 0 through the step function (median of 5, slot reset before
-    each), the last of each profiled: `per_exec` walks at 32 rows,
-    `per_exec` term passes and folds at 16. Each profiled window opens on
-    a lead call and a marker (`marked_window`)."""
+    of the split route on the device; and prefill chunks of c and c / 2
+    rows (c the engine's chunk) on slot 0 through the step function
+    (median of 5, slot reset before each), the last of each profiled:
+    `per_exec` walks above 16 rows, `per_exec` term passes and folds at 16
+    or fewer. Each profiled window opens on a lead call and a marker
+    (`marked_window`)."""
     replay = lambda: eng._decode(eng.params, eng.pool)
     eager = lambda: eng._step(eng.params, eng.pool)
     for f in (replay, eager):
@@ -1208,16 +1288,16 @@ def traffic_times(torch, eng, dev, per_exec):
         "cim_tile_terms": per_exec * reps, "cim_fold_runs": per_exec * reps,
         "cim_walk": 0})}
     chunk_ms = {}
-    for n in (32, 16):
+    for n in (eng.chunk, eng.chunk // 2):
         toks = torch.zeros((1, n), dtype=torch.long, device=dev)
         times = []
         chunk = lambda: eng._prefill.fun(eng.params, eng.pool, toks, 0)
         for i in range(6):
             eng._reset(eng.pool, 0)
             if i == 5:
-                events = marked_events(
-                    torch, f"prefill chunk {n}", chunk,
-                    lambda: (eng._reset(eng.pool, 0), chunk()))
+                fresh = lambda: (eng._reset(eng.pool, 0), chunk())
+                events = marked_events(torch, f"prefill chunk {n}", fresh,
+                                       fresh)
                 split = n <= 16
                 counts[f"prefill chunk {n}"] = (kernel_counts(events), {
                     "cim_tile_terms": per_exec * split,
@@ -1276,14 +1356,13 @@ def profile_phase(torch, dev, stats):
     return out
 
 
-@phase("profile-moe")
-def profile_moe_phase(torch, dev, stats):
-    """The profile phase's prefill and decode windows for the MoE serve
-    paths, after their timed runs and the traffic path that serves the
-    serve-moe chips."""
+def profile_served(torch, dev, stats, queue):
+    """The profile phase's prefill and decode windows for the serve paths
+    held in stats[queue], after their timed runs and the traffic path
+    that serves their chips; each model freed after its windows."""
     out = {}
-    while stats["profile_moe"]:
-        path, res = stats["profile_moe"].pop(0)
+    while stats[queue]:
+        path, res = stats[queue].pop(0)
         out[path] = {"prefill": profile_prefill(torch, res, dev),
                      **profile_decode(torch, res, dev)}
         del res
@@ -1384,31 +1463,46 @@ def engine_phase(torch, K, dev, stats):
 
 
 def plan_summary(params):
-    """Per projection of layer 0: slots, live tiles, passes, runs, bn (and
-    the chips of an expert stack, all on one plan)."""
+    """Per projection of layer 0 (and of zamba2's shared block, as
+    shared_attn/<name>): slots, live tiles, passes, runs, bn (and the
+    chips of an expert stack, all on one plan)."""
     out = {}
-    for k, v in params["layers"].items():
-        if k.endswith("_cim"):
-            chips = layer0_chips(v)
-            p = chips[0].packed
-            out[k[:-4]] = {"slots": p.n_tiles, "tiles": len(live_slots(p)),
-                           "passes": p.n_passes, "runs": len(p.out_col),
-                           "bn": p.bn, "chips": len(chips)}
+    for prefix, tree, first in (("", params["layers"], layer0_chips),
+                                ("shared_attn/", params.get("shared_attn",
+                                                            {}),
+                                 lambda v: [v])):
+        for k, v in tree.items():
+            if k.endswith("_cim"):
+                chips = first(v)
+                p = chips[0].packed
+                out[prefix + k[:-4]] = {
+                    "slots": p.n_tiles, "tiles": len(live_slots(p)),
+                    "passes": p.n_passes, "runs": len(p.out_col),
+                    "bn": p.bn, "chips": len(chips)}
     return out
 
 
-def call_order(params):
-    """Layer 0's packed launches in the model's call order: PROJ_ORDER for
-    a dense layer; for an MoE layer the attention projections, each
+def call_order(params, cfg):
+    """(packed launches in the model's call order, the layers they cover):
+    a dense layer's PROJ_ORDER; an MoE layer's attention projections, each
     expert's ew_g, then ew_i, then ew_o (expert 0 first), then the shared
-    experts' sw_g, sw_i, sw_o (`models/moe.moe_ffn`)."""
+    experts' sw_g, sw_i, sw_o (`models/moe.moe_ffn`); an rwkv6 layer's
+    RWKV_ORDER; a group of zamba2's mamba2 layers (MAMBA_ORDER each), then
+    its shared block's PROJ_ORDER (as shared_attn/<name>)."""
     lay = params["layers"]
+    if "wr_cim" in lay:
+        return list(RWKV_ORDER), 1
+    if "in_proj_cim" in lay:
+        every = cfg.hybrid_attn_every or cfg.n_layers
+        shared = ["shared_attn/" + n for n in PROJ_ORDER] \
+            if "shared_attn" in params else []
+        return list(MAMBA_ORDER) * every + shared, every
     if "ew_g_cim" not in lay:
-        return list(PROJ_ORDER)
+        return list(PROJ_ORDER), 1
     n_e = len(lay["ew_g_cim"][0])
     return ["wq", "wk", "wv", "wo"] + [n for n in ("ew_g", "ew_i", "ew_o")
                                        for _ in range(n_e)] \
-        + ["sw_g", "sw_i", "sw_o"]
+        + ["sw_g", "sw_i", "sw_o"], 1
 
 
 def device_us_by_kernel(events):
@@ -1460,9 +1554,9 @@ def profile_inference(torch, fn, reps, event_ms):
 def profile_prefill(torch, res, dev):
     """Device time of one profiled prefill (after one unprofiled one) of a
     served model (torch.profiler / CUPTI): every walk launch in start
-    order, each layer's seven projections in the model's call order
-    (PROJ_ORDER), so the walk's device ms per projection is the mean over
-    the layers; the prefill's device ms by kernel. The window opens on
+    order, in the model's call order (`call_order`), so the walk's device
+    ms per projection is the mean over the layers (zamba2's shared block:
+    per run); the prefill's device ms by kernel. The window opens on
     another prefill and a marker (`marked_window`)."""
     from repro_torch.launch.steps import arch_serving, make_prefill_step
     cfg, prompts = res.cfg, res.prompts
@@ -1477,15 +1571,17 @@ def profile_prefill(torch, res, dev):
         return {"device_ms": "not measured"}
     walk = [e.time_range.elapsed_us() / 1e3 for e in events
             if "cim_walk" in e.name]
-    order = call_order(res.params)
+    order, unit = call_order(res.params, cfg)
     if not walk or len(walk) % len(order):
         raise AssertionError(f"prefill: {len(walk)} walk launches, not "
-                             f"{len(order)} per layer")
-    n_layers = len(walk) // len(order)
+                             f"{len(order)} per {unit} layers")
+    n_units = len(walk) // len(order)
+    n_layers = n_units * unit
     per_proj = {}                # an expert projection: all its experts
     for i, n in enumerate(order):
+        runs = n_units if n.startswith("shared_attn/") else n_layers
         per_proj[n] = per_proj.get(n, 0.0) + sum(walk[i::len(order)]) \
-            / n_layers
+            / runs
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
     top = sorted(device_us_by_kernel(events).items(), key=lambda kv: -kv[1])
     return {"m": prompts.numel(), "layers": n_layers,
@@ -2408,7 +2504,35 @@ def moe_phases(torch, K, ops, serve, dev, stats):
             torch, K, serve, dev, stats, "serve-traffic-moe", TRAFFIC_MOE,
             SERVE_MOE_ROUTES, MOE, deployed=served, full=False)
     del served
-    profile_moe_phase(torch, dev, stats)
+    phase("profile-moe")(profile_served)(torch, dev, stats, "profile_moe")
+
+
+def recurrent_phases(torch, K, ops, serve, dev, stats):
+    """Per recurrent arch (RECURRENT_PATHS): its static serve path, the
+    engine on its chips (no plain rerun of the stream and no static
+    baseline, as for serve-traffic-moe), then its profile windows. They
+    run after the MoE phases have freed their chips, and each arch's chips
+    are freed before the next arch's are made (zamba2's ~34 GB would not
+    fit beside the MoE chips)."""
+    for arch, path, conf, tpath, tconf, routes, text in RECURRENT_PATHS:
+        # what a failed phase left held would not fit beside them
+        for queue in ("profile", "profile_cnn", "profile_moe", "profile_rec"):
+            stats[queue].clear()
+        free(torch)
+        ok = phase(path)(serve_path)(torch, K, ops, serve, dev, stats, path,
+                                     conf, routes, text, arch, "profile_rec")
+        served = dict(stats["profile_rec"]).get(path) if ok else None
+        if served is None:
+            failures.append(tpath)
+            emit({"phase": tpath, "ok": False,
+                  "error": f"no {path} chips to serve"})
+        else:
+            phase(tpath)(traffic_path)(torch, K, serve, dev, stats, tpath,
+                                       tconf, routes, arch, deployed=served,
+                                       full=False)
+        del served
+        phase("profile-" + path[len("serve-"):])(profile_served)(
+            torch, dev, stats, "profile_rec")
 
 
 def main() -> int:
@@ -2431,7 +2555,7 @@ def main() -> int:
 
     dev = serve.resolve_device("cuda")
     stats = {"err": {}, "time": {}, "launches": {}, "profile": [],
-             "profile_cnn": [], "profile_moe": []}
+             "profile_cnn": [], "profile_moe": [], "profile_rec": []}
     info = device_phase(torch)
     stats["smi"] = info["nvidia_smi"] if info else "not measured"
     if build_phase(K, stopwatch) is None:
@@ -2463,6 +2587,7 @@ def main() -> int:
     noisy_matmul_phase(torch, K, dev, stats)
     profile_phase(torch, dev, stats)
     moe_phases(torch, K, ops, serve, dev, stats)
+    recurrent_phases(torch, K, ops, serve, dev, stats)
 
     emit(kernels_line(stats))
     if failures or info is None:

@@ -2,13 +2,16 @@
 ported so far)."""
 from __future__ import annotations
 
-from . import deepseek_moe_16b, gemma2_9b, llama4_maverick
+from . import (deepseek_moe_16b, gemma2_9b, llama4_maverick, rwkv6_7b,
+               zamba2_7b)
 from ..models.transformer import ArchConfig
 
 _MODULES = {
     "gemma2-9b": gemma2_9b,
     "deepseek-moe-16b": deepseek_moe_16b,
     "llama4-maverick-400b-a17b": llama4_maverick,
+    "rwkv6-7b": rwkv6_7b,
+    "zamba2-7b": zamba2_7b,
 }
 
 ARCH_NAMES = list(_MODULES)

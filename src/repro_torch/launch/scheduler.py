@@ -6,7 +6,10 @@ every in-flight request — so request-level serving is a cache and
 scheduling layer over the model's prefill and decode:
 
   * Slot pool (`init_pool`): the batch dimension of the arch's cache
-    becomes a pool of request slots. The free-slot bitmap (`active`),
+    becomes a pool of request slots — dense KV caches and the recurrent
+    archs' state alike (rwkv6's S / x_tm / x_cm, mamba2's h and zamba2's
+    shared-block KV), since every cache tensor keeps the slot dim at
+    axis 1. The free-slot bitmap (`active`),
     each slot's last token (`tok`) and per-slot fill (`len`, widened from
     the static path's int) are tensors of the pool. Admission, eviction
     and chunk prefill write into the pool's tensors IN PLACE, so their
@@ -31,8 +34,12 @@ slots are occupied, but attention's batched products and the chunked
 prefill may round in another order. For MoE archs the engine forces
 dropless dispatch (`moe_dropless`, as the reference's engine does): with
 capacity-factor dispatch co-batched requests would compete for expert
-capacity, and a request's tokens would depend on its neighbours. A mesh
-waits for ROADMAP A13.
+capacity, and a request's tokens would depend on its neighbours. The
+recurrent archs' chunked scans (rwkv6 in chunks of 32, mamba2 in 64) see
+the same chunks in the pool as in a one-shot prefill only where the
+engine's chunk is a multiple of the scan's and the prompt fills whole scan
+chunks; elsewhere the scan reassociates, within rounding. A mesh waits for
+ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -74,8 +81,8 @@ def init_pool(cfg, n_slots: int, max_len: int, mesh=None, device=None):
 
 
 def _reset_slot(pool, slot: int):
-    """Zero one slot's sequence state and bookkeeping in place (admission
-    reset)."""
+    """Zero one slot's sequence state (axis 1 of every cache tensor: KV or
+    recurrent state) and bookkeeping in place (admission reset)."""
     for k, a in pool.items():
         if k in ("len", "active", "tok"):
             a[slot] = 0

@@ -9,9 +9,19 @@ compiled NeuRRAM chip (port of `repro/launch/serve.py`, one process).
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-moe-16b --cim --cim-cores 2048 --layers 2 --gen 8
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --cim --cim-cores 8192 --layers 4 --gen 32 [--traffic]
+
 Archs: gemma2-9b (dense), deepseek-moe-16b and llama4-maverick-400b-a17b
 (MoE; llama4 only at --smoke: one full-width layer's experts exceed a
-card). Under --cim an MoE arch compiles each layer's attention and
+card), rwkv6-7b and zamba2-7b (recurrent: `models/rwkv6.py`,
+`models/mamba2.py`). Under --cim a recurrent arch compiles each layer's
+projections onto one chip and zamba2's shared attention block onto one
+of its own (`nn.deploy_recurrent_cim`); the S / h recurrences stay float.
+Full-width rwkv6-7b needs 6656 cores per layer chip, zamba2-7b 7084 (its
+shared block 6272) for single-pass plans. zamba2 scans in chunks of 64:
+--traffic serves it with --chunk 64 so the pool's chunks match the static
+prefill's. Under --cim an MoE arch compiles each layer's attention and
 shared-expert projections onto one chip and each routed expert onto one
 of its own (`models/moe.py`); every expert runs one launch per
 projection and step. Full-width deepseek-moe-16b needs 1040 cores for
@@ -297,8 +307,12 @@ def _print_chip(args, cfg, params, deploy_s):
     experts = sum(1 for v in stacks.values() if isinstance(v[0], list))
     per_expert = f" ({experts} of them one chip per expert, " \
         f"{cfg.n_experts} experts)" if experts else ""
+    n_shared = sum(1 for k in params.get("shared_attn", {})
+                   if k.endswith("_cim"))
+    shared = f" + {n_shared} shared-attn projections" if n_shared else ""
     print(f"cim: compiled {len(stacks)} projection stacks{per_expert} x "
-          f"{len(next(iter(stacks.values())))} layers ({args.cim_mode}, "
+          f"{len(next(iter(stacks.values())))} layers{shared} "
+          f"({args.cim_mode}, "
           f"bits={cfg.cim_in_bits}/{cfg.cim_out_bits}, "
           f"ir_drop={cfg.cim_ir_drop}, tp=1) in {deploy_s:.1f}s; "
           f"passes per projection {passes}")

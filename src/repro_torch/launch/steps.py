@@ -1,7 +1,7 @@
 """Prefill / decode step functions, the slot pool's steps and the
 arch-dispatch table the serving driver runs through (PyTorch port of the
-serving half of `repro/launch/steps.py`; the dense and MoE families —
-the recurrent family waits for ROADMAP A8)."""
+serving half of `repro/launch/steps.py`: the dense, MoE and recurrent
+families; the model's family dispatch is `models/transformer`'s)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple
@@ -43,8 +43,7 @@ def arch_serving(cfg: T.ArchConfig, device=None) -> ArchServing:
             T.prefill(params, tokens, state, cfg),
         decode_step=lambda params, state, tokens:
             T.decode_step(params, state, tokens, cfg),
-        deploy_cim=lambda params, **kw:
-            nn.deploy_transformer_cim(params, cfg, **kw))
+        deploy_cim=lambda params, **kw: nn.deploy_cim(params, cfg, **kw))
 
 
 def make_prefill_step(cfg: T.ArchConfig):
@@ -86,9 +85,11 @@ def make_pool_decode_step(cfg: T.ArchConfig):
     """One decode step over the WHOLE slot pool: (params, pool) ->
     (logits (B, V), pool), the pool updated in place. Every slot steps
     through the model (the compiled chips are weight-stationary: one
-    launch per projection serves every slot); an inactive slot's key and
-    value rows are rewritten with what they held, and its fill and token
-    do not advance, so its state stays bit for bit as it was."""
+    launch per projection serves every slot); an inactive slot's state is
+    rewritten with what it held (key and value rows; the recurrent archs'
+    S, x_tm, x_cm, h and the hybrid's ak / av, selected row by row
+    against `active`), and its fill and token do not advance, so its
+    state stays bit for bit as it was."""
     def step(params, pool):
         native, active, tok = _split_pool(pool)
         logits, new = T.decode_step(params, native, tok, cfg,
@@ -106,7 +107,9 @@ def make_slot_prefill_step(cfg: T.ArchConfig):
     cache is a view of the pool (the slot dim is axis 1 of every cache
     tensor) with its (1,) fill, run through the arch's prefill; the
     chunk's argmax lands in pool['tok'], so the final chunk seeds the
-    slot's first decode token."""
+    slot's first decode token. The prefill writes the slot's state (KV,
+    or the recurrent S / x_tm / x_cm / h and the hybrid's KV) through the
+    view in place; the new fill is copied back here."""
     def chunk_step(params, pool, tokens, slot: int):
         native, _, tok = _split_pool(pool)
         view = {k: (v[slot:slot + 1] if k == "len" else v[:, slot:slot + 1])

@@ -20,7 +20,12 @@ experts ride `cim_linear` like the dense projections (seeds 611-613).
 
 Two orders are fixed so that runs are bit-reproducible on the card:
   * routing: `torch.topk` over f32 router logits, sorted descending (the
-    reference's `lax.top_k`), with TF32 off (`device.resolve_device`);
+    reference's `lax.top_k`). The logits' dot products run in float64
+    and are rounded once: a float32 GEMM sums in an order that depends on
+    how many tokens share the call (a slot's decode row in a pool of 4 or
+    alone, a prompt prefilled in one call or in chunks), and at a
+    near-tie of two experts' logits a last-bit difference routes the
+    token elsewhere;
   * the combine: the reference's `zeros.at[st].add(contrib)` applies a
     token's k contributions in sorted-slot order, ascending expert id,
     from zero. Here each token's k contributions are gathered in that
@@ -41,8 +46,10 @@ import torch.nn.functional as F
 
 def _router(x2, router_w, top_k: int):
     """x2: (T, d) -> (gates (T, k), experts (T, k)): the top-k router
-    logits in f32, descending, and their softmax."""
-    logits = x2.to(torch.float32) @ router_w.to(torch.float32)
+    logits in f32 (summed in float64, module docstring), descending, and
+    their softmax."""
+    logits = (x2.to(torch.float64) @ router_w.to(torch.float64)).to(
+        torch.float32)
     gate, idx = torch.topk(logits, top_k, dim=-1)
     return torch.softmax(gate, dim=-1), idx
 

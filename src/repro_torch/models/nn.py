@@ -36,6 +36,9 @@ list with one per expert), which `models/transformer.cim_linear` and
 `models/moe.moe_ffn` serve through `packed_linear`. As in the reference,
 the dense layers of llama4's interleave ('dense_layers') are not
 deployed: they serve float under --cim.
+`deploy_recurrent_cim` compiles the recurrent stacks (rwkv6, mamba2) one
+chip per layer and zamba2's shared attention block onto a chip of its own;
+`deploy_cim` picks it or `deploy_transformer_cim` by the arch's family.
 `deploy_rbm_cim` compiles an RBM onto one bidirectional chip.
 
 At one tensor-parallel shard the reference compiles every projection as
@@ -234,6 +237,11 @@ def chip_conv(cl: ChipLinear, x, cfg: CIMConfig, kh: int, kw_: int,
 PACKED_PROJ_KEYS = ("wq", "wk", "wv", "wo", "w_g", "w_i", "w_o",
                     "sw_g", "sw_i", "sw_o")
 PACKED_EXPERT_KEYS = ("ew_g", "ew_i", "ew_o")
+# the recurrent stacks (`deploy_recurrent_cim`, one chip per layer): rwkv6's
+# time-mix r/k/v/g/out and channel-mix k/v/receptance projections; mamba2's
+# fused in/out projections and the hybrid block's SwiGLU MLP
+RWKV_PROJ_KEYS = ("wr", "wk", "wv", "wg", "wo", "ck", "cv", "cr")
+MAMBA_PROJ_KEYS = ("in_proj", "out_proj", "w_g", "w_i", "w_o")
 
 
 def _check_alpha_names(in_alpha: Alpha, names) -> None:
@@ -347,7 +355,8 @@ def deploy_transformer_cim(params, arch_cfg, *, mode: str = "ideal",
     if "layers" not in params or "wq" not in params["layers"]:
         raise ValueError(
             "deploy_transformer_cim covers dense attention+MLP stacks "
-            "(params['layers']['wq'])")
+            "(params['layers']['wq']); recurrent archs (rwkv6 / mamba2) "
+            "deploy through deploy_recurrent_cim")
     if int((mesh_shape or {}).get("model", 1)) > 1:
         raise NotImplementedError(
             "tensor-parallel CIM deploys are not ported yet (ROADMAP A13)")
@@ -382,6 +391,92 @@ def deploy_transformer_cim(params, arch_cfg, *, mode: str = "ideal",
                                       for li in range(n_layers)]
     out = dict(params)
     out["layers"] = new_layers
+    return verify_deployed(out)
+
+
+def is_recurrent_arch(arch_cfg) -> bool:
+    """The family predicate for CIM deployment: an arch whose projections
+    compile through `deploy_recurrent_cim` (rwkv6 / mamba2 stacks) rather
+    than `deploy_transformer_cim` (dense / MoE)."""
+    return bool(getattr(arch_cfg, "rwkv", False)) \
+        or getattr(arch_cfg, "ssm_state", 0) > 0
+
+
+def recurrent_proj_keys(arch_cfg):
+    """The projection names a recurrent arch compiles onto CIM chips."""
+    if not is_recurrent_arch(arch_cfg):
+        raise ValueError(
+            f"{getattr(arch_cfg, 'name', arch_cfg)} is not a recurrent arch "
+            "(expected rwkv=True or ssm_state > 0)")
+    return RWKV_PROJ_KEYS if arch_cfg.rwkv else MAMBA_PROJ_KEYS
+
+
+def deploy_cim(params, arch_cfg, **kw):
+    """Family-dispatched CIM deploy: the one entry `launch/serve.py` calls
+    (through `launch/steps.ArchServing.deploy_cim`)."""
+    if is_recurrent_arch(arch_cfg):
+        return deploy_recurrent_cim(params, arch_cfg, **kw)
+    return deploy_transformer_cim(params, arch_cfg, **kw)
+
+
+def deploy_recurrent_cim(params, arch_cfg, *, mode: str = "ideal",
+                         in_alpha: float = 3.0,
+                         mesh_shape: Optional[Dict[str, int]] = None,
+                         spec: Optional[CoreSpec] = None,
+                         x_cal: Optional[List[Dict[str, Any]]] = None,
+                         x_cal_shared: Optional[List[Dict[str, Any]]] = None):
+    """Compile a recurrent stack's projections onto CIM chips and return
+    params augmented with '<name>_cim' entries, re-verified by the chip-IR
+    verifier.
+
+    One chip per layer carries every weight-stationary projection: rwkv6's
+    time-mix `wr wk wv wg wo` and channel-mix `ck cv cr`, or mamba2's
+    `in_proj out_proj` and MLP `w_g w_i w_o`. The S / h recurrences (and
+    rwkv6's decay LoRA) stay float: they are state-dependent, nothing
+    weight-stationary to program. zamba2's one shared attention block
+    compiles its dense projections onto a chip of its own, as a one-layer
+    stack whose entries are then unstacked (bare PackedCIMLayers under
+    params['shared_attn'], served by `transformer.dense_block`).
+
+    in_alpha: the scalar PACT clip of the rms-normed inputs; rwkv6's `cv`,
+    driven by the squared relu of `ck`'s output, gets in_alpha ** 2.
+    x_cal: optional per-layer name -> (64, R) calibration batches for the
+    layer chips, x_cal_shared a one-entry list of them for the shared
+    block's chip (the parity seam with the reference, whose batches come
+    from jax.random); missing batches are drawn from a torch.Generator
+    seeded 7 on the params' device. mesh_shape: a 'model' width above 1
+    raises (sharded deploys are ROADMAP A13).
+    """
+    names = recurrent_proj_keys(arch_cfg)
+    layers = params["layers"]
+    stacked = {n: layers[n] for n in names if n in layers}
+    if not stacked:
+        raise ValueError("no recurrent projections found in "
+                         f"params['layers'] (expected some of {names})")
+    if int((mesh_shape or {}).get("model", 1)) > 1:
+        raise NotImplementedError(
+            "tensor-parallel CIM deploys are not ported yet (ROADMAP A13)")
+    ccfg = arch_cim_config(arch_cfg)
+    alphas = {n: float(in_alpha) for n in stacked}
+    if "cv" in alphas:          # squared-relu input range (docstring)
+        alphas["cv"] = float(in_alpha) ** 2
+    gen = torch.Generator(layers[names[0]].device).manual_seed(7)
+    new_layers = dict(layers)
+    for n, pcls in deploy_packed_stack(
+            stacked, ccfg, mode=mode, in_alpha=alphas, spec=spec,
+            x_cal=x_cal, generator=gen).items():
+        new_layers[n + "_cim"] = pcls
+    out = dict(params)
+    out["layers"] = new_layers
+    if getattr(arch_cfg, "hybrid_attn_every", 0) > 0 \
+            and "shared_attn" in params:
+        sa = params["shared_attn"]
+        chips = deploy_packed_stack(
+            {n: sa[n][None] for n in PACKED_PROJ_KEYS if n in sa}, ccfg,
+            mode=mode, in_alpha=in_alpha, spec=spec, x_cal=x_cal_shared,
+            generator=gen)
+        out["shared_attn"] = dict(sa, **{n + "_cim": pcls[0]
+                                         for n, pcls in chips.items()})
     return verify_deployed(out)
 
 

@@ -1,5 +1,5 @@
-"""Decoder LM backbone (PyTorch port of the dense and MoE families of
-`repro/models/transformer.py`).
+"""Decoder LM backbone (PyTorch port of the dense, MoE and recurrent
+families of `repro/models/transformer.py`).
 
 GQA attention with gemma2's details — attention-logit and final-logit
 softcaps, alternating local (even layers) / global (odd layers) sliding
@@ -11,7 +11,9 @@ params['dense_layers'] beside the MoE ones in params['layers']; the
 layers run in pairs, dense first. Params are a dict of tensors in the
 reference's layout: per-layer weights stacked as (L, in, out) (experts
 (L, E, in, out)). The reference's `lax.scan` over layers is a Python loop
-here.
+here. The recurrent families dispatch on the config: `rwkv` to
+`models/rwkv6.py`, `ssm_state > 0` to `models/mamba2.py` (zamba2's hybrid
+with its shared attention block); they embed without gemma's scale.
 
 Every projection can route through the NeuRRAM CIM path (`cim_linear`):
 with cim_mode="packed" and a deployed '<name>_cim' entry
@@ -33,8 +35,11 @@ from ..device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """A decoder LM: dense, or MoE when n_experts > 0."""
+    """A decoder LM: dense, MoE when n_experts > 0, RWKV-6 when rwkv, and
+    Mamba-2 (with zamba2's shared attention block every
+    hybrid_attn_every layers) when ssm_state > 0."""
     name: str = "dense"
+    family: str = "dense"        # dense | moe | rwkv | hybrid
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -52,6 +57,11 @@ class ArchConfig:
     n_shared_experts: int = 0
     d_expert: int = 0            # expert FFN width (fine-grained MoE)
     moe_every: int = 1           # llama4: MoE on every 2nd layer
+    # SSM / hybrid
+    rwkv: bool = False
+    ssm_state: int = 0           # mamba2 state dim N
+    ssm_head: int = 64           # mamba2 head dim P
+    hybrid_attn_every: int = 0   # zamba2: shared attn block period
     # Dropless dispatch: every routed token kept (capacity = T). The
     # capacity-factor path makes a token's output depend on which other
     # tokens share the batch; launch/scheduler forces this on.
@@ -242,12 +252,28 @@ def _dense_layer_params(gen: torch.Generator, cfg: ArchConfig, n_layers: int):
     return p
 
 
+def _recurrent(cfg: ArchConfig):
+    """The module of a recurrent family — `models/rwkv6.py` when rwkv,
+    `models/mamba2.py` when ssm_state > 0 — else None. Both give
+    layer_params, forward, init_state, prefill and decode_step with one
+    signature."""
+    if cfg.rwkv:
+        from . import rwkv6
+        return rwkv6
+    if cfg.ssm_state > 0:
+        from . import mamba2
+        return mamba2
+    return None
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Dict:
     """Random params from a torch.Generator seeded with `seed`, made on
     `device` (CUDA unless "cpu" is passed; the full-width embedding alone
     is 3.7 GB in f32). An untied arch gets its own `unembed` (d, V); the
     1:1 interleave (`moe_every=2`) n_layers / 2 dense layers under
-    'dense_layers' and as many MoE layers under 'layers'."""
+    'dense_layers' and as many MoE layers under 'layers'; the recurrent
+    archs their rwkv6 or mamba2 layer stacks, and zamba2 its one shared
+    attention block, unstacked, under 'shared_attn'."""
     device = resolve_device(device)
     gen = torch.Generator(device).manual_seed(seed)
     params = {
@@ -259,6 +285,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Dict:
         params["unembed"] = (torch.randn((cfg.d_model, cfg.vocab),
                                          generator=gen, device=device)
                              * 0.02).to(cfg.dtype)
+    rec = _recurrent(cfg)
+    if rec is not None:
+        params["layers"] = rec.layer_params(gen, cfg, cfg.n_layers)
+        if cfg.hybrid_attn_every > 0:       # zamba2's one shared block
+            params["shared_attn"] = {
+                k: v[0] for k, v in _dense_layer_params(gen, cfg, 1).items()}
+        return params
     if cfg.n_experts > 0 and cfg.moe_every > 1:
         if cfg.moe_every != 2:
             raise ValueError("only the 1:1 dense/MoE interleave "
@@ -363,10 +396,14 @@ def _embed(params, tokens, cfg: ArchConfig):
 def lm_forward(params, tokens, cfg: ArchConfig):
     """Teacher-forcing forward. tokens: (B, S) -> logits (B, S, V)."""
     x = _embed(params, tokens, cfg)
-    positions = torch.arange(x.shape[1], device=x.device)
-    for li in range(cfg.n_layers):
-        x, _ = dense_block(layer_params(params, li), x, cfg,
-                           positions=positions, layer_idx=li)
+    rec = _recurrent(cfg)
+    if rec is not None:
+        x = rec.forward(params, x, cfg)
+    else:
+        positions = torch.arange(x.shape[1], device=x.device)
+        for li in range(cfg.n_layers):
+            x, _ = dense_block(layer_params(params, li), x, cfg,
+                               positions=positions, layer_idx=li)
     x = rms_norm(x, params["ln_f"])
     logits = x @ _unembed(params, cfg)
     return _softcap(logits.to(torch.float32), cfg.final_softcap)
@@ -378,10 +415,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device=None):
     """Decode cache on `device` (CUDA unless "cpu" is passed): KV of shape
     (L, B, S, nkv, hd) and the fill, an int (the slot pool widens it to a
-    (B,) tensor, `launch/scheduler.init_pool`)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    (B,) tensor, `launch/scheduler.init_pool`); the recurrent archs'
+    constant-size state (`rwkv6.init_state`, `mamba2.init_state`). The
+    batch (slot) dimension is axis 1 of every tensor."""
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
+    rec = _recurrent(cfg)
+    if rec is not None:
+        return rec.init_state(cfg, batch, max_len, dtype, device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
 
@@ -393,7 +435,11 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, write_mask=None):
     static path and a (B,) tensor of per-slot fills on the slot pool's:
     positions then carry a batch dimension, and each slot's keys and
     values land at its own fill (rows where `write_mask` is False keep
-    their cache)."""
+    their cache). The recurrent archs step one token (S = 1) through
+    `rwkv6.decode_step` / `mamba2.decode_step`."""
+    rec = _recurrent(cfg)
+    if rec is not None:
+        return rec.decode_step(params, cache, tokens, cfg, write_mask)
     x = _embed(params, tokens, cfg)
     pos = cache["len"]
     ar = torch.arange(tokens.shape[1], device=x.device)
@@ -412,5 +458,9 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, write_mask=None):
 
 
 def prefill(params, tokens, cache, cfg: ArchConfig):
-    """Prefill the cache with a full prompt (decode_step with S > 1)."""
+    """Prefill the cache with a full prompt: decode_step with S > 1, or the
+    recurrent archs' stateful chunked prefill."""
+    rec = _recurrent(cfg)
+    if rec is not None:
+        return rec.prefill(params, cache, tokens, cfg)
     return decode_step(params, cache, tokens, cfg)

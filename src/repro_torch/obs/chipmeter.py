@@ -21,7 +21,11 @@ per-expert lists; an entry's `n_stack` is the number of chips in it, the
 reference's product of the stack's leading dims: layers x one
 tensor-parallel shard, or layers x experts. An expert entry thus meters
 all E expert chips per token, not only the top-k a token reaches — the
-reference's modeled energy, which the port reproduces.
+reference's modeled energy, which the port reproduces. zamba2's shared
+attention block is a bare PackedCIMLayer per projection under
+params["shared_attn"] (entries "shared_attn/<name>", n_stack 1), metered
+once per token as the reference meters it, though the block runs once per
+group of layers.
 """
 from __future__ import annotations
 

@@ -80,12 +80,13 @@ def assert_counts_match(got, want, hits, den_max=1.0):
         "a boundary output moved by more than one count per boundary tile"
 
 
-def reference_x_cal(key, stacked, in_alpha: float, n_shards: int = 1):
+def reference_x_cal(key, stacked, in_alpha, n_shards: int = 1):
     """The calibration batches the reference's tp=1 deploy draws
     (nn._deploy_sharded_stacks -> deploy_packed_stack -> program_chip):
     layer li, projection i (sorted order) draws
-    in_alpha * truncated_normal(split(fold_in(fold_in(fold_in(key,
-    n_shards), li), i))[1], -2, 2, (64, R)). Returns a per-layer list of
+    alpha * truncated_normal(split(fold_in(fold_in(fold_in(key,
+    n_shards), li), i))[1], -2, 2, (64, R)), alpha the projection's clip
+    (in_alpha: a float, or a per-name dict). Returns a per-layer list of
     name -> numpy (64, R)."""
     import jax
     names = sorted(stacked)
@@ -97,7 +98,23 @@ def reference_x_cal(key, stacked, in_alpha: float, n_shards: int = 1):
         batches = {}
         for i, n in enumerate(names):
             _, k_syn = jax.random.split(jax.random.fold_in(k_layer, i))
-            batches[n] = np.array(in_alpha * jax.random.truncated_normal(
+            alpha = in_alpha[n] if isinstance(in_alpha, dict) else in_alpha
+            batches[n] = np.array(alpha * jax.random.truncated_normal(
                 k_syn, -2.0, 2.0, (64, stacked[n].shape[1])))
         out.append(batches)
     return out
+
+
+def assert_chip_match(pcl, pj, what):
+    """The port's PackedCIMLayer `pcl` against one reference chip `pj`
+    (its arrays as numpy): plan and index maps exact, programmed tiles
+    equal, calibrated tensors to f32 rounding."""
+    for f in ("bk", "bn", "n_rows", "n_cols", "row_block", "col_block",
+              "seq_slot", "tile_slot", "out_slot", "out_col", "n_passes"):
+        assert getattr(pcl.packed, f) == getattr(pj.packed, f), (what, f)
+    np.testing.assert_array_equal(to_numpy(pcl.packed.gd_tiles),
+                                  pj.packed.gd_tiles, err_msg=what)
+    for f in ("inv_norm_tiles", "v_decr_tiles", "denorm_tiles"):
+        np.testing.assert_allclose(to_numpy(getattr(pcl.packed, f)),
+                                   getattr(pj.packed, f), rtol=1e-5,
+                                   err_msg=f"{what} {f}")

@@ -36,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import reference_x_cal, to_numpy, to_torch
+from _torch_parity import (assert_chip_match, reference_x_cal, to_numpy,
+                           to_torch)
 
 from repro import configs as jconfigs
 from repro.data import lm_tokens
@@ -196,6 +197,21 @@ def test_params_from_numpy_carries_moe_trees():
         np.testing.assert_array_equal(to_numpy(b), a)
 
 
+def test_router_rows_do_not_depend_on_the_batch():
+    """A token's routing (experts and gates, bit for bit) is the same
+    whether it is routed alone or with other tokens: the router's sums run
+    in float64, so a pool slot routes as the request served alone does
+    (deepseek-moe-16b's full-width router, d 2048 and 64 experts, where a
+    float32 GEMM's rows do depend on the batch)."""
+    rng = np.random.default_rng(6)
+    w = to_torch((rng.standard_normal((2048, 64)) / 45).astype(np.float32))
+    x2 = to_torch(rng.standard_normal((48, 2048)).astype(np.float32))
+    gate, idx = tmoe._router(x2, w, 6)
+    for i in range(x2.shape[0]):
+        g1, i1 = tmoe._router(x2[i:i + 1], w, 6)
+        assert torch.equal(i1[0], idx[i]) and torch.equal(g1[0], gate[i]), i
+
+
 def test_capacity_matches_reference_formula():
     import math
     _, tc = _configs(DEEPSEEK)
@@ -307,8 +323,8 @@ def test_expert_chips_match(served, name):
     for li in range(n_l):
         for e in range(n_e):
             pj = jax.tree_util.tree_map(lambda a: np.asarray(a)[li, e], ref)
-            _assert_chip_match(ours[li][e], pj, f"{name} layer {li} "
-                                                f"expert {e}")
+            assert_chip_match(ours[li][e], pj, f"{name} layer {li} "
+                                               f"expert {e}")
 
 
 @pytest.mark.parametrize("name", ["wq", "wk", "wv", "wo", "sw_g", "sw_i",
@@ -320,19 +336,7 @@ def test_layer_chips_match(served, name):
     for li, pcl in enumerate(served["tparams"]["layers"][name + "_cim"]):
         pj = jax.tree_util.tree_map(lambda a: np.asarray(a)[li, 0],
                                     spl.shards)
-        _assert_chip_match(pcl, pj, f"{name} layer {li}")
-
-
-def _assert_chip_match(pcl, pj, what):
-    for f in ("bk", "bn", "n_rows", "n_cols", "row_block", "col_block",
-              "seq_slot", "tile_slot", "out_slot", "out_col", "n_passes"):
-        assert getattr(pcl.packed, f) == getattr(pj.packed, f), (what, f)
-    np.testing.assert_array_equal(to_numpy(pcl.packed.gd_tiles),
-                                  pj.packed.gd_tiles, err_msg=what)
-    for f in ("inv_norm_tiles", "v_decr_tiles", "denorm_tiles"):
-        np.testing.assert_allclose(to_numpy(getattr(pcl.packed, f)),
-                                   getattr(pj.packed, f), rtol=1e-5,
-                                   err_msg=f"{what} {f}")
+        assert_chip_match(pcl, pj, f"{name} layer {li}")
 
 
 def test_chip_meter_counts_every_expert_chip(served):
