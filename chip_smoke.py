@@ -21,7 +21,13 @@ the final result line:
                 the walk's time at the split route's M in the same run
                 (`walk_ms`, through the kernel module's own
                 `launch_walk`); a route-edge line sums a layer's seven
-                projections per M on both routes
+                projections per M on both routes; then the shapes of the
+                other archs that no gemma2-9b layer has (qwen2-72b's w_o,
+                K = 29568: 231 tiles of 128 x 256 per column block;
+                its w_g, N = 29568: a half-live last column block;
+                granite-20b's MQA wk, N = 128: one half-live column
+                block of 48 tiles), each on a chip of its own, against
+                the plain version in the same way and timed at the same M
   kernel-runs   the scheduled kernel on the multi-pass w_g and w_o of a
                 full-width layer compiled on a 3072-core chip (M as the
                 kernel phase, both weightings, the walk timed beside the
@@ -194,6 +200,36 @@ the final result line:
                 slot's h and KV unmoved)
   profile-zamba2  its profile windows (per projection the mean over the
                 layers; the shared block's per run)
+  batch-invariance  the outputs of RMSNorm's and attention's sums that
+                move when a row shares a batch of 4 rather than running
+                alone: in float32 (the reference's) and as the port sums
+                them (float64, rounded once); reported, not checked
+  serve-qwen2   full-width qwen2-72b (2 of 80 layers, float QKV bias) on
+                32768 cores (a layer chip of 26,816 tiles, single-pass);
+                batch 4, prompt 64, 16 tokens; 7 packed launches per
+                layer and call; the same checks as serve-rwkv6
+  serve-traffic-qwen2  its chips behind the engine (slots 4, chunk 32, the
+                16 requests of serve-traffic): as serve-traffic-rwkv6
+  profile-qwen2 its profile windows, then its chips are freed
+  serve-granite full-width granite-20b (2 of 52 layers, one KV head) on
+                16384 cores, 8 tokens; the same checks; profile-granite
+  serve-internvl2  internvl2-1b at full width and depth (24 layers, QKV
+                bias) on 512 cores; its prefill runs 256 seeded
+                vision-prefix embeddings through every layer into the
+                cache (`steps.make_prefill_step`), then the 64-token
+                prompt: 7 launches per layer more; 16 tokens; the plain
+                rerun runs the prefix too; profile-internvl2
+  serve-seamless  seamless-m4t-medium at full width and depth: the float
+                encoder (12 layers) over 64 seeded frames, 12 decoder
+                layers each on a 128-core chip (every projection merged
+                into 4 passes: 7 scheduled launches per layer and call),
+                float cross-attention to the memory in prefill and every
+                decode step; 8 tokens; profile-seamless
+  attention-long  the chunked online-softmax attention (above 8192 keys)
+                at B 4, 64 heads / 8 KV of 128, KV 16384: one decode
+                query, and 256 queries with a 4096-key window, against
+                the dense formula in float64 (ATTN_ATOL), its time beside
+                one scaled_dot_product_attention call
   kernels       one line per the contract below, then the result line
 
 Tolerances: every kernel and its plain version must agree bit for bit in
@@ -299,6 +335,57 @@ RECURRENT_PATHS = (
      TRAFFIC_ZAMBA, ZAMBA_ROUTES,
      "zamba2-7b full width, 6 of 81 layers (one group and the shared "
      "block), 8192 cores"))
+# the dense, VLM and encoder-decoder archs at full width: qwen2-72b (d 8192,
+# 64 heads / 8 KV of 128, d_ff 29568, vocab 152064, float QKV bias; a layer
+# chip of 26,816 tiles, 878 M weights: 2 of 80 layers), granite-20b (d
+# 6144, 48 heads / 1 KV of 128, d_ff 24576; 16,176 tiles: 2 of 52),
+# internvl2-1b (d 896, 14 heads / 2 KV of 64, d_ff 4864, QKV bias; 501
+# tiles; all 24 layers, its prefill running 256 seeded vision-prefix
+# embeddings ahead of the prompt) and seamless-m4t-medium (d 1024, 16
+# heads of 64, d_ff 4096; all 12 + 12 layers: a float encoder over 64
+# seeded frames, then 12 decoder layers cross-attending its memory, each
+# decoder chip's 512 tiles merged onto 128 cores, the fewest its planner
+# accepts: every projection in 4 passes, on the scheduled kernel)
+QWEN, GRANITE = "qwen2-72b", "granite-20b"
+INTERNVL, SEAMLESS = "internvl2-1b", "seamless-m4t-medium"
+SERVE_QWEN = dict(n_layers=2, batch=4, prompt_len=64, gen=16,
+                  cim_cores=32768)
+TRAFFIC_QWEN = dict(TRAFFIC, n_layers=2, cim_cores=32768)
+SERVE_GRANITE = dict(n_layers=2, batch=4, prompt_len=64, gen=8,
+                     cim_cores=16384)
+SERVE_INTERNVL = dict(batch=4, prompt_len=64, gen=16, cim_cores=512,
+                      vis_prefix=True)
+SERVE_SEAMLESS = dict(batch=4, prompt_len=64, gen=8, cim_cores=128)
+SEAMLESS_ROUTES = {"cim_mvm_scheduled": 7}
+# per arch: its static path, its engine path on the same chips (None: the
+# reference serves no pool for an encoder-decoder or a vision prefix)
+ARCH_PATHS = (
+    (QWEN, "serve-qwen2", SERVE_QWEN, "serve-traffic-qwen2", TRAFFIC_QWEN,
+     SERVE_ROUTES, "qwen2-72b full width, 2 of 80 layers, 32768 cores"),
+    (GRANITE, "serve-granite", SERVE_GRANITE, None, None, SERVE_ROUTES,
+     "granite-20b full width, 2 of 52 layers, 16384 cores"),
+    (INTERNVL, "serve-internvl2", SERVE_INTERNVL, None, None, SERVE_ROUTES,
+     "internvl2-1b full width and depth (24 layers), 512 cores, a "
+     "256-patch vision prefix"),
+    (SEAMLESS, "serve-seamless", SERVE_SEAMLESS, None, None,
+     SEAMLESS_ROUTES, "seamless-m4t-medium full width and depth (12 "
+     "encoder + 12 decoder layers), 128 cores"))
+# layer shapes of those archs that no gemma2-9b layer has, held against the
+# plain version in the kernel phase before a served path runs them:
+# qwen2-72b's w_o (K = 29568: 231 tiles of 128 x 256 per column block,
+# gemma2-9b's most is 112), its w_g (N = 29568 = 115 * 256 + 128: a
+# half-live last column block) and granite-20b's MQA wk (N = 128: one
+# half-live column block of 48 tiles)
+ARCH_SHAPES = {"qwen2-72b w_o": (29568, 8192), "qwen2-72b w_g": (8192, 29568),
+               "granite-20b wk": (6144, 128)}
+# the chunked online-softmax attention above 2 * ATTN_CHUNK keys, at
+# qwen2-72b's heads: one decode query and a 256-query prefill with a
+# sliding window, against the dense formula in float64 on the card
+ATTN_LONG = dict(batch=4, heads=64, kv_heads=8, head_dim=128, kv=16384,
+                 cases=((1, 0), (256, 4096)))
+# the reference's bound for its chunked path against the dense one
+# (tests/test_transformer.py): f32 sums over 16384 keys, O(1e-2) outputs
+ATTN_ATOL = 2e-5
 # each layer's projections in the model's call order
 RWKV_ORDER = ("wr", "wk", "wv", "wg", "wo", "ck", "cr", "cv")
 MAMBA_ORDER = ("in_proj", "out_proj", "w_g", "w_i", "w_o")
@@ -623,6 +710,8 @@ def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
                                            run_k, flush, stats)
             emit({"phase": "kernel-shape", "kernel": "cim_mvm_packed", **row})
             rows.append(row)
+    arch_rows = arch_shapes(torch, K, cim, CIMConfig, CoreSpec, dev, stats,
+                            flush)
     sums = layer_sums(rows, PER_LAYER)
     edge = route_edge(K, "cim_mvm_packed", sums)
     t = stats["time"]["cim_mvm_packed"] = dict(sums[4], bound_by="bytes")
@@ -630,10 +719,36 @@ def kernel_phase(torch, K, cim, CIMConfig, CoreSpec, dev, stats):
     t.update({f"prefill_{k}": v for k, v in sums[256].items()
               if k != "route"})
     t["prefill_bound_by"] = common_bound(r for r in rows if r["m"] == 256)
-    return {"shapes": len(rows),
+    return {"shapes": len(rows), "arch_shapes": len(arch_rows),
             "max_abs_err": stats["err"]["cim_mvm_packed"],
             "decode_layer": sums[4], "prefill_layer": sums[256],
             "split_wins_up_to": edge["split_wins_up_to"]}
+
+
+def arch_shapes(torch, K, cim, CIMConfig, CoreSpec, dev, stats, flush):
+    """ARCH_SHAPES, each on a chip of its own (single-pass): the packed
+    kernel against its plain version at COMPARE_ROWS, every activation,
+    with the denorm and the valid-column mask (`compare_all`); timed at
+    TIME_ROWS beside its bound (kernel-shape lines, `time_route`)."""
+    from repro_torch.kernels.cim_mvm import ops
+    gen = torch.Generator(dev).manual_seed(13)
+    rows = []
+    for label, (r, c) in ARCH_SHAPES.items():
+        w = torch.randn(r, c, generator=gen, device=dev) / r ** 0.5
+        chip = cim.compile_chip({"w": w}, CIMConfig(), CoreSpec(n_cores=8192),
+                                "ideal", in_alpha=3.0, generator=gen)
+        p = chip.layers["w"].packed
+        if p.n_passes != 1:
+            raise AssertionError(f"{label}: {p.n_passes} passes")
+        for m in COMPARE_ROWS:
+            x = torch.randint(-7, 8, (m, r), generator=gen,
+                              device=dev).to(torch.float32)
+            compare_all(torch, K, ops, p, x, label, stats, "cim_mvm_packed")
+            if m in TIME_ROWS:
+                rows.append(time_route(torch, K, ops, p, x, flush,
+                                       "cim_mvm_packed", label, stats))
+        del chip, w, p
+    return rows
 
 
 def route_name(K, m):
@@ -643,8 +758,10 @@ def route_name(K, m):
 def time_walk(torch, K, p, x, kernel, run_split, flush, stats):
     """The walk's time on x (median of 20 after an L2 flush each), in the
     same run as the split route's, after checking that the walk's output
-    equals the split route's bit for bit."""
-    check_equal(torch, walk_call(K, p, x, kernel), run_split(),
+    equals the split route's bit for bit (on the split route's columns:
+    `ops` cuts the last column block's padding, the launch keeps it)."""
+    split = run_split()
+    check_equal(torch, walk_call(K, p, x, kernel)[:, :split.shape[1]], split,
                 f"{p.layer} walk vs split M={x.shape[0]}", stats, kernel)
     return median_ms(torch, lambda: walk_call(K, p, x, kernel), 20, flush)
 
@@ -961,7 +1078,8 @@ def serve_and_check(torch, K, ops, serve, dev, stats, path, conf, routes,
     just after. The chips must route as `routes` says (per layer, an
     expert stack counts one chip per expert; SHARED_ROUTES the chips
     outside the stack), and each kernel must launch once per chip, run
-    of its layer or block, and token. Then prefill and two decode steps
+    of its layer or block, and token (a VLM's vision prefix: once more).
+    Then prefill and two decode steps
     rerun through the plain versions on the same chip, fed the kernel
     run's tokens: logits equal. Returns (result, launches, plain err)."""
     reset_launches(K)                    # the path's run starts here
@@ -977,7 +1095,9 @@ def serve_and_check(torch, K, ops, serve, dev, stats, path, conf, routes,
     if got != routes or shared != SHARED_ROUTES.get(arch, {}):
         raise AssertionError(f"{path}: projections route {got} (shared "
                              f"{shared}), expected {routes}")
-    want = {k: n * conf["gen"] for k, n in
+    # a VLM's vision prefix is one more pass through every layer
+    calls = conf["gen"] + (res.vis_embeds is not None)
+    want = {k: n * calls for k, n in
             token_launches(K, res.cfg, routes, arch).items()}
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, the path needs "
@@ -989,7 +1109,8 @@ def serve_and_check(torch, K, ops, serve, dev, stats, path, conf, routes,
     if not all(bool(torch.isfinite(lg).all()) for lg in g.logits):
         raise AssertionError("non-finite logits")
     plain = serve.greedy_decode(res.params, res.cfg.replace(cim_impl="plain"),
-                                res.prompts, 3, dev, teacher=g.tokens[:, :2])
+                                res.prompts, 3, dev, teacher=g.tokens[:, :2],
+                                memory=res.memory, vis_embeds=res.vis_embeds)
     ref = serve.Generation(g.tokens[:, :3], g.logits[:3], 0.0, [])
     err = compare_runs(torch, ref, plain, f"{path}: kernel vs plain", 0.0)
     return res, launches, err
@@ -1129,7 +1250,7 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
         extra["static_baseline"] = {k: static[k] for k in (
             "tokens", "wall_s", "tok_per_s", "p50_ms", "p99_ms",
             "utilization", "pj_per_token")}
-    out = {"config": f"{arch} full width, {conf['n_layers']} of "
+    out = {"config": f"{arch} full width, {eng.cfg.n_layers} of "
                      f"{serve.configs.get(arch).n_layers} layers, "
                      f"{conf['cim_cores']} cores, slots {conf['slots']}, "
                      f"chunk {conf['chunk']}"
@@ -1551,21 +1672,34 @@ def profile_inference(torch, fn, reps, event_ms):
                                              for k, v in top}}
 
 
+def served_inputs(res):
+    """What a served model's prefill (and, but for the vision prefix, its
+    decode steps) takes beside the tokens: an encoder-decoder's memory, a
+    VLM's vision prefix when its serve path ran one."""
+    out = {} if res.memory is None else {"memory": res.memory}
+    if res.vis_embeds is not None:
+        out["vis_embeds"] = res.vis_embeds
+    return out
+
+
 def profile_prefill(torch, res, dev):
     """Device time of one profiled prefill (after one unprofiled one) of a
     served model (torch.profiler / CUPTI): every walk launch in start
     order, in the model's call order (`call_order`), so the walk's device
     ms per projection is the mean over the layers (zamba2's shared block:
-    per run); the prefill's device ms by kernel. The window opens on
-    another prefill and a marker (`marked_window`)."""
+    per run; a VLM's vision prefix and prompt: both passes); the prefill's
+    device ms by kernel. The window opens on another prefill and a marker
+    (`marked_window`)."""
     from repro_torch.launch.steps import arch_serving, make_prefill_step
     cfg, prompts = res.cfg, res.prompts
     prefill = make_prefill_step(cfg)
-    cache_len = prompts.shape[1] + 1
+    batch = dict(served_inputs(res), tokens=prompts)
+    passes = 1 + ("vis_embeds" in batch)
+    cache_len = prompts.shape[1] + 1 + cfg.vis_patches
 
     states = [arch_serving(cfg, dev).init_state(prompts.shape[0],
                                                 cache_len) for _ in range(3)]
-    run = lambda: prefill(res.params, states.pop(), {"tokens": prompts})
+    run = lambda: prefill(res.params, states.pop(), batch)
     events = marked_events(torch, "prefill", run, run)
     if not events:
         return {"device_ms": "not measured"}
@@ -1575,7 +1709,7 @@ def profile_prefill(torch, res, dev):
     if not walk or len(walk) % len(order):
         raise AssertionError(f"prefill: {len(walk)} walk launches, not "
                              f"{len(order)} per {unit} layers")
-    n_units = len(walk) // len(order)
+    n_units = len(walk) // len(order) // passes
     n_layers = n_units * unit
     per_proj = {}                # an expert projection: all its experts
     for i, n in enumerate(order):
@@ -1584,7 +1718,9 @@ def profile_prefill(torch, res, dev):
             / runs
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
     top = sorted(device_us_by_kernel(events).items(), key=lambda kv: -kv[1])
-    return {"m": prompts.numel(), "layers": n_layers,
+    rows = prompts.numel() + (res.vis_embeds.shape[:2].numel()
+                              if passes > 1 else 0)
+    return {"m": rows, "layers": n_layers,
             "device_ms": busy, "walk_ms": sum(walk),
             "walk_ms_per_projection": per_proj,
             "walk_ms_per_layer": sum(walk) / n_layers,
@@ -1606,16 +1742,17 @@ def profile_decode(torch, res, dev):
     cfg, prompts = res.cfg, res.prompts
     steps = len(res.out.decode_s)
     cache = arch_serving(cfg, dev).init_state(
-        prompts.shape[0], prompts.shape[1] + 2 * steps + 1)
+        prompts.shape[0], prompts.shape[1] + 2 * steps + 1 + cfg.vis_patches)
     decode = make_decode_step(cfg)
-    logits, cache = make_prefill_step(cfg)(res.params, cache,
-                                           {"tokens": prompts})
+    first = dict(served_inputs(res), tokens=prompts)
+    feed = {k: v for k, v in first.items() if k == "memory"}
+    logits, cache = make_prefill_step(cfg)(res.params, cache, first)
     tok = torch.argmax(logits, -1)[:, None]
     torch.cuda.synchronize()
     host_s = []              # host time until decode() returns, unprofiled
     for _ in range(steps):
         t0 = now()
-        logits, cache = decode(res.params, cache, {"tokens": tok})
+        logits, cache = decode(res.params, cache, dict(feed, tokens=tok))
         host_s.append(now() - t0)
         tok = torch.argmax(logits, -1)[:, None]
         torch.cuda.synchronize()
@@ -1623,7 +1760,7 @@ def profile_decode(torch, res, dev):
                              ProfilerActivity.CUDA]) as prof:
         t0 = now()
         for _ in range(steps):
-            logits, cache = decode(res.params, cache, {"tokens": tok})
+            logits, cache = decode(res.params, cache, dict(feed, tokens=tok))
             tok = torch.argmax(logits, -1)[:, None]
         torch.cuda.synchronize()
         wall = now() - t0
@@ -2507,14 +2644,15 @@ def moe_phases(torch, K, ops, serve, dev, stats):
     phase("profile-moe")(profile_served)(torch, dev, stats, "profile_moe")
 
 
-def recurrent_phases(torch, K, ops, serve, dev, stats):
-    """Per recurrent arch (RECURRENT_PATHS): its static serve path, the
-    engine on its chips (no plain rerun of the stream and no static
-    baseline, as for serve-traffic-moe), then its profile windows. They
-    run after the MoE phases have freed their chips, and each arch's chips
-    are freed before the next arch's are made (zamba2's ~34 GB would not
-    fit beside the MoE chips)."""
-    for arch, path, conf, tpath, tconf, routes, text in RECURRENT_PATHS:
+def arch_phases(torch, K, ops, serve, dev, stats, paths):
+    """Per arch of `paths` (RECURRENT_PATHS, ARCH_PATHS): its static serve
+    path, the engine on its chips where the arch has an engine path (no
+    plain rerun of the stream and no static baseline, as for
+    serve-traffic-moe), then its profile windows. They run after the MoE
+    phases have freed their chips, and each arch's chips are freed before
+    the next arch's are made (zamba2's ~34 GB would not fit beside the MoE
+    chips, nor qwen2-72b's ~40 GB beside anything)."""
+    for arch, path, conf, tpath, tconf, routes, text in paths:
         # what a failed phase left held would not fit beside them
         for queue in ("profile", "profile_cnn", "profile_moe", "profile_rec"):
             stats[queue].clear()
@@ -2522,17 +2660,128 @@ def recurrent_phases(torch, K, ops, serve, dev, stats):
         ok = phase(path)(serve_path)(torch, K, ops, serve, dev, stats, path,
                                      conf, routes, text, arch, "profile_rec")
         served = dict(stats["profile_rec"]).get(path) if ok else None
-        if served is None:
+        if tpath is not None and served is None:
             failures.append(tpath)
             emit({"phase": tpath, "ok": False,
                   "error": f"no {path} chips to serve"})
-        else:
+        elif tpath is not None:
             phase(tpath)(traffic_path)(torch, K, serve, dev, stats, tpath,
                                        tconf, routes, arch, deployed=served,
                                        full=False)
         del served
         phase("profile-" + path[len("serve-"):])(profile_served)(
             torch, dev, stats, "profile_rec")
+
+
+@phase("batch-invariance")
+def batch_invariance_phase(torch, dev):
+    """How many outputs of the float sums that feed a chip input change
+    when a row is computed in a batch of 4 rather than alone, on the card:
+    RMSNorm's mean of squares (d of gemma2-9b, qwen2-72b and its d_ff) and
+    attention's scores and weighted values (one query over 96 keys at
+    gemma2-9b's and qwen2-72b's heads), summed in float32 as the reference
+    does and as the port does (`transformer.rms_norm`, `_dot`: float64,
+    rounded once). A measurement, not a check: the pool-vs-alone checks of
+    the engine phases hold the served logits."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(dev).manual_seed(3)
+    moved = lambda f, *a: int(sum(
+        (f(*(t[i:i + 1] for t in a))[0] != f(*a)[i]).sum()
+        for i in range(a[0].shape[0])))
+    out = {}
+    for d in (3584, 8192, 29568):
+        x = torch.randn((4, 1, d), generator=gen, device=dev)
+        out[f"rms d {d}"] = {
+            "float32": moved(lambda t: torch.mean(torch.square(t), -1), x),
+            "port": moved(lambda t: T.rms_norm(t, 1.0), x)}
+    for name, h, hkv, hd in (("gemma2-9b", 16, 8, 256),
+                             ("qwen2-72b", 64, 8, 128)):
+        q = torch.randn((4, 1, h, hd), generator=gen, device=dev)
+        k = torch.repeat_interleave(
+            torch.randn((4, 96, hkv, hd), generator=gen, device=dev),
+            h // hkv, dim=2)
+        p = torch.softmax(torch.randn((4, h, 1, 96), generator=gen,
+                                      device=dev), -1)
+        f32 = lambda eq: lambda a, b: torch.einsum(eq, a, b)
+        out[name] = {
+            "scores float32": moved(f32("bqhd,bkhd->bhqk"), q, k),
+            "scores port": moved(lambda a, b: T._dot("bqhd,bkhd->bhqk",
+                                                     a, b), q, k),
+            "values float32": moved(f32("bhqk,bkhd->bqhd"), p, k),
+            "values port": moved(lambda a, b: T._dot("bhqk,bkhd->bqhd",
+                                                     a, b), p, k),
+            "outputs": {"scores": 4 * h * 96, "values": q.numel()}}
+    return out
+
+
+def dense_attention64(torch, q, k, v, q_pos, kv_pos, window):
+    """The dense causal (windowed) attention formula in float64, one batch
+    row at a time: the reference the chunked path is held to."""
+    rep = q.shape[2] // k.shape[2]
+    dist = q_pos[:, None] - kv_pos[None, :]
+    keep = (dist >= 0) & ((dist < window) if window > 0 else True)
+    out = []
+    for b in range(q.shape[0]):
+        kb = torch.repeat_interleave(k[b].double(), rep, dim=1)
+        vb = torch.repeat_interleave(v[b].double(), rep, dim=1)
+        logits = torch.einsum("qhd,khd->hqk", q[b].double(), kb) \
+            / q.shape[-1] ** 0.5
+        probs = torch.softmax(logits.masked_fill(~keep, -torch.inf), -1)
+        out.append(torch.einsum("hqk,khd->qhd", probs, vb))
+        del kb, vb, logits, probs
+    return torch.stack(out)
+
+
+@phase("attention-long")
+def attention_long_phase(torch, dev):
+    """`transformer.attention` above 2 * ATTN_CHUNK keys (the chunked
+    online-softmax path) at ATTN_LONG's shapes against the dense formula in
+    float64 (max |diff| within ATTN_ATOL); its CUDA-event time beside one
+    `scaled_dot_product_attention` call on the same inputs (keys and
+    values repeated to the query heads first, a boolean mask)."""
+    import torch.nn.functional as F
+    from repro_torch.models import transformer as T
+    c = ATTN_LONG
+    b, h, hkv, d, n = (c["batch"], c["heads"], c["kv_heads"], c["head_dim"],
+                       c["kv"])
+    if n <= 2 * T.ATTN_CHUNK:
+        raise AssertionError(f"KV {n} does not reach the chunked path")
+    gen = torch.Generator(dev).manual_seed(17)
+    k = torch.randn((b, n, hkv, d), generator=gen, device=dev)
+    v = torch.randn((b, n, hkv, d), generator=gen, device=dev)
+    pos = torch.arange(n, device=dev)
+    out = {}
+    for sq, window in c["cases"]:
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev)
+        q_pos = pos[-sq:]
+        run = lambda: T.attention(q, k, v, causal=True, q_pos=q_pos,
+                                  kv_pos=pos, window=window)
+        got = run()
+        want = dense_attention64(torch, q, k, v, q_pos, pos, window)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"Sq {sq}: non-finite output")
+        err = float((got.double() - want).abs().max())
+        if err > ATTN_ATOL:
+            raise AssertionError(f"Sq {sq}, window {window}: chunked vs "
+                                 f"dense float64 {err} > {ATTN_ATOL}")
+        del want
+        ms = median_ms(torch, run, 10)
+        kr, vr = (torch.repeat_interleave(t, h // hkv, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        dist = q_pos[:, None] - pos[None, :]
+        mask = (dist >= 0) & ((dist < window) if window > 0 else True)
+        qt = q.transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(qt, kr, vr,
+                                                     attn_mask=mask)
+        lib_ms = median_ms(torch, lib, 10)
+        out[f"sq {sq}"] = {"batch": b, "heads": h, "kv_heads": hkv,
+                           "head_dim": d, "kv": n, "window": window,
+                           "chunks": n // T.ATTN_CHUNK,
+                           "max_abs_err_vs_float64": err,
+                           "atol": ATTN_ATOL, "ms": ms, "sdpa_ms": lib_ms}
+        del q, got, kr, vr, mask, qt
+        free(torch)
+    return out
 
 
 def main() -> int:
@@ -2587,7 +2836,10 @@ def main() -> int:
     noisy_matmul_phase(torch, K, dev, stats)
     profile_phase(torch, dev, stats)
     moe_phases(torch, K, ops, serve, dev, stats)
-    recurrent_phases(torch, K, ops, serve, dev, stats)
+    arch_phases(torch, K, ops, serve, dev, stats, RECURRENT_PATHS)
+    batch_invariance_phase(torch, dev)
+    arch_phases(torch, K, ops, serve, dev, stats, ARCH_PATHS)
+    attention_long_phase(torch, dev)
 
     emit(kernels_line(stats))
     if failures or info is None:

@@ -4,7 +4,7 @@ MoE: 64 routed experts (d_expert 1408) top-6 + 2 shared experts
 from ..models.transformer import ArchConfig
 
 CONFIG = ArchConfig(
-    name="deepseek-moe-16b", n_layers=28, d_model=2048,
+    name="deepseek-moe-16b", family="moe", n_layers=28, d_model=2048,
     n_heads=16, n_kv_heads=16, d_ff=1408, vocab=102400,
     n_experts=64, top_k=6, n_shared_experts=2, d_expert=1408)
 

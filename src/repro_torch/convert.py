@@ -2,10 +2,13 @@
 
 `params_from_numpy` takes the reference's params as the nested dict of
 numpy arrays that `jax.tree_util.tree_map(np.asarray, params)` gives (the
-transformer's stacked layers, the recurrent archs' trees — rwkv6's mixes
-`mu` / `cmu` and bonus `u`, mamba2's `a_log`, `dt_bias` and `dd`, zamba2's
-unstacked `shared_attn` —, the CNNs' conv / fc / BN dicts and PACT clip
-vectors) and returns the port's params in the same layout.
+transformer's stacked layers with the qwen family's QKV biases `bq` /
+`bk` / `bv` and an encoder-decoder's cross-attention `xln` / `xw*`, its
+`enc_layers` stack and `ln_enc`, a VLM's `vis_proj`; the recurrent archs'
+trees — rwkv6's mixes `mu` / `cmu` and bonus `u`, mamba2's `a_log`,
+`dt_bias` and `dd`, zamba2's unstacked `shared_attn` —, the CNNs' conv /
+fc / BN dicts and PACT clip vectors) and returns the port's params in the
+same layout.
 
 `chip_states_from_numpy` takes a dict of the reference's deployed
 `ChipLinear`s (`cnn7.deploy` / `deploy_upto`, `resnet20.deploy`,

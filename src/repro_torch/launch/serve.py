@@ -11,11 +11,29 @@ compiled NeuRRAM chip (port of `repro/launch/serve.py`, one process).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --cim --cim-cores 8192 --layers 4 --gen 32 [--traffic]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \
+      --cim --cim-cores 32768 --layers 2 --gen 16 [--traffic]
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-medium --cim --cim-cores 128 --gen 8
 
-Archs: gemma2-9b (dense), deepseek-moe-16b and llama4-maverick-400b-a17b
-(MoE; llama4 only at --smoke: one full-width layer's experts exceed a
-card), rwkv6-7b and zamba2-7b (recurrent: `models/rwkv6.py`,
-`models/mamba2.py`). Under --cim a recurrent arch compiles each layer's
+Archs: gemma2-9b, qwen2-72b, codeqwen1.5-7b and granite-20b (dense; the
+qwen family with a float QKV bias, granite with one KV head),
+internvl2-1b (a vision-prefix VLM), seamless-m4t-medium (an
+encoder-decoder), deepseek-moe-16b and llama4-maverick-400b-a17b (MoE;
+llama4 only at --smoke: one full-width layer's experts exceed a card),
+rwkv6-7b and zamba2-7b (recurrent: `models/rwkv6.py`,
+`models/mamba2.py`). Single-pass plans of a full-width layer need 32768
+cores for qwen2-72b (26,816 tiles, 878 M weights: a depth cut), 8192 for
+codeqwen1.5-7b (7104), 16384 for granite-20b (16,176) and 512 for
+internvl2-1b (501); seamless-m4t-medium's 512 tiles a layer merge onto
+as few as 128 cores (the scheduled kernel). The encoder-decoder encodes
+seeded source embeddings (batch, prompt_len, d) once with its float
+encoder and feeds the memory to every prefill and decode call; its
+cross-attention, like the QKV bias, stays float. As in the reference,
+the static driver does not run a VLM's vision prefix (its cache leaves
+room for one): `serve_static(vis_prefix=True)` runs seeded embeddings
+through `steps.make_prefill_step` ahead of the prompt. --traffic serves
+the decoder-only archs. Under --cim a recurrent arch compiles each layer's
 projections onto one chip and zamba2's shared attention block onto one
 of its own (`nn.deploy_recurrent_cim`); the S / h recurrences stay float.
 Full-width rwkv6-7b needs 6656 cores per layer chip, zamba2-7b 7084 (its
@@ -78,6 +96,7 @@ from .. import configs
 from ..data import lm_tokens, traffic_requests
 from ..device import resolve_device
 from ..kernels.cim_mvm import kernel as cim_kernel
+from ..models import transformer as T
 from ..obs import MetricsRegistry, TraceBuffer
 from ..obs.chipmeter import ChipMeter
 from ..obs.clock import stopwatch, timed_call
@@ -115,24 +134,35 @@ class Generation:
 
 def greedy_decode(params, cfg, prompts, gen: int, device, *,
                   teacher: Optional[torch.Tensor] = None,
-                  max_len: Optional[int] = None) -> Generation:
+                  max_len: Optional[int] = None,
+                  memory: Optional[torch.Tensor] = None,
+                  vis_embeds: Optional[torch.Tensor] = None) -> Generation:
     """Prefill `prompts` (B, S) and decode gen - 1 more tokens greedily.
     teacher: optional (B, >= gen - 1) tokens fed instead of the greedy
     ones (a second run that must follow the first run's path). max_len:
-    the cache's length (default S + gen)."""
+    the cache's length (default S + gen + the arch's vis_patches, as the
+    reference sizes it). memory: an encoder-decoder's encoded source, fed
+    to the prefill and every decode step; vis_embeds: a VLM's vision
+    prefix, prefilled ahead of the prompt."""
     b, s = prompts.shape
-    cache = arch_serving(cfg, device).init_state(b, max_len or s + gen)
+    cache = arch_serving(cfg, device).init_state(
+        b, max_len or s + gen + cfg.vis_patches)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
-    (logits, cache), t_prefill = timed_call(
-        prefill, params, cache, {"tokens": prompts}, device=device)
+    extra = {} if memory is None else {"memory": memory}
+    first = dict(extra, tokens=prompts)
+    if vis_embeds is not None:
+        first["vis_embeds"] = vis_embeds
+    (logits, cache), t_prefill = timed_call(prefill, params, cache, first,
+                                            device=device)
     out, all_logits, step_s = [], [logits], []
     tok = torch.argmax(logits, -1)[:, None]
     out.append(tok)
     for i in range(gen - 1):
         feed = tok if teacher is None else teacher[:, i:i + 1]
         (logits, cache), dt = timed_call(decode, params, cache,
-                                         {"tokens": feed}, device=device)
+                                         dict(extra, tokens=feed),
+                                         device=device)
         step_s.append(dt)
         all_logits.append(logits)
         tok = torch.argmax(logits, -1)[:, None]
@@ -147,6 +177,8 @@ class ServeResult:
     prompts: torch.Tensor
     out: Generation
     deploy_s: float
+    memory: Optional[torch.Tensor] = None      # encdec: the encoded source
+    vis_embeds: Optional[torch.Tensor] = None  # vlm: the prefix it ran
 
 
 def deploy(arch: str = "gemma2-9b", *, smoke: bool = False,
@@ -185,11 +217,16 @@ def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
                  cim_bits: int = 0, cim_cores: int = 0,
                  cim_ir_drop: float = 0.0, device: Optional[str] = None,
                  n_layers: Optional[int] = None,
-                 params=None, prompts=None, x_cal=None) -> ServeResult:
+                 params=None, prompts=None, x_cal=None, src_embeds=None,
+                 vis_prefix: bool = False, vis_embeds=None) -> ServeResult:
     """Build (or take) params, deploy the chip under `cim`, serve one
     static batch. The params, prompts and calibration batches are drawn
     from generators seeded 0, 1 and 7; params / prompts / x_cal, when
-    given, replace those draws (params must already be on `device`)."""
+    given, replace those draws (params must already be on `device`). An
+    encoder-decoder encodes `src_embeds` (default 0.02 * normal (batch,
+    prompt_len, d), seeded 2) once; its memory feeds prefill and decode.
+    vis_prefix: a VLM's prefill runs `vis_embeds` (default 0.02 * normal
+    (batch, vis_patches, d), seeded 3) ahead of the prompt."""
     dev = resolve_device(device)
     cfg, params, deploy_s = deploy(
         arch, smoke=smoke, cim=cim, cim_mode=cim_mode, cim_bits=cim_bits,
@@ -199,8 +236,27 @@ def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
         prompts = lm_tokens(torch.Generator(dev).manual_seed(1), batch,
                             prompt_len, cfg.vocab)
     prompts = prompts.to(dev)
-    out = greedy_decode(params, cfg, prompts, gen, dev)
-    return ServeResult(cfg, params, prompts, out, deploy_s)
+    memory = None
+    if cfg.enc_layers > 0:
+        if src_embeds is None:
+            src_embeds = _seeded_embeds(2, (batch, prompt_len), cfg, dev)
+        memory = T._encode(params, src_embeds.to(dev), cfg)
+    if vis_prefix and vis_embeds is None:
+        vis_embeds = _seeded_embeds(3, (batch, cfg.vis_patches), cfg, dev)
+    if vis_embeds is not None:
+        vis_embeds = vis_embeds.to(dev)
+    out = greedy_decode(params, cfg, prompts, gen, dev, memory=memory,
+                        vis_embeds=vis_embeds)
+    return ServeResult(cfg, params, prompts, out, deploy_s, memory,
+                       vis_embeds)
+
+
+def _seeded_embeds(seed: int, lead, cfg, device):
+    """0.02 * normal (*lead, d_model) from a generator seeded `seed`: the
+    stub frontend's embeddings."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return (0.02 * torch.randn((*lead, cfg.d_model), generator=gen,
+                               device=device)).to(cfg.dtype)
 
 
 def traffic_stream(cfg, n_requests: int, *, prompt_len: int, gen: int,
@@ -245,8 +301,13 @@ def serve_traffic(arch: str = "gemma2-9b", *, smoke: bool = False,
                   strict_jit: bool = False) -> TrafficResult:
     """Deploy as `serve_static` does, then serve `traffic_stream`'s
     requests in real time through a `slots`-slot continuous-batching
-    engine with `chunk`-token prefill chunks."""
+    engine with `chunk`-token prefill chunks. Encoder-decoder and VLM archs
+    are refused, as the reference refuses them."""
     dev = resolve_device(device)
+    arch_cfg = configs.get(arch, smoke=smoke)
+    if arch_cfg.enc_layers > 0 or arch_cfg.vis_patches > 0:
+        raise SystemExit("--traffic serves decoder-only archs (enc-dec / "
+                         "vlm prefixes need per-slot memory plumbing)")
     cfg, params, deploy_s = deploy(
         arch, smoke=smoke, cim=cim, cim_mode=cim_mode, cim_bits=cim_bits,
         cim_cores=cim_cores, cim_ir_drop=cim_ir_drop, device=dev,

@@ -1,7 +1,8 @@
 """Prefill / decode step functions, the slot pool's steps and the
 arch-dispatch table the serving driver runs through (PyTorch port of the
-serving half of `repro/launch/steps.py`: the dense, MoE and recurrent
-families; the model's family dispatch is `models/transformer`'s)."""
+serving half of `repro/launch/steps.py`: every family, the encoder-
+decoder's memory and the VLM's vision prefix included; the model's family
+dispatch is `models/transformer`'s)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple
@@ -17,11 +18,13 @@ class ArchServing(NamedTuple):
     """Serving entry points for one architecture, with normalized
     signatures:
 
-      init_params(seed)                    -> params
-      init_state(batch, max_len)           -> decode cache
-      prefill(params, state, tokens)       -> (logits, state)
-      decode_step(params, state, tokens)   -> (logits, state)
+      init_params(seed)                                -> params
+      init_state(batch, max_len)                       -> decode cache
+      prefill(params, state, tokens, memory=None)      -> (logits, state)
+      decode_step(params, state, tokens, memory=None)  -> (logits, state)
       deploy_cim(params, **kw)             -> params with '_cim' entries
+
+    memory: an encoder-decoder's encoded source (`transformer._encode`).
     """
     init_params: Callable
     init_state: Callable
@@ -39,26 +42,52 @@ def arch_serving(cfg: T.ArchConfig, device=None) -> ArchServing:
         init_params=lambda seed=0: T.init_params(cfg, seed=seed, device=dev),
         init_state=lambda batch, max_len: T.init_cache(
             cfg, batch, max_len, dtype=cfg.dtype, device=dev),
-        prefill=lambda params, state, tokens:
-            T.prefill(params, tokens, state, cfg),
-        decode_step=lambda params, state, tokens:
-            T.decode_step(params, state, tokens, cfg),
+        prefill=lambda params, state, tokens, memory=None:
+            T.prefill(params, tokens, state, cfg, memory=memory),
+        decode_step=lambda params, state, tokens, memory=None:
+            T.decode_step(params, state, tokens, cfg, memory=memory),
         deploy_cim=lambda params, **kw: nn.deploy_cim(params, cfg, **kw))
 
 
 def make_prefill_step(cfg: T.ArchConfig):
-    """prefill_step(params, cache, {"tokens": (B, S)}) -> (logits, cache);
-    runs where params and cache lie."""
+    """prefill_step(params, cache, batch) -> (logits, cache); runs where
+    params and cache lie. batch: {"tokens": (B, S)}, and for an
+    encoder-decoder "src_embeds" (B, S_src, d), encoded here, or the
+    encoded "memory"; for a VLM optionally "vis_embeds" (B, P, d), run into
+    the cache ahead of the tokens (`_prefix_embeds`)."""
     def prefill_step(params, cache, batch):
-        return T.prefill(params, batch["tokens"], cache, cfg)
+        memory = batch.get("memory")
+        if cfg.enc_layers > 0 and memory is None:
+            memory = T._encode(params, batch["src_embeds"], cfg)
+        if cfg.vis_patches > 0 and batch.get("vis_embeds") is not None:
+            cache = _prefix_embeds(params, cache, batch["vis_embeds"], cfg)
+        return T.prefill(params, batch["tokens"], cache, cfg, memory=memory)
     return prefill_step
+
+
+def _prefix_embeds(params, cache, emb, cfg: T.ArchConfig):
+    """Run raw embeddings (B, P, d) — no token lookup, no embedding scale —
+    through the decoder blocks into the cache at its fill, as the
+    reference does (its logits unused): the cache, its fill advanced by
+    P."""
+    pos = cache["len"]
+    positions = pos + torch.arange(emb.shape[1], device=emb.device)
+    x = emb.to(cfg.dtype)
+    for li in range(cfg.n_layers):
+        x, _ = T.dense_block(T.layer_params(params, li), x, cfg,
+                             positions=positions, layer_idx=li,
+                             cache=(cache["k"][li], cache["v"][li]),
+                             cache_len=pos)
+    return {"k": cache["k"], "v": cache["v"], "len": pos + emb.shape[1]}
 
 
 def make_decode_step(cfg: T.ArchConfig):
     """decode_step(params, cache, {"tokens": (B, 1)}) -> (logits, cache);
-    runs where params and cache lie."""
+    runs where params and cache lie; an encoder-decoder's batch also
+    carries its "memory"."""
     def decode_step(params, cache, batch):
-        return T.decode_step(params, cache, batch["tokens"], cfg)
+        return T.decode_step(params, cache, batch["tokens"], cfg,
+                             memory=batch.get("memory"))
     return decode_step
 
 

@@ -1,19 +1,33 @@
-"""Decoder LM backbone (PyTorch port of the dense, MoE and recurrent
-families of `repro/models/transformer.py`).
+"""LM backbone (PyTorch port of `repro/models/transformer.py`): the dense,
+MoE, recurrent, encoder-decoder and vision-prefix families.
 
-GQA attention with gemma2's details — attention-logit and final-logit
-softcaps, alternating local (even layers) / global (odd layers) sliding
-window attention, the sqrt(d_model) embedding scale, tied or untied
-unembedding — and either a SwiGLU MLP or a fine-grained MoE FFN with
-shared experts (`models/moe.py`: deepseek-moe, llama4). llama4's 1:1
-dense/MoE interleave (`moe_every=2`) keeps its dense layers under
-params['dense_layers'] beside the MoE ones in params['layers']; the
+GQA / MQA attention (qwen2, codeqwen, granite, internvl2's backbone) with
+an optional float QKV bias (the qwen family) and gemma2's details —
+attention-logit and final-logit softcaps, alternating local (even layers)
+/ global (odd layers) sliding window attention, the sqrt(d_model)
+embedding scale, tied or untied unembedding — and either a SwiGLU MLP or
+a fine-grained MoE FFN with shared experts (`models/moe.py`:
+deepseek-moe, llama4). Above a KV length of 2 * ATTN_CHUNK attention
+runs the reference's online softmax over KV chunks. seamless-m4t's
+encoder-decoder encodes frontend embeddings with a bidirectional float
+encoder and adds cross-attention to every decoder block; internvl2's
+vision prefix (stub frontend embeddings) runs ahead of the tokens.
+llama4's 1:1 dense/MoE interleave (`moe_every=2`) keeps its dense layers
+under params['dense_layers'] beside the MoE ones in params['layers']; the
 layers run in pairs, dense first. Params are a dict of tensors in the
 reference's layout: per-layer weights stacked as (L, in, out) (experts
 (L, E, in, out)). The reference's `lax.scan` over layers is a Python loop
 here. The recurrent families dispatch on the config: `rwkv` to
 `models/rwkv6.py`, `ssm_state > 0` to `models/mamba2.py` (zamba2's hybrid
 with its shared attention block); they embed without gemma's scale.
+
+The float sums that feed a chip input — RMSNorm's mean of squares and
+attention's two dot products (scores and the weighted values) — are
+summed in float64 and rounded once, as the recurrent families' scans are
+(`models/rwkv6.py`): a float32 reduction's order depends on how many rows
+share the call (a slot served in a pool of 4 or alone, a prompt
+prefilled whole or in chunks), and a last-bit difference can move a
+4-bit chip input by a level.
 
 Every projection can route through the NeuRRAM CIM path (`cim_linear`):
 with cim_mode="packed" and a deployed '<name>_cim' entry
@@ -35,11 +49,12 @@ from ..device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """A decoder LM: dense, MoE when n_experts > 0, RWKV-6 when rwkv, and
-    Mamba-2 (with zamba2's shared attention block every
-    hybrid_attn_every layers) when ssm_state > 0."""
+    """An LM: dense, MoE when n_experts > 0, RWKV-6 when rwkv, Mamba-2
+    (with zamba2's shared attention block every hybrid_attn_every layers)
+    when ssm_state > 0, an encoder-decoder when enc_layers > 0 and a
+    vision-prefix VLM when vis_patches > 0."""
     name: str = "dense"
-    family: str = "dense"        # dense | moe | rwkv | hybrid
+    family: str = "dense"        # dense | moe | rwkv | hybrid | encdec | vlm
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -47,6 +62,7 @@ class ArchConfig:
     d_head: int = 0              # 0 -> d_model // n_heads
     d_ff: int = 1024
     vocab: int = 1024
+    qkv_bias: bool = False       # qwen family: float bias on q, k, v
     attn_softcap: float = 0.0    # gemma2: 50.0
     final_softcap: float = 0.0   # gemma2: 30.0
     local_window: int = 0        # sliding window size for local layers
@@ -62,6 +78,10 @@ class ArchConfig:
     ssm_state: int = 0           # mamba2 state dim N
     ssm_head: int = 64           # mamba2 head dim P
     hybrid_attn_every: int = 0   # zamba2: shared attn block period
+    # enc-dec
+    enc_layers: int = 0
+    # vlm
+    vis_patches: int = 0         # number of stub vision-prefix embeddings
     # Dropless dispatch: every routed token kept (capacity = T). The
     # capacity-factor path makes a token's output depend on which other
     # tokens share the batch; launch/scheduler forces this on.
@@ -125,9 +145,19 @@ def routed_linear(x, p, name: str, cfg: ArchConfig, *, seed: int = 0):
 # ------------------------------------------------------------------- layers
 
 def rms_norm(x, scale, eps: float = 1e-6):
+    """The reference's RMSNorm, its mean of squares summed in float64 and
+    rounded to float32 once (module docstring)."""
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x.to(torch.float64)), dim=-1,
+                     keepdim=True).to(torch.float32)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _dot(eq: str, a, b):
+    """einsum `eq` of a and b summed in float64 and rounded once to a's
+    dtype (module docstring)."""
+    return torch.einsum(eq, a.to(torch.float64),
+                        b.to(torch.float64)).to(a.dtype)
 
 
 def rope(x, positions, theta: float):
@@ -170,26 +200,24 @@ def _expand_mask(mask):
     return mask[None, None] if mask.ndim == 2 else mask[:, None]
 
 
-# KV length above which the reference switches to its chunked online-
-# softmax path (not ported: ROADMAP A4 leaves it out).
+# KV chunk size: above 2 * ATTN_CHUNK keys attention switches to the
+# online-softmax path, which never materializes the (Sq, Sk) logits
 ATTN_CHUNK = 4096
 
 
 def attention(q, k, v, *, causal: bool, q_pos, kv_pos, window: int = 0,
               softcap: float = 0.0, kv_len=None):
-    """q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D) — GQA via head repetition; dense
-    softmax over the whole KV."""
-    b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    if sk > 2 * ATTN_CHUNK:
-        raise NotImplementedError(
-            f"KV length {sk} > {2 * ATTN_CHUNK} needs the chunked "
-            "online-softmax attention, which is not ported yet")
-    rep = h // hkv
-    scale = 1.0 / math.sqrt(d)
+    """q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D) — GQA via head repetition. Short
+    KV: dense softmax over the whole KV; long KV: `_chunked_attention`."""
+    if k.shape[1] > 2 * ATTN_CHUNK:
+        return _chunked_attention(q, k, v, causal=causal, q_pos=q_pos,
+                                  kv_pos=kv_pos, window=window,
+                                  softcap=softcap, kv_len=kv_len)
+    rep = q.shape[2] // k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
     kf = torch.repeat_interleave(k, rep, dim=2)
     vf = torch.repeat_interleave(v, rep, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
+    logits = _dot("bqhd,bkhd->bhqk", q, kf) * scale
     logits = _softcap(logits, softcap)
     mask = _attn_mask(q_pos, kv_pos, causal, window, kv_len)
     # a Python scalar, not a device tensor: no host-to-device copy (legal
@@ -197,7 +225,45 @@ def attention(q, k, v, *, causal: bool, q_pos, kv_pos, window: int = 0,
     logits = torch.where(_expand_mask(mask), logits.to(torch.float32),
                          -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v if rep == 1 else vf)
+    return _dot("bhqk,bkhd->bqhd", probs, v if rep == 1 else vf)
+
+
+def _chunked_attention(q, k, v, *, causal: bool, q_pos, kv_pos, window: int,
+                       softcap: float, kv_len):
+    """The reference's online softmax over KV chunks of ATTN_CHUNK keys,
+    in its order of operations: f32 running max m, sum l and accumulator,
+    each chunk rescaling them by exp(m - m_new), then acc / max(l, 1e-30);
+    each chunk's dot products summed in float64 and rounded once.
+    Peak activation is (Sq, ATTN_CHUNK) logits per head. The masks are the
+    dense path's (window, causal, an int or (B,) kv_len)."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if sk % ATTN_CHUNK:
+        raise ValueError(f"KV length {sk} is not a multiple of ATTN_CHUNK "
+                         f"= {ATTN_CHUNK}")
+    rep = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    f32 = torch.float32
+    qf = q.to(f32)
+    m = torch.full((b, h, sq), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=f32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=f32, device=q.device)
+    for c0 in range(0, sk, ATTN_CHUNK):
+        kc = torch.repeat_interleave(k[:, c0:c0 + ATTN_CHUNK], rep, dim=2)
+        vc = torch.repeat_interleave(v[:, c0:c0 + ATTN_CHUNK], rep, dim=2)
+        logits = _dot("bqhd,bkhd->bhqk", qf, kc) * scale
+        logits = _softcap(logits, softcap)
+        mask = _attn_mask(q_pos, kv_pos[c0:c0 + ATTN_CHUNK], causal, window,
+                          kv_len)
+        logits = torch.where(_expand_mask(mask), logits, -1e30)
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + _dot("bhqk,bkhd->bhqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def mlp(x, wi, wg, wo, cfg: ArchConfig, seed: int = 0,
@@ -217,11 +283,15 @@ def routed_mlp(x, p, cfg: ArchConfig, *, seed: int = 5):
 
 # ------------------------------------------------------------ param init
 
-def _dense_layer_params(gen: torch.Generator, cfg: ArchConfig, n_layers: int):
+def _dense_layer_params(gen: torch.Generator, cfg: ArchConfig, n_layers: int,
+                        xattn: bool = False):
     """Per-layer weights stacked over `n_layers`: normal / sqrt(fan_in).
-    MoE layers (n_experts > 0) carry the router, the routed experts'
-    (L, E, in, out) stacks and, with shared experts, their fused SwiGLU
-    (width d_expert * n_shared_experts) in place of the MLP."""
+    xattn: an encoder-decoder's decoder layers also carry cross-attention
+    (xln, xwq, xwk, xwv, xwo); qkv_bias adds the zero-initialised float
+    biases bq, bk, bv. MoE layers (n_experts > 0) carry the router, the
+    routed experts' (L, E, in, out) stacks and, with shared experts, their
+    fused SwiGLU (width d_expert * n_shared_experts) in place of the
+    MLP."""
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     d, f = cfg.d_model, cfg.d_ff
     dev, dtype = gen.device, cfg.dtype
@@ -230,8 +300,17 @@ def _dense_layer_params(gen: torch.Generator, cfg: ArchConfig, n_layers: int):
         w = torch.randn((n_layers, *sh), generator=gen, device=dev)
         return (w * (1.0 / math.sqrt(sh[-2]))).to(dtype)
 
-    p = {"wq": s(d, nh * hd), "wk": s(d, nkv * hd), "wv": s(d, nkv * hd),
-         "wo": s(nh * hd, d)}
+    p = {}
+    if xattn:
+        p["xln"] = torch.ones((n_layers, d), dtype=dtype, device=dev)
+        p.update(xwq=s(d, nh * hd), xwk=s(d, nkv * hd), xwv=s(d, nkv * hd),
+                 xwo=s(nh * hd, d))
+    p.update(wq=s(d, nh * hd), wk=s(d, nkv * hd), wv=s(d, nkv * hd),
+             wo=s(nh * hd, d))
+    if cfg.qkv_bias:
+        for n, width in (("bq", nh), ("bk", nkv), ("bv", nkv)):
+            p[n] = torch.zeros((n_layers, width * hd), dtype=dtype,
+                               device=dev)
     p["ln1"] = torch.ones((n_layers, d), dtype=dtype, device=dev)
     p["ln2"] = torch.ones((n_layers, d), dtype=dtype, device=dev)
     if cfg.n_experts > 0:
@@ -273,7 +352,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Dict:
     1:1 interleave (`moe_every=2`) n_layers / 2 dense layers under
     'dense_layers' and as many MoE layers under 'layers'; the recurrent
     archs their rwkv6 or mamba2 layer stacks, and zamba2 its one shared
-    attention block, unstacked, under 'shared_attn'."""
+    attention block, unstacked, under 'shared_attn'; an encoder-decoder
+    its encoder stack under 'enc_layers' with its final norm 'ln_enc'
+    (and cross-attention in every decoder layer); a VLM 'vis_proj'
+    (vis_patches, d), kept for the reference's layout."""
     device = resolve_device(device)
     gen = torch.Generator(device).manual_seed(seed)
     params = {
@@ -301,7 +383,16 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Dict:
             gen, cfg.replace(n_experts=0), n)
         params["layers"] = _dense_layer_params(gen, cfg, n)
         return params
-    params["layers"] = _dense_layer_params(gen, cfg, cfg.n_layers)
+    params["layers"] = _dense_layer_params(gen, cfg, cfg.n_layers,
+                                           xattn=cfg.enc_layers > 0)
+    if cfg.enc_layers > 0:
+        params["enc_layers"] = _dense_layer_params(gen, cfg, cfg.enc_layers)
+        params["ln_enc"] = torch.ones((cfg.d_model,), dtype=cfg.dtype,
+                                      device=device)
+    if cfg.vis_patches > 0:
+        params["vis_proj"] = (torch.randn((cfg.vis_patches, cfg.d_model),
+                                          generator=gen, device=device)
+                              * 0.02).to(cfg.dtype)
     return params
 
 
@@ -334,8 +425,11 @@ def _window(cfg: ArchConfig, layer_idx: int) -> int:
 
 
 def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
-                cache=None, cache_len=None, write_mask=None):
-    """One pre-norm transformer block. Returns (y, cache).
+                cache=None, cache_len=None, write_mask=None, memory=None):
+    """One pre-norm transformer block. Returns (y, cache). The QKV bias
+    (qkv_bias) is added to the chip outputs of wq, wk and wv before RoPE;
+    with `memory` (B, S_src, d), the encoder's output, cross-attention
+    follows self-attention, before the MLP.
 
     cache: this layer's (k, v) views of the (B, S_max, nkv, hd) cache;
     the new keys and values are written into them IN PLACE at cache_len
@@ -350,6 +444,10 @@ def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
     q = routed_linear(h, p, "wq", cfg, seed=1).reshape(b, s, nh, hd)
     k = routed_linear(h, p, "wk", cfg, seed=2).reshape(b, s, nkv, hd)
     v = routed_linear(h, p, "wv", cfg, seed=3).reshape(b, s, nkv, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(nh, hd)
+        k = k + p["bk"].reshape(nkv, hd)
+        v = v + p["bv"].reshape(nkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = _window(cfg, layer_idx)
@@ -377,11 +475,58 @@ def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
                          kv_pos=positions, window=window,
                          softcap=cfg.attn_softcap)
     x = x + routed_linear(attn.reshape(b, s, nh * hd), p, "wo", cfg, seed=4)
+    if memory is not None:
+        x = x + _cross_attn(p, x, memory, cfg)
     h2 = rms_norm(x, p["ln2"])
     if "ew_g" in p:                 # MoE FFN (dense and MoE interleave)
         from . import moe
         return x + moe.moe_ffn(p, h2, cfg), cache
     return x + routed_mlp(h2, p, cfg, seed=5), cache
+
+
+def _cross_attn(p, x, memory, cfg: ArchConfig):
+    """The encoder-decoder's cross-attention (float: its projections never
+    go on a chip): queries from x, keys and values from the encoder's
+    `memory`, unmasked."""
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    sm = memory.shape[1]
+    h = rms_norm(x, p["xln"])
+    q = (h @ p["xwq"]).reshape(b, s, nh, hd)
+    k = (memory @ p["xwk"]).reshape(b, sm, nkv, hd)
+    v = (memory @ p["xwv"]).reshape(b, sm, nkv, hd)
+    rep = nh // nkv
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, nh * hd)
+    return o @ p["xwo"]
+
+
+def _encode(params, src_embeds, cfg: ArchConfig):
+    """The encoder-decoder's bidirectional encoder over frontend embeddings
+    (B, S_src, d): float blocks (RoPE on q and k, no mask, a SwiGLU MLP;
+    no chip, no QKV bias), then 'ln_enc'."""
+    x = src_embeds.to(cfg.dtype)
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    positions = torch.arange(s, device=x.device)
+    stack = params["enc_layers"]
+    for li in range(cfg.enc_layers):
+        p = {k: v[li] for k, v in stack.items()}
+        h = rms_norm(x, p["ln1"])
+        q = rope((h @ p["wq"]).reshape(b, s, nh, hd), positions,
+                 cfg.rope_theta)
+        k = rope((h @ p["wk"]).reshape(b, s, nkv, hd), positions,
+                 cfg.rope_theta)
+        v = (h @ p["wv"]).reshape(b, s, nkv, hd)
+        attn = attention(q, k, v, causal=False, q_pos=positions,
+                         kv_pos=positions, softcap=cfg.attn_softcap)
+        x = x + attn.reshape(b, s, nh * hd) @ p["wo"]
+        h2 = rms_norm(x, p["ln2"])
+        x = x + mlp(h2, p["w_i"], p["w_g"], p["w_o"], cfg)
+    return rms_norm(x, params["ln_enc"])
 
 
 def _embed(params, tokens, cfg: ArchConfig):
@@ -393,9 +538,23 @@ def _embed(params, tokens, cfg: ArchConfig):
     return x
 
 
-def lm_forward(params, tokens, cfg: ArchConfig):
-    """Teacher-forcing forward. tokens: (B, S) -> logits (B, S, V)."""
+def lm_forward(params, tokens, cfg: ArchConfig, *, vis_embeds=None,
+               src_embeds=None):
+    """Teacher-forcing forward. tokens: (B, S) -> logits (B, S, V).
+
+    vis_embeds: (B, P, d) stub vision-frontend embeddings (vlm), run ahead
+    of the tokens; their positions' logits are dropped.
+    src_embeds: (B, S_src, d) stub modality-frontend embeddings (encdec),
+    encoded once and cross-attended by every decoder block."""
     x = _embed(params, tokens, cfg)
+    if vis_embeds is not None:
+        x = torch.cat([vis_embeds.to(cfg.dtype), x], dim=1)
+    memory = None
+    if cfg.enc_layers > 0:
+        if src_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             "src_embeds")
+        memory = _encode(params, src_embeds, cfg)
     rec = _recurrent(cfg)
     if rec is not None:
         x = rec.forward(params, x, cfg)
@@ -403,10 +562,14 @@ def lm_forward(params, tokens, cfg: ArchConfig):
         positions = torch.arange(x.shape[1], device=x.device)
         for li in range(cfg.n_layers):
             x, _ = dense_block(layer_params(params, li), x, cfg,
-                               positions=positions, layer_idx=li)
+                               positions=positions, layer_idx=li,
+                               memory=memory)
     x = rms_norm(x, params["ln_f"])
     logits = x @ _unembed(params, cfg)
-    return _softcap(logits.to(torch.float32), cfg.final_softcap)
+    logits = _softcap(logits.to(torch.float32), cfg.final_softcap)
+    if vis_embeds is not None:
+        logits = logits[:, vis_embeds.shape[1]:]
+    return logits
 
 
 # ------------------------------------------------------------- serve path
@@ -428,15 +591,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
 
 
-def decode_step(params, cache, tokens, cfg: ArchConfig, write_mask=None):
+def decode_step(params, cache, tokens, cfg: ArchConfig, write_mask=None,
+                memory=None):
     """One decode step: tokens (B, S) + cache -> (logits (B, V) of the
     last position, cache). The cache tensors are updated in place; the
     returned dict carries the new fill. cache["len"] is an int on the
     static path and a (B,) tensor of per-slot fills on the slot pool's:
     positions then carry a batch dimension, and each slot's keys and
     values land at its own fill (rows where `write_mask` is False keep
-    their cache). The recurrent archs step one token (S = 1) through
-    `rwkv6.decode_step` / `mamba2.decode_step`."""
+    their cache). memory: an encoder-decoder's encoded source, which
+    every block cross-attends. The recurrent archs step one token (S = 1)
+    through `rwkv6.decode_step` / `mamba2.decode_step`."""
     rec = _recurrent(cfg)
     if rec is not None:
         return rec.decode_step(params, cache, tokens, cfg, write_mask)
@@ -449,7 +614,8 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, write_mask=None):
         x, _ = dense_block(layer_params(params, li), x, cfg,
                            positions=positions, layer_idx=li,
                            cache=(cache["k"][li], cache["v"][li]),
-                           cache_len=pos, write_mask=write_mask)
+                           cache_len=pos, write_mask=write_mask,
+                           memory=memory)
     x = rms_norm(x, params["ln_f"])
     logits = _softcap((x[:, -1] @ _unembed(params, cfg)).to(torch.float32),
                       cfg.final_softcap)
@@ -457,10 +623,10 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, write_mask=None):
                     "len": pos + tokens.shape[1]}
 
 
-def prefill(params, tokens, cache, cfg: ArchConfig):
+def prefill(params, tokens, cache, cfg: ArchConfig, memory=None):
     """Prefill the cache with a full prompt: decode_step with S > 1, or the
     recurrent archs' stateful chunked prefill."""
     rec = _recurrent(cfg)
     if rec is not None:
         return rec.prefill(params, cache, tokens, cfg)
-    return decode_step(params, cache, tokens, cfg)
+    return decode_step(params, cache, tokens, cfg, memory=memory)

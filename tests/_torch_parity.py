@@ -118,3 +118,32 @@ def assert_chip_match(pcl, pj, what):
         np.testing.assert_allclose(to_numpy(getattr(pcl.packed, f)),
                                    getattr(pj.packed, f), rtol=1e-5,
                                    err_msg=f"{what} {f}")
+
+
+def with_biases(params, seed: int = 11, scale: float = 0.5):
+    """The reference's params with the QKV biases bq, bk, bv (zeros at
+    init) replaced by seeded nonzero values, `scale` * normal, so a
+    comparison exercises the bias path."""
+    import jax.numpy as jnp
+    lay = dict(params["layers"])
+    rng = np.random.default_rng(seed)
+    for n in ("bq", "bk", "bv"):
+        if n in lay:
+            lay[n] = jnp.asarray(scale * rng.standard_normal(lay[n].shape),
+                                 jnp.float32)
+    return dict(params, layers=lay)
+
+
+def frontend_inputs(cfg, batch: int, src_len: int, seed: int = 3):
+    """Seeded numpy stub-frontend embeddings, 0.02 * normal as the
+    reference's drivers draw them: "vis_embeds" (batch, vis_patches, d)
+    for a VLM, "src_embeds" (batch, src_len, d) for an encoder-decoder."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.vis_patches:
+        out["vis_embeds"] = (0.02 * rng.standard_normal(
+            (batch, cfg.vis_patches, cfg.d_model))).astype(np.float32)
+    if cfg.enc_layers:
+        out["src_embeds"] = (0.02 * rng.standard_normal(
+            (batch, src_len, cfg.d_model))).astype(np.float32)
+    return out
