@@ -73,11 +73,13 @@ the final result line:
                 rows; the static baseline (`scheduler.serve_static`) on
                 the same requests
   serve-traffic-merged  the same on the 3072-core chip (the scheduled
-                kernel through the pool)
+                kernel through the pool), 2 layers
   recover       Bayesian image recovery at paper geometry (784 pixels + 10
                 labels, 120 hidden units), batch 64, 10 Gibbs cycles:
                 digital, stochastic and pixel-interleaved runs, launches
-                counted per run, a plain rerun from the same seeds
+                counted per run, a plain rerun from the same seeds; then
+                the entry point with --metrics-out, read back: fwd and bwd
+                energies positive, finite and equal to the chip meter's
   chip-linear   the single-matrix kernel against its plain version at
                 every 7-layer CNN and ResNet-20 matrix shape at batch 256
                 (im2col rows M, K with the bias row, N) and at ragged
@@ -230,6 +232,22 @@ the final result line:
                 query, and 256 queries with a 4096-key window, against
                 the dense formula in float64 (ATTN_ATOL), its time beside
                 one scaled_dot_product_attention call
+  train-lm      `launch/train.py` at qwen2-72b's full width (2 of 80
+                layers, bf16 params, f32 moments), batch 8 x 128, 6 steps
+                under --cim off and then noisy: losses finite, the modes'
+                step-0 losses different, no CIM launch, the state on the
+                card; median step ms (CUDA events), forward / backward /
+                optimizer ms and the noise draws, peak GB, tokens/s and
+                model TFLOP/s (6 x matmul weights x tokens per step)
+  train-lm-parity  one make_train_step on the card against the CPU from
+                one state and batch, qwen2-72b smoke in float32, off and
+                noisy: loss and gnorm within TRAIN_RTOL, params within
+                TRAIN_PARAM_ATOL off rounding-sized gradients
+  train-resume  FaultTolerantTrainer at smoke size, checkpoints every 2
+                steps, a fault at step 5, resumed: bit for bit the
+                uninterrupted 8-step run (a child process with
+                deterministic algorithms); both step-8 checkpoints
+                restored on the card, leaf for leaf equal
   kernels       one line per the contract below, then the result line
 
 Tolerances: every kernel and its plain version must agree bit for bit in
@@ -250,10 +268,14 @@ NOISY_TOL, |kernel - plain| <= (2K + 8) * 2^-24 * (|x| @ (|w| + sigma *
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -285,7 +307,9 @@ IRDROP = dict(n_layers=2, batch=4, prompt_len=64, gen=4, cim_cores=32768,
               cim_ir_drop=2e-7)
 TRAFFIC = dict(n_layers=4, cim_cores=6144, slots=4, chunk=32, requests=16,
                prompt_len=64, gen=32, rate=50.0)
-TRAFFIC_MERGED = dict(TRAFFIC, cim_cores=3072)
+# 2 of serve-merged's 4 layers: its plain rerun of the stream (the
+# scheduled kernel's plain version) was the script's longest phase
+TRAFFIC_MERGED = dict(TRAFFIC, cim_cores=3072, n_layers=2)
 # deepseek-moe-16b at full width (d 2048, 64 routed experts of width 1408,
 # top-6, 2 shared experts): one chip per layer (attention and shared
 # experts: 1040 tiles) and one per (layer, expert) (280 tiles). 2048 cores
@@ -435,6 +459,18 @@ TRAIN_RESNET20 = dict(hw=32, train=2048, batch=64, steps=20, cal=32,
                       uptos=(1, 9, 10, 22))
 LSTM = dict(train=2048, test=512, batch=64, steps=200, noise=0.15, lr=3e-3,
             cal=16)
+# LM training (`launch/train.py`) at qwen2-72b's full width, 2 of 80 layers
+TRAIN_LM = ["--arch", "qwen2-72b", "--layers", "2", "--steps", "6",
+            "--batch", "8", "--seq", "128", "--ckpt-every", "1000"]
+TRAIN_LM_SPLIT_REPS = 3          # steps timed piece by piece after the run
+TRAIN_PARITY = dict(batch=8, seq=128, lr=3e-4)   # qwen2-72b smoke, float32
+TRAIN_RESUME = dict(batch=4, seq=64, steps=8, ckpt_every=2, fault_at=5)
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 peak (tensor cores)
+# the card's step against the CPU's from one state (f32 sums in another
+# order): loss and gnorm; params where every gradient entry is above 1e-4
+# of the global norm (else Adam's first step is the sign of a rounding)
+TRAIN_RTOL = 1e-5
+TRAIN_PARAM_ATOL = 1e-6
 
 failures = []
 
@@ -444,17 +480,22 @@ def emit(obj):
 
 
 def phase(name):
-    """Run a phase; a failure is printed and recorded, never swallowed."""
+    """Run a phase; a failure is printed and recorded, never swallowed.
+    Each line carries the phase's wall seconds (`phase_s`): the script
+    has a time limit to keep."""
     def wrap(fn):
         def run(*a, **kw):
+            t0 = time.perf_counter()
             try:
                 out = fn(*a, **kw)
-                emit({"phase": name, "ok": True, **(out or {})})
+                emit({"phase": name, "ok": True,
+                      "phase_s": time.perf_counter() - t0, **(out or {})})
                 return out
             except Exception as e:          # reported, and fails the run
                 traceback.print_exc()
                 failures.append(name)
                 emit({"phase": name, "ok": False,
+                      "phase_s": time.perf_counter() - t0,
                       "error": f"{type(e).__name__}: {e}"})
                 return None
         return run
@@ -1382,8 +1423,9 @@ def traffic_times(torch, eng, dev, per_exec):
     """On the idle pool (a step changes nothing there): the decode step
     replayed and run eagerly (CUDA events, median of 20, host included);
     the replays' device time by kernel and busy share (torch.profiler),
-    where each of 10 replays must show `per_exec` term passes and folds
-    of the split route on the device; and prefill chunks of c and c / 2
+    where each of up to 10 replays (at most ~1000 CIM launches in all)
+    must show `per_exec` term passes and folds of the split route on the
+    device; and prefill chunks of c and c / 2
     rows (c the engine's chunk) on slot 0 through the step function
     (median of 5, slot reset before each), the last of each profiled:
     `per_exec` walks above 16 rows, `per_exec` term passes and folds at 16
@@ -1396,7 +1438,9 @@ def traffic_times(torch, eng, dev, per_exec):
     replay_ms = median_ms(torch, replay, 20)
     eager_ms = median_ms(torch, eager, 20)
     torch.cuda.synchronize()
-    reps = 10
+    # at most ~1000 CIM launches in the window: CUPTI dropped 74 of the
+    # MoE step's 3980 term passes over 10 replays of ~4600 kernels each
+    reps = max(1, min(10, 1000 // per_exec))
 
     def replays():
         for _ in range(reps):
@@ -1829,10 +1873,14 @@ def recover_phase(torch, K, dev, stats):
     """Paper-geometry recovery, three ways. Per run: launches counted
     (packed 10 = the v->h half-steps, transposed 10 = h->v), a plain
     rerun from the same generator seeds bitwise equal, the per-cycle L2
-    reduction and the CUDA-event time of one Gibbs run."""
+    reduction and the CUDA-event time of one Gibbs run. Then the entry
+    point itself (digital) with --metrics-out to a temporary file, read
+    back: the fwd and bwd energies positive, finite and equal to the
+    meter of the digital run's chip (`recover.meter_run`), and the
+    printed energy lines."""
     from repro_torch.launch import recover
     from repro_torch.obs.clock import timed_call
-    out = {}
+    out, meter = {}, None
     for mode, flags in (("digital", []), ("stochastic", ["--stochastic"]),
                         ("interleave", ["--interleave"])):
         args = recover.parse_args(RECOVER + flags + ["--device", str(dev)])
@@ -1863,8 +1911,36 @@ def recover_phase(torch, K, dev, stats):
                      "ms_per_gibbs_run": t_run * 1e3,
                      "train_s": setup.train_s, "deploy_s": setup.deploy_s,
                      "tiles": setup.crbm.chip.layers["rbm"].packed.n_tiles}
+        if mode == "digital":
+            meter = recover.meter_run(setup, args)
         del setup, traj, plain
         free(torch)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "recover_metrics.json")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            recover.main(RECOVER + ["--device", str(dev), "--metrics-out",
+                                    path])
+        with open(path) as f:
+            doc = json.load(f)
+    got = {(g["name"], g["labels"]["direction"]): g["value"]
+           for g in doc["gauges"] + doc["counters"]}
+    energy = {}
+    for d in ("fwd", "bwd"):
+        want = meter.energy_pj(direction=d)
+        e = got[("chip_energy_pj", d)]
+        if not (e > 0 and e == want and e < float("inf")):
+            raise AssertionError(f"--metrics-out {d} energy {e} pJ, the "
+                                 f"meter's {want}")
+        energy[d] = {"pj_per_mvm": got[("chip_pj_per_mvm", d)],
+                     "tops_per_w": got[("chip_tops_per_w", d)],
+                     "mvms": got[("chip_mvm_dispatches", d)],
+                     "energy_pj": e}
+    lines = [ln for ln in text.getvalue().splitlines()
+             if ln.startswith("energy/")]
+    if len(lines) != 2:
+        raise AssertionError(f"recover printed {lines}")
+    out["metrics_out"] = {"energy": energy, "lines": lines}
     return out
 
 
@@ -2784,6 +2860,290 @@ def attention_long_phase(torch, dev):
     return out
 
 
+NOISY_SEEDS = {"wq": 1, "wk": 2, "wv": 3, "wo": 4, "w_g": 5, "w_i": 6,
+               "w_o": 7}                 # cim_linear's call-site seeds
+
+
+def lm_matmul_weights(params, cfg):
+    """N_eff: the matmul weights a token meets (each layer's 2-D
+    projections and the unembedding; the embedding is a lookup)."""
+    per_layer = sum(v[0].numel() for v in params["layers"].values()
+                    if v.dim() == 3)
+    unembed = params["embed" if cfg.tie_embeddings else "unembed"].numel()
+    return cfg.n_layers * per_layer + unembed
+
+
+def lm_step_split(torch, cfg, params, opt, batch, lr):
+    """One more train step, timed piece by piece (CUDA events, host
+    included): the forward that builds the loss's graph, the backward
+    (autograd), the optimizer (clip and AdamW in place). Returns ms."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    leaves = tree_leaves(params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    req = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss = T.lm_loss(tree_unflatten(params, req), batch, cfg)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, req, allow_unused=True)
+    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(leaves, grads)])
+    ev[2].record()
+    del req, loss
+    steps.clip_grads_(grads, 1.0)
+    steps.adamw_apply(grads, opt, params, lr)
+    ev[3].record()
+    ev[3].synchronize()
+    return {k: ev[i].elapsed_time(ev[i + 1])
+            for i, k in enumerate(("forward_ms", "backward_ms",
+                                   "optimizer_ms"))}
+
+
+def noise_draw_ms(torch, cfg, params):
+    """CUDA-event ms of the noise draws one noisy forward makes: eps of
+    each layer's seven projections (`transformer.weight_noise`)."""
+    from repro_torch.models import transformer as T
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for li in range(cfg.n_layers):
+        for name, seed in NOISY_SEEDS.items():
+            T.weight_noise(params["layers"][name][li], seed)
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e)
+
+
+@phase("train-lm")
+def train_lm_phase(torch, K, dev, stats):
+    """`launch/train.py` at qwen2-72b's full width, 2 of 80 layers, bf16
+    params and f32 moments, batch 8 x 128 tokens, 6 steps, under --cim
+    off and then noisy (no checkpoint: --ckpt-every past --steps). Every
+    loss finite, the two modes' step-0 losses different, no CIM kernel
+    launched (the reference's training reaches none), every leaf of the
+    state on the card after the last step. Then TRAIN_LM_SPLIT_REPS more
+    steps timed piece by piece (`lm_step_split`) and, under noisy, the
+    forward's noise draws alone."""
+    import math
+    from repro_torch.launch import train
+    from repro_torch.train.optimizer import tree_leaves
+    out, first = {}, {}
+    for mode in ("off", "noisy"):
+        with tempfile.TemporaryDirectory() as ckpt:
+            args = train.parse_args(TRAIN_LM + ["--cim", mode, "--device",
+                                                str(dev), "--ckpt-dir", ckpt])
+            free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(K)            # the path's run starts here
+            res = train.run(args)
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)  # ... and ends here
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        stats["launches"][f"train-lm-{mode}"] = launches
+        if any(launches.values()):
+            raise AssertionError(f"train-lm {mode}: CIM launches {launches}"
+                                 "; the training path has none")
+        if len(res.losses) != args.steps or not all(
+                math.isfinite(x) for x in res.losses):
+            raise AssertionError(f"train-lm {mode}: losses {res.losses}")
+        state = tree_leaves((res.params, res.opt))
+        off = sum(t.device.type != dev.type for t in state)
+        if off:
+            raise AssertionError(f"train-lm {mode}: {off} state leaves "
+                                 "off the card")
+        cfg = train.train_config(args)
+        batch = next(train.data_iter(cfg, args.batch, args.seq, dev))
+        split = [lm_step_split(torch, cfg, res.params, res.opt, batch,
+                               args.lr) for _ in range(TRAIN_LM_SPLIT_REPS)]
+        med = {k: statistics.median(x[k] for x in split) for k in split[0]}
+        if mode == "noisy":
+            med["noise_draw_ms"] = statistics.median(
+                noise_draw_ms(torch, cfg, res.params)
+                for _ in range(TRAIN_LM_SPLIT_REPS))
+        step_ms = statistics.median(res.step_s) * 1e3
+        tokens = args.batch * args.seq
+        n_eff = lm_matmul_weights(res.params, cfg)
+        tflops = 6 * n_eff * tokens / (step_ms / 1e3) / 1e12
+        first[mode] = res.losses[0]
+        out[mode] = {
+            "losses": res.losses, "step_ms": [t * 1e3 for t in res.step_s],
+            "median_step_ms": step_ms, **med,
+            "peak_gb": peak, "tokens_per_s": tokens / (step_ms / 1e3),
+            "params": sum(t.numel() for t in tree_leaves(res.params)),
+            "matmul_weights": n_eff, "model_tflop_per_step":
+                6 * n_eff * tokens / 1e12,
+            "model_tflops": tflops, "bf16_peak_share":
+                tflops * 1e12 / BF16_FLOPS_PER_S, "launches": launches}
+        del res, state, batch, split
+        free(torch)
+    if first["off"] == first["noisy"]:
+        raise AssertionError(f"the step-0 loss is {first['off']} under off "
+                             "and noisy alike: the noise is not on")
+    return out
+
+
+@phase("train-lm-parity")
+def train_lm_parity_phase(torch, dev):
+    """One `make_train_step` on the card against the same step on the CPU,
+    qwen2-72b --smoke in float32 (off and noisy), from the same params
+    (seed 0) and batch 0: loss and gnorm within TRAIN_RTOL, every param
+    within TRAIN_PARAM_ATOL where each gradient entry is above 1e-4 of the
+    global norm or zero (the CPU's gradient), else within 2 lr."""
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    cpu, c = torch.device("cpu"), TRAIN_PARITY
+    out = {}
+    for mode in ("off", "noisy"):
+        cfg = train.train_config(train.parse_args(
+            ["--arch", "qwen2-72b", "--smoke", "--cim", mode]))
+        params = T.init_params(cfg, seed=0, device="cpu")
+        batch = next(train.data_iter(cfg, c["batch"], c["seq"], cpu))
+        _, g = steps.loss_and_grads(params, batch, cfg)
+        gl = tree_leaves(g)
+        gnorm = float(torch.sqrt(sum(torch.sum(x.double() ** 2) for x in gl)))
+        big = [(x.abs() > 1e-4 * gnorm) | (x == 0) for x in gl]
+        card = tree_map(lambda t: t.to(dev, copy=True), params)
+        card_batch = {k: v.to(dev) for k, v in batch.items()}
+        step = steps.make_train_step(cfg, lr=c["lr"])
+        _, _, l_cpu, n_cpu = step(params, steps.adamw_init_f32(params), batch)
+        _, _, l_card, n_card = step(card, steps.adamw_init_f32(card),
+                                    card_batch)
+        for what, a, b in (("loss", l_card, l_cpu), ("gnorm", n_card, n_cpu)):
+            if abs(float(a) - float(b)) > TRAIN_RTOL * abs(float(b)):
+                raise AssertionError(f"{mode} {what}: card {float(a)} vs "
+                                     f"CPU {float(b)}")
+        err, n_cmp, n_all = 0.0, 0, 0
+        for a, b, m in zip(tree_leaves(card), tree_leaves(params), big):
+            d = (a.cpu() - b).abs()
+            if bool((d[~m] > 2 * c["lr"]).any()):
+                raise AssertionError(f"{mode}: a param moved by more than "
+                                     "2 lr off the compared set")
+            if m.any():
+                err = max(err, float(d[m].max()))
+            n_cmp += int(m.sum())
+            n_all += m.numel()
+        if err > TRAIN_PARAM_ATOL:
+            raise AssertionError(f"{mode}: params off by {err} > "
+                                 f"{TRAIN_PARAM_ATOL}")
+        out[mode] = {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
+                     "gnorm_card": float(n_card), "gnorm_cpu": float(n_cpu),
+                     "max_abs_param_err": err,
+                     "share_compared": n_cmp / n_all,
+                     "rtol": TRAIN_RTOL, "param_atol": TRAIN_PARAM_ATOL}
+        del card, card_batch
+    free(torch)
+    return out
+
+
+def resume_child(ckpt_dir: str, device: str = "cuda") -> int:
+    """The train-resume phase's child process (CUBLAS_WORKSPACE_CONFIG set
+    by the parent before CUDA starts): deterministic algorithms on, an
+    uninterrupted TRAIN_RESUME run and one with a fault injected at
+    `fault_at`, resumed from its latest checkpoint (the data stream
+    resumed at that step), both through `FaultTolerantTrainer`; prints a
+    JSON line and exits 0 when the two final states are equal bit for
+    bit."""
+    import warnings
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    from repro_torch.distributed import FaultTolerantTrainer
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import tree_leaves
+    c = TRAIN_RESUME
+    dev = torch.device(device)
+    cfg = train.train_config(train.parse_args(["--arch", "qwen2-72b",
+                                               "--smoke"]))
+    step = steps.make_train_step(cfg, lr=3e-4)
+
+    def step_fn(state, batch):
+        p, o, _, _ = step(state[0], state[1], batch)
+        return (p, o)
+
+    def fresh():
+        p = T.init_params(cfg, seed=0, device=dev)
+        return (p, steps.adamw_init_f32(p))
+
+    data = lambda start=0: train.data_iter(cfg, c["batch"], c["seq"], dev,
+                                           start=start)
+    straight_dir = os.path.join(ckpt_dir, "straight")
+    resumed_dir = os.path.join(ckpt_dir, "resumed")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        straight, _ = FaultTolerantTrainer(
+            step_fn, straight_dir, ckpt_every=c["ckpt_every"]).run(
+            fresh(), data(), c["steps"])
+        tr = FaultTolerantTrainer(step_fn, resumed_dir,
+                                  ckpt_every=c["ckpt_every"],
+                                  fault_injector=lambda s: s == c["fault_at"])
+        try:
+            tr.run(fresh(), data(), c["steps"])
+            raise AssertionError("the injected fault did not fire")
+        except RuntimeError as e:
+            if "injected fault" not in str(e):
+                raise
+        tr2 = FaultTolerantTrainer(step_fn, resumed_dir,
+                                   ckpt_every=c["ckpt_every"])
+        state, start = tr2.resume(fresh())
+        resumed, end = tr2.run(state, data(start), c["steps"],
+                               start_step=start)
+    pairs = list(zip(tree_leaves(straight), tree_leaves(resumed)))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    diff = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    print(json.dumps({"resumed_at": start, "end": end, "bitwise": bitwise,
+                      "max_abs_diff": diff, "leaves": len(pairs),
+                      "events": tr.events + tr2.events,
+                      "nondeterministic": sorted({str(w.message)[:200]
+                                                  for w in caught})}))
+    return 0 if bitwise and end == c["steps"] else 1
+
+
+@phase("train-resume")
+def train_resume_phase(torch, dev):
+    """`FaultTolerantTrainer` on the card at qwen2-72b smoke size
+    (TRAIN_RESUME: checkpoints every 2 steps, a fault injected at step 5,
+    resumed from step 4) equal bit for bit to an uninterrupted 8-step run,
+    in a child process with deterministic algorithms (the embedding's
+    backward accumulates with atomics otherwise); then both step-8
+    checkpoints restored here onto the card, leaf for leaf equal."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import tree_leaves
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import chip_smoke; "
+                f"sys.exit(chip_smoke.resume_child({d!r}, {str(dev)!r}))")
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=600,
+                              cwd=str(ROOT))
+        lines = proc.stdout.strip().splitlines()
+        child = json.loads(lines[-1]) if lines else {}
+        if proc.returncode:
+            raise AssertionError(f"child exited {proc.returncode}: {child} "
+                                 f"{proc.stderr[-1500:]}")
+        cfg = train.train_config(train.parse_args(["--arch", "qwen2-72b",
+                                                   "--smoke"]))
+        p = T.init_params(cfg, seed=1, device=dev)
+        like = (p, steps.adamw_init_f32(p))
+        a, sa = restore_checkpoint(os.path.join(d, "straight"), like)
+        b, sb = restore_checkpoint(os.path.join(d, "resumed"), like)
+    if sa != TRAIN_RESUME["steps"] or sb != sa:
+        raise AssertionError(f"restored steps {sa} and {sb}")
+    la, lb = tree_leaves(a), tree_leaves(b)
+    for x, y, z in zip(la, lb, tree_leaves(like)):
+        if x.device.type != dev.type or x.dtype != z.dtype \
+                or not torch.equal(x, y):
+            raise AssertionError("a restored leaf differs between the "
+                                 "uninterrupted and the resumed run")
+    return {**child, "restored_step": sa, "restored_leaves": len(la)}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -2840,6 +3200,12 @@ def main() -> int:
     batch_invariance_phase(torch, dev)
     arch_phases(torch, K, ops, serve, dev, stats, ARCH_PATHS)
     attention_long_phase(torch, dev)
+    for queue in ("profile", "profile_cnn", "profile_moe", "profile_rec"):
+        stats[queue].clear()
+    free(torch)
+    train_lm_phase(torch, K, dev, stats)
+    train_lm_parity_phase(torch, dev)
+    train_resume_phase(torch, dev)
 
     emit(kernels_line(stats))
     if failures or info is None:

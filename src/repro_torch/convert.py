@@ -8,7 +8,10 @@ transformer's stacked layers with the qwen family's QKV biases `bq` /
 trees — rwkv6's mixes `mu` / `cmu` and bonus `u`, mamba2's `a_log`,
 `dt_bias` and `dd`, zamba2's unstacked `shared_attn` —, the CNNs' conv /
 fc / BN dicts and PACT clip vectors) and returns the port's params in the
-same layout.
+same layout. `opt_state_from_numpy` does the same for the reference's
+AdamW state (`launch/steps.adamw_init_f32` / `adamw_apply`: f32 moments
+"m" and "v" in the params' layout and the int32 step count "t"), so a
+whole reference train state carries across.
 
 `chip_states_from_numpy` takes a dict of the reference's deployed
 `ChipLinear`s (`cnn7.deploy` / `deploy_upto`, `resnet20.deploy`,
@@ -34,6 +37,15 @@ def params_from_numpy(tree):
     if np.issubdtype(a.dtype, np.floating):
         a = a.astype(np.float32)
     return torch.from_numpy(a)
+
+
+def opt_state_from_numpy(state):
+    """The reference's {"m", "v", "t"} AdamW state (numpy arrays) -> the
+    port's: f32 moment trees and a 0-d int32 t, CPU tensors."""
+    return {"m": params_from_numpy(state["m"]),
+            "v": params_from_numpy(state["v"]),
+            "t": torch.tensor(int(np.asarray(state["t"])),
+                              dtype=torch.int32)}
 
 
 def layer_from_numpy(layer):

@@ -1,1 +1,1 @@
-"""Serving drivers of the port."""
+"""Serving, recovery and LM training drivers of the port."""

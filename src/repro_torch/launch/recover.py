@@ -16,18 +16,21 @@ between cycles.
 
 Reports the per-cycle L2 reconstruction-error reduction against the
 corrupted input (the paper's Fig. 4g metric; it reports about 70% at full
-MNIST geometry) and the time of one Gibbs run (CUDA events on the card).
+MNIST geometry), the time of one Gibbs run (CUDA events on the card) and
+the analytical per-direction MVM energy: a `ChipMeter` over the chip
+counts the one timed run's rows per direction (batch x cycles each way),
+priced through `core/energy.mvm_cost` (pJ per MVM and TOPS/W for the
+v->h and h->v launches, energy per request and per batch). --metrics-out
+writes the meters and the run's latency histogram as JSON.
 --smoke runs a CI-sized task and FAILS (exit 1) if the final clamped
 reconstruction does not reduce the L2 error by at least 50%.
 --interleave turns on the pixel-interleaved multi-core mapping (Fig. 4f);
 --stochastic samples the h->v half-step with the chip's stochastic
 neurons instead of a digital Bernoulli draw.
 
-Deviations from the reference: the per-direction energy lines and chip
-meters wait for `core/energy.py` and the observability port (ROADMAP
-A11, A12). Runs on the card unless `--device cpu` is given; without CUDA it
-raises. Draws come from torch.Generators seeded 0 (training data and
-training), 3 (deploy), 7 (test patterns), 8 (corruption) and 9 (Gibbs).
+Runs on the card unless `--device cpu` is given; without CUDA it raises.
+Draws come from torch.Generators seeded 0 (training data and training),
+3 (deploy), 7 (test patterns), 8 (corruption) and 9 (Gibbs).
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ from ..data import binary_patterns, corrupt_flip, corrupt_occlude
 from ..device import resolve_device
 from ..kernels.cim_mvm import kernel as cim_kernel
 from ..models import nn, rbm
+from ..obs import MetricsRegistry
+from ..obs.chipmeter import ChipMeter
 from ..obs.clock import stopwatch, timed_call
 
 
@@ -77,6 +82,9 @@ def parse_args(argv=None):
                     help="pixel-interleaved multi-core mapping (Fig. 4f)")
     ap.add_argument("--stochastic", action="store_true",
                     help="sample h->v with the chip's stochastic neurons")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the per-direction chip meters (and run "
+                         "latency histograms) as JSON")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
@@ -136,6 +144,17 @@ def reductions(setup: Setup, traj, pixels: int) -> List[float]:
             for t in traj]
 
 
+def meter_run(setup: Setup, args) -> ChipMeter:
+    """The chip's per-direction meters over one Gibbs run: each cycle
+    pushes the whole batch through the fwd (v->h, SL->BL) direction and
+    back through the bwd (h->v, BL->SL) direction of the same programmed
+    array."""
+    meter = ChipMeter.from_chip(setup.crbm.chip, name="rbm")
+    meter.count_rows(args.batch * args.cycles, direction="fwd")
+    meter.count_rows(args.batch * args.cycles, direction="bwd")
+    return meter
+
+
 def main(argv=None):
     args = parse_args(argv)
     dev = resolve_device(args.device)
@@ -150,10 +169,32 @@ def main(argv=None):
           f"(train {setup.train_s:.1f}s)")
     recover(setup, args)                  # warm-up
     traj, t_run = timed_call(recover, setup, args, device=dev)
+    meter = meter_run(setup, args)
     red = reductions(setup, traj, args.pixels)
     print("cycle  reduction")
     for c, r in enumerate(red):
         print(f"{c + 1:5d}  {100.0 * r:8.0f}%")
+    # per-direction energy (analytical model, Ext. Data Fig. 10), read off
+    # the meters, which price each direction's packed plan geometry
+    fwd_cost = meter.entries[("rbm/rbm", "fwd")].cost
+    bwd_cost = meter.entries[("rbm/rbm", "bwd")].cost
+    e_cycle = fwd_cost.energy_pj + bwd_cost.energy_pj
+    print(f"energy/MVM: fwd (v->h, SL->BL) {fwd_cost.energy_pj:.0f} pJ "
+          f"@ {fwd_cost.tops_per_w:.1f} TOPS/W | "
+          f"bwd (h->v, BL->SL) {bwd_cost.energy_pj:.0f} pJ "
+          f"@ {bwd_cost.tops_per_w:.1f} TOPS/W")
+    print(f"energy/request: {args.cycles * e_cycle / 1e3:.2f} nJ "
+          f"({args.cycles} cycles); batch of {args.batch}: "
+          f"{meter.energy_pj() / 1e6:.3f} uJ modeled, "
+          f"{t_run * 1e3:.1f} ms per Gibbs run")
+    if args.metrics_out:
+        metrics = MetricsRegistry()
+        meter.export(metrics)
+        metrics.histogram("recover_gibbs_run_s",
+                          "steady-state Gibbs recovery run seconds"
+                          ).observe(t_run)
+        metrics.write_json(args.metrics_out)
+        print(f"metrics: wrote {args.metrics_out}")
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"recover: device={where} batch={args.batch} cycles={args.cycles} "
           f"corrupt={args.corrupt}({args.frac}) "

@@ -1,8 +1,18 @@
-"""Prefill / decode step functions, the slot pool's steps and the
-arch-dispatch table the serving driver runs through (PyTorch port of the
-serving half of `repro/launch/steps.py`: every family, the encoder-
-decoder's memory and the VLM's vision prefix included; the model's family
-dispatch is `models/transformer`'s)."""
+"""Train / prefill / decode step functions, the slot pool's steps and the
+arch-dispatch table the serving driver runs through (PyTorch port of
+`repro/launch/steps.py`: every family, the encoder-decoder's memory and
+the VLM's vision prefix included; the model's family dispatch is
+`models/transformer`'s).
+
+The train step is the reference's: gradients of `transformer.lm_loss` on
+every leaf of the stacked (L, ...) params by autograd, summed in f32 over
+`accum` microbatches, the global norm clipped to 1, then AdamW with f32
+moments. It updates params and optimizer state IN PLACE, leaf by leaf and
+in chunks of ADAMW_CHUNK elements (the reference donates both buffers):
+a tree-at-once update would hold the old and the new f32 moments together,
+34 GB more at qwen2-72b's full width, two layers deep. The sharded
+gradients of the reference's step (grad_spec, data_axes, mesh) wait for
+the multi-device port (ROADMAP A13)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple
@@ -12,6 +22,8 @@ import torch
 from ..device import resolve_device
 from ..models import transformer as T
 from ..obs.capturewatch import signature, tensors
+from ..train.noisy import value_and_grad
+from ..train.optimizer import tree_leaves, tree_map
 
 
 class ArchServing(NamedTuple):
@@ -47,6 +59,120 @@ def arch_serving(cfg: T.ArchConfig, device=None) -> ArchServing:
         decode_step=lambda params, state, tokens, memory=None:
             T.decode_step(params, state, tokens, cfg, memory=memory),
         deploy_cim=lambda params, **kw: nn.deploy_cim(params, cfg, **kw))
+
+
+# ----------------------------------------------------------------- training
+
+# elements of one leaf that AdamW and the gradient norm take at once: the
+# f32 temporaries of qwen2-72b's 1.25 G-element embedding stay at 1 GB each
+ADAMW_CHUNK = 1 << 28
+
+
+def _chunks(*ts):
+    """Matching flat chunks of ADAMW_CHUNK elements of same-shape tensors
+    (views of contiguous ones, so an in-place op writes through)."""
+    flat = [t.view(-1) for t in ts]
+    for i in range(0, flat[0].numel(), ADAMW_CHUNK):
+        yield [f[i:i + ADAMW_CHUNK] for f in flat]
+
+
+def adamw_init_f32(params):
+    """Optimizer state in f32 regardless of the params' (bf16) dtype: zero
+    moments on each leaf's device, and the step count t (int32)."""
+    z = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    dev = tree_leaves(params)[0].device
+    return {"m": tree_map(z, params), "v": tree_map(z, params),
+            "t": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def adamw_apply(grads, state, params, lr, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-8, weight_decay: float = 0.01):
+    """One AdamW step in the reference's arithmetic: the moments in f32
+    from the f32 gradient, each param updated in f32 and cast back to its
+    dtype. Params and moments are updated in place (module docstring);
+    returns (params, {"m", "v", "t"})."""
+    t = state["t"] + 1
+    tf = t.to(torch.float32)
+    c1, c2 = (1 - torch.pow(torch.full((), b, dtype=torch.float32,
+                                       device=t.device), tf)
+              for b in (b1, b2))
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["m"]), tree_leaves(state["v"])):
+        for pc, gc, mc, vc in _chunks(p, g.contiguous(), m, v):
+            g32 = gc.to(torch.float32)
+            mc.mul_(b1).add_((1 - b1) * g32)
+            vc.mul_(b2).add_((1 - b2) * torch.square(g32))
+            upd = mc / c1
+            upd.div_(torch.sqrt(vc / c2).add_(eps))
+            p32 = pc.to(torch.float32)
+            upd.add_(weight_decay * p32)
+            pc.copy_(p32 - upd.mul_(lr))
+    return params, {"m": state["m"], "v": state["v"], "t": t}
+
+
+def clip_grads_(grads, max_norm: float):
+    """`train/optimizer.clip_grads` in place: every gradient scaled by
+    min(1, max_norm / (global norm + 1e-9)). Each leaf's sum of squares is
+    accumulated in f32 and rounded once to its dtype, as the reference's
+    jnp.sum does. Returns the global norm."""
+    sums = []
+    for g in tree_leaves(grads):
+        acc = torch.zeros((), dtype=torch.float32, device=g.device)
+        for (c,) in _chunks(g.contiguous()):
+            acc += torch.sum(torch.square(c), dtype=torch.float32)
+        sums.append(acc.to(g.dtype))
+    gnorm = torch.sqrt(sum(sums))
+    scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+    for g in tree_leaves(grads):
+        g.mul_(scale)
+    return gnorm
+
+
+def loss_and_grads(params, batch, cfg: T.ArchConfig):
+    """(loss, grads) of `transformer.lm_loss` by autograd on every leaf of
+    `params` (zeros for a leaf the loss does not reach)."""
+    loss, _, grads = value_and_grad(
+        lambda p: (T.lm_loss(p, batch, cfg), None), params)
+    return loss, grads
+
+
+def make_train_step(cfg: T.ArchConfig, lr: float = 1e-4, accum: int = 1,
+                    grad_spec=None, data_axes=None, mesh=None,
+                    grad_sync: str = "micro"):
+    """train_step(params, opt_state, batch) -> (params, opt_state, loss,
+    gnorm), params and state updated in place. accum > 1 splits the batch
+    into `accum` microbatches (rows in order) run one after another, their
+    gradients summed in f32 and divided by accum, as the loss."""
+    if grad_spec is not None or data_axes or mesh is not None \
+            or grad_sync != "micro":
+        raise NotImplementedError(
+            "sharded gradients (grad_spec, data_axes, mesh, grad_sync) "
+            "wait for the multi-device port, ROADMAP A13")
+
+    def train_step(params, opt_state, batch):
+        if accum == 1:
+            loss, grads = loss_and_grads(params, batch, cfg)
+        else:
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            for i in range(accum):
+                mb = {k: x.reshape((accum, x.shape[0] // accum)
+                                   + x.shape[1:])[i]
+                      for k, x in batch.items()}
+                l, g = loss_and_grads(params, mb, cfg)
+                for a, b in zip(tree_leaves(grads), tree_leaves(g)):
+                    a.add_(b.to(torch.float32))
+                loss = loss + l
+                del g
+            loss = loss / accum
+            for a in tree_leaves(grads):
+                a.div_(accum)
+        gnorm = clip_grads_(grads, 1.0)
+        params, opt_state = adamw_apply(grads, opt_state, params, lr)
+        return params, opt_state, loss, gnorm
+    return train_step
 
 
 def make_prefill_step(cfg: T.ArchConfig):

@@ -16,7 +16,9 @@ and `_expert_matmul` runs expert e's whole (cap, d) group through its
 chip as one kernel launch, seed base + e. EVERY expert launches on every
 call, its group zero-padded to cap rows as in the reference: the shapes
 stay static, so the slot pool's decode step is one CUDA graph. Shared
-experts ride `cim_linear` like the dense projections (seeds 611-613).
+experts ride `cim_linear` like the dense projections (seeds 611-613)
+when packed. Under the noisy and chipsim training modes the routed and
+the shared experts both stay float, as in the reference.
 
 Two orders are fixed so that runs are bit-reproducible on the card:
   * routing: `torch.topk` over f32 router logits, sorted descending (the
@@ -127,8 +129,13 @@ def moe_ffn(p: Dict, x, cfg, capacity_factor: float = 1.25):
     for r in range(k):
         y2 = y2 + parts[:, r]
 
-    if cfg.n_shared_experts > 0:
+    if cfg.n_shared_experts > 0 and cfg.cim_mode == "packed":
         hs = F.silu(routed_linear(x2, p, "sw_g", cfg, seed=611)) \
             * routed_linear(x2, p, "sw_i", cfg, seed=612)
         y2 = y2 + routed_linear(hs, p, "sw_o", cfg, seed=613)
+    elif cfg.n_shared_experts > 0:
+        # the noisy / chipsim training modes keep the shared experts' float
+        # matmuls, as the reference does
+        hs = F.silu(x2 @ p["sw_g"]) * (x2 @ p["sw_i"])
+        y2 = y2 + hs @ p["sw_o"]
     return y2.reshape(b, s, d)

@@ -33,7 +33,11 @@ Every projection can route through the NeuRRAM CIM path (`cim_linear`):
 with cim_mode="packed" and a deployed '<name>_cim' entry
 (models/nn.deploy_transformer_cim), the projection runs on its compiled
 chip through the packed or scheduled kernel, and each routed expert on
-its own chip.
+its own chip. The training modes "noisy" (weight noise) and "chipsim"
+(the chip's datapath as one quantized matmul) are plain torch, as in
+the reference; `lm_loss` is the teacher-forced loss they train on, and
+every family's `lm_forward` is differentiable (the recurrent families'
+in-place state writes sit in their prefill / decode paths only).
 """
 from __future__ import annotations
 
@@ -89,11 +93,14 @@ class ArchConfig:
     dtype: Any = torch.bfloat16
     tie_embeddings: bool = False
     rope_theta: float = 1e6
-    # NeuRRAM CIM technique: off | packed (serve the dense-block
-    # projections through their compiled chips, one kernel launch each)
+    # NeuRRAM CIM technique: off | noisy (training-time weight noise) |
+    # chipsim (quantized input, noisy weight, quantized output) | packed
+    # (serve the dense-block projections through their compiled chips,
+    # one kernel launch each)
     cim_mode: str = "off"
     cim_in_bits: int = 4
     cim_out_bits: int = 8
+    cim_noise: float = 0.1       # noisy / chipsim: sigma, a fraction of max|w|
     # IR-drop alpha (1/uS) of the chip: > 0 makes the chip compiler split
     # wide matrices vertically (mapping.ir_drop_max_cols)
     cim_ir_drop: float = 0.0
@@ -111,15 +118,65 @@ class ArchConfig:
 
 # --------------------------------------------------------------- CIM linear
 
+# rows of a weight whose noise is drawn at once: the hash runs in int64,
+# so a full-width w_g (242 M weights) drawn whole would need ~2 GB per
+# temporary
+NOISE_BLOCK_ELEMS = 1 << 24
+
+
+def weight_noise(w, seed: int):
+    """The reference's eps of `cim_linear` for a 2-D weight (in, out):
+    hash_normal over the weight's global (row, column) coordinates with
+    salts (seed, out), in w's dtype. It depends on the call site's seed
+    and the weight's shape only, so every layer, and every step, draws the
+    same pattern (the reference's). Drawn in row blocks of
+    NOISE_BLOCK_ELEMS elements; the bits are those of one draw."""
+    from ..kernels.prng import hash_normal_at
+    rows, cols = w.shape
+    eps = torch.empty((rows, cols), dtype=w.dtype, device=w.device)
+    step = max(1, NOISE_BLOCK_ELEMS // cols)
+    col = torch.arange(cols, device=w.device)[None, :]
+    for r0 in range(0, rows, step):
+        r = torch.arange(r0, min(r0 + step, rows), device=w.device)[:, None]
+        eps[r0:r0 + step] = hash_normal_at(r, col, seed, cols)
+    return eps
+
+
+def noisy_weight(w, cfg: ArchConfig, seed: int):
+    """w + cim_noise * max|w| * eps (`weight_noise`), in w's dtype and in
+    the reference's order of operations; differentiable in w (max|w|
+    included)."""
+    wmax = torch.amax(torch.abs(w))
+    with torch.no_grad():
+        eps = weight_noise(w, seed)
+    return w + cfg.cim_noise * wmax * eps
+
+
+def _quantize_sym(x, bits: int):
+    """The reference's symmetric grid at `bits` over max|x| (at least
+    1e-6): round(clip(x / xmax, -1, 1) * n) * (xmax / n), n = 2^(bits-1)
+    - 1 levels (1 for binary). torch.round, like jnp.round, rounds half
+    to even."""
+    xmax = torch.clamp_min(torch.amax(torch.abs(x)), 1e-6)
+    n = max((1 << (bits - 1)) - 1, 1)
+    return torch.round(torch.clamp(x / xmax, -1, 1) * n) * (xmax / n)
+
+
 def cim_linear(x, w, cfg: ArchConfig, *, seed: int = 0, packed=None):
     """Route a matmul through the paper's technique, selected by cim_mode.
 
-    off:    plain x @ w.
-    packed: the programmed chip datapath — `packed` is this projection's
-            PackedCIMLayer; the whole tile plan is one kernel launch
-            (seed: the stochastic neuron's salt, the reference's per
-            call site). Without a deployed plan, packed mode keeps the
-            float path.
+    off:     plain x @ w.
+    noisy:   noise-resilient training forward: x @ `noisy_weight(w)`
+             (the reference draws eps in plain jnp, at the weight's global
+             coordinates, not through its noisy-matmul kernel).
+    chipsim: the chip's datapath as one f32 matmul: the input on the
+             cim_in_bits grid, the noisy weight, the output on the
+             cim_out_bits grid.
+    packed:  the programmed chip datapath — `packed` is this projection's
+             PackedCIMLayer; the whole tile plan is one kernel launch
+             (seed: the stochastic neuron's salt, the reference's per
+             call site). Without a deployed plan, packed mode keeps the
+             float path.
     """
     if cfg.cim_mode == "packed" and packed is not None:
         from . import nn as nn_mod
@@ -130,9 +187,14 @@ def cim_linear(x, w, cfg: ArchConfig, *, seed: int = 0, packed=None):
         return y.reshape(*shape[:-1], y.shape[-1]).to(x.dtype)
     if cfg.cim_mode in ("off", "packed"):
         return x @ w
-    raise NotImplementedError(
-        f"cim_mode={cfg.cim_mode!r} is not ported yet (noisy and chipsim "
-        "come with the training slice, ROADMAP A11)")
+    if cfg.cim_mode == "noisy":
+        return x @ noisy_weight(w, cfg, seed)
+    if cfg.cim_mode == "chipsim":
+        xq = _quantize_sym(x, cfg.cim_in_bits)
+        y = xq.to(torch.float32) @ noisy_weight(w, cfg, seed).to(
+            torch.float32)
+        return _quantize_sym(y, cfg.cim_out_bits).to(x.dtype)
+    raise ValueError(f"unknown cim_mode {cfg.cim_mode!r}")
 
 
 def routed_linear(x, p, name: str, cfg: ArchConfig, *, seed: int = 0):
@@ -570,6 +632,20 @@ def lm_forward(params, tokens, cfg: ArchConfig, *, vis_embeds=None,
     if vis_embeds is not None:
         logits = logits[:, vis_embeds.shape[1]:]
     return logits
+
+
+# ------------------------------------------------------------------- loss
+
+def lm_loss(params, batch, cfg: ArchConfig):
+    """Mean next-token NLL of the f32 log-softmax. batch: "tokens" (B,
+    S + 1), and "vis_embeds" / "src_embeds" as `lm_forward` takes them."""
+    tokens = batch["tokens"]
+    logits = lm_forward(params, tokens[:, :-1], cfg,
+                        vis_embeds=batch.get("vis_embeds"),
+                        src_embeds=batch.get("src_embeds"))
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+    return torch.mean(nll)
 
 
 # ------------------------------------------------------------- serve path

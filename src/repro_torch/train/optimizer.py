@@ -5,7 +5,7 @@ functions over nested dicts of tensors.
 `torch.optim` is not used: these follow the reference's update order
 operation for operation, so one step of the port equals one of the
 reference to float32 rounding. Leaves are visited in sorted key order, as
-`jax.tree_util` flattens a dict.
+`jax.tree_util` flattens a dict (tuples and lists in order).
 """
 from __future__ import annotations
 
@@ -15,31 +15,42 @@ import torch
 
 
 def tree_leaves(tree):
-    """The tensors of a nested dict, in sorted key order."""
+    """The leaves of nested dicts, tuples and lists: dicts in sorted key
+    order, sequences in order (`jax.tree_util`'s order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
 
 
 def tree_map(fn, tree, *rest):
     """fn over the leaves of `tree` and the matching leaves of `rest`
-    (dicts of the same keys), as a new nested dict."""
+    (trees of the same structure), as a new tree."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_unflatten(tree, leaves):
     """The structure of `tree` holding `leaves` (in `tree_leaves`
     order)."""
-    it = iter(leaves)
+    return _fill(tree, iter(leaves))
 
-    def fill(t):
-        if isinstance(t, dict):
-            return {k: fill(t[k]) for k in sorted(t)}
-        return next(it)
-    return fill(tree)
+
+def _fill(t, it):
+    # a module-level function: a recursive closure would form a reference
+    # cycle holding the iterator, and with it `leaves` (a step's gradients,
+    # 8.5 GB at qwen2-72b's full width), until the cyclic collector ran
+    if isinstance(t, dict):
+        return {k: _fill(t[k], it) for k in sorted(t)}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_fill(x, it) for x in t)
+    return next(it)
 
 
 def clip_grads(grads, max_norm: float):

@@ -14,6 +14,7 @@ except where q plus the noise sits within rounding of 0; both sets are
 computed from the inputs.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -209,3 +210,61 @@ def test_software_gibbs_recover_shapes():
     v = torch.bernoulli(torch.full((3, 20), 0.5), generator=gen)
     pv = trbm.gibbs_recover(gen, params, v, v > 0, n_cycles=2)
     assert pv.shape == (3, 20) and bool(((pv >= 0) & (pv <= 1)).all())
+
+
+def test_recover_meter_matches_reference(deployed):
+    """The recover entry point's per-direction meters (`meter_run`: batch
+    x cycles rows each way) against the reference's ChipMeter on the
+    reference's chip compiled from the same params: the same entries, the
+    same pJ per MVM, TOPS/W and dispatches, the same export."""
+    from repro.obs import MetricsRegistry as JRegistry
+    from repro.obs.chipmeter import ChipMeter as JChipMeter
+    from repro_torch.obs import MetricsRegistry
+    args = trecover.parse_args(["--smoke", "--device", "cpu", "--batch",
+                                str(B), "--cycles", "10"])
+    got = trecover.meter_run(trecover.Setup(deployed["t"], None, None, None,
+                                            0.0, 0.0), args)
+    want = JChipMeter.from_chip(deployed["j"].chip, name="rbm")
+    for d in ("fwd", "bwd"):
+        want.count_rows(B * 10, direction=d)
+    assert sorted(got.entries) == sorted(want.entries) == [
+        ("rbm/rbm", "bwd"), ("rbm/rbm", "fwd")]
+    for key in want.entries:
+        cg, cw = got.entries[key].cost, want.entries[key].cost
+        assert (cg.macs, cg.energy_pj, cg.latency_ns) == (
+            cw.macs, cw.energy_pj, cw.latency_ns), key
+        assert got.mvm_dispatches(*key) == want.mvm_dispatches(*key) \
+            == B * 10
+    assert got.energy_pj() == want.energy_pj() > 0
+    rt, rj = MetricsRegistry(), JRegistry()
+    got.export(rt)
+    want.export(rj)
+    assert json.loads(rt.to_json()) == json.loads(rj.to_json())
+
+
+def test_recover_energy_lines_and_metrics_out(tmp_path, capsys):
+    """recover prints the per-direction energy lines and writes
+    --metrics-out: per direction pJ / MVM x dispatches = energy (positive,
+    finite, batch x cycles dispatches) equal to the printed lines, and
+    the Gibbs run's latency histogram."""
+    path = tmp_path / "m.json"
+    trecover.main(["--smoke", "--device", "cpu", "--train-steps", "50",
+                   "--cycles", "3", "--batch", "8", "--metrics-out",
+                   str(path)])
+    out = capsys.readouterr().out
+    doc = json.loads(path.read_text())
+    vals = {(g["name"], g["labels"]["direction"]): g["value"]
+            for g in doc["gauges"] + doc["counters"]}
+    printed = out.split("energy/MVM: ")[1].splitlines()[0]
+    for d, tag in (("fwd", "fwd (v->h, SL->BL)"),
+                   ("bwd", "bwd (h->v, BL->SL)")):
+        pj = vals[("chip_pj_per_mvm", d)]
+        assert vals[("chip_mvm_dispatches", d)] == 8 * 3
+        assert np.isfinite(pj) and pj > 0
+        assert vals[("chip_energy_pj", d)] == pj * 24
+        assert f"{tag} {pj:.0f} pJ @ " \
+            f"{vals[('chip_tops_per_w', d)]:.1f} TOPS/W" in printed
+    total = vals[("chip_energy_pj", "fwd")] + vals[("chip_energy_pj", "bwd")]
+    assert f"batch of 8: {total / 1e6:.3f} uJ modeled" in out
+    hist = [h for h in doc["histograms"] if h["name"] == "recover_gibbs_run_s"]
+    assert len(hist) == 1 and hist[0]["count"] == 1
