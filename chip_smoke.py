@@ -52,14 +52,14 @@ the final result line:
                 the scheduled kernel; launches counted exactly; plain rerun
   serve-irdrop  2 layers on a 32768-core IR-drop chip (alpha 2e-7, 47-column
                 tiles), 4 tokens: every projection scheduled; plain rerun
-  serve-traffic continuous batching (launch/scheduler) of the serve model:
-                slots 4, chunk 32, 16 requests from `traffic_requests`
-                seeded 1 (prompts 32-64 in pages of 32, 16-32 tokens, 50
-                req/s, realtime); one decode capture; packed launches
-                exactly 28 per chunk and decode step call, and on the
-                device (profiler) 28 term passes and folds per replay, 28
-                walks in a 32-row chunk, 28 term passes and folds in a
-                16-row one; a second engine on the same chip (prompts of
+  serve-traffic continuous batching (launch/scheduler) of the serve
+                model's width, 2 layers: slots 4, chunk 32, 16 requests
+                from `traffic_requests` seeded 1 (prompts 32-64 in pages
+                of 32, 16-32 tokens, 50 req/s, realtime); one decode
+                capture; packed launches exactly 14 per chunk and decode
+                step call, and on the device (profiler) 14 term passes
+                and folds per replay, 14 walks in a 32-row chunk, 14 term
+                passes and folds in a 16-row one; a second engine on the same chip (prompts of
                 32, 48 and 64 tokens: a 16-row chunk at offset 32) where
                 one replayed step equals the step run eagerly on a clone
                 of the pool (every slot live, then one frozen), bit for
@@ -73,7 +73,8 @@ the final result line:
                 rows; the static baseline (`scheduler.serve_static`) on
                 the same requests
   serve-traffic-merged  the same on the 3072-core chip (the scheduled
-                kernel through the pool), 2 layers
+                kernel through the pool), 2 layers, 8 requests (the same
+                generator and seed)
   recover       Bayesian image recovery at paper geometry (784 pixels + 10
                 labels, 120 hidden units), batch 64, 10 Gibbs cycles:
                 digital, stochastic and pixel-interleaved runs, launches
@@ -119,7 +120,7 @@ the final result line:
                 rerun
   lstm          the 4-cell LSTM at paper geometry (hidden 112, 50 steps of
                 40 MFCC features, 12 classes; 2048 / 512 keyword series),
-                200 steps of 64 at lr 3e-3, noise 0.15 after a clean half;
+                100 steps of 64 at lr 3e-3, noise 0.15 after a clean half;
                 a relaxed deploy on 16 series; chip inference on the test
                 set: 404 launches, equal to the plain rerun; top-1 of both,
                 ms per step and per chip inference (its device ms in the
@@ -166,7 +167,7 @@ the final result line:
                 passes (scheduled kernel), ew_o single-pass (packed); 4
                 tokens; the same checks
   serve-traffic-moe  the serve-moe chips behind the engine (slots 4, chunk
-                32, the 16 requests of serve-traffic): dropless dispatch
+                32, 8 requests drawn as serve-traffic's): dropless dispatch
                 forced by the engine, one capture, a replay equal to the
                 eager step, every request equal to it served alone (no
                 plain rerun of the stream and no static baseline: the
@@ -248,6 +249,42 @@ the final result line:
                 uninterrupted 8-step run (a child process with
                 deterministic algorithms); both step-8 checkpoints
                 restored on the card, leaf for leaf equal
+  serve-tp      tensor-parallel serving: full-width gemma2-9b (2 of 42
+                layers) deployed at 'model' width 8 on a mesh that repeats
+                cuda:0 (`launch/mesh.Mesh`): eight 768-core shard chips
+                per layer, each projection split col / row with 756 tiles
+                a shard (wq 56, wk 28, wv 28, wo 56, w_g w_i w_o 196, all
+                single-pass), batch 4, prompt 64, 8 tokens; partitions and
+                tiles checked, launches exactly 56 a layer and token;
+                prefill and two decode steps rerun through the plain
+                versions; the executor equal to its shards' launches
+                combined in shard order, bit for bit; one layer's 56
+                launches timed at M = 4 and 256 (each of the 56 alone,
+                summed, and all in one window) beside the bound and the
+                unsharded layer's times from the kernel phase; a profiled
+                decode
+  serve-tp-merged  1 layer on 384-core shard chips, 4 tokens: a shard's
+                w_g, w_i and w_o merge into 4 passes each (the scheduled
+                kernel), the other four stay single-pass; launches
+                counted, plain rerun
+  serve-tp-moe  full-width deepseek-moe-16b, 1 layer, width 8, 4 tokens:
+                the layer chip in 8 shards and the 64 expert chips placed
+                expert-parallel (8 a shard, each expert's chip on its
+                shard's device); launches counted, plain rerun
+  pool-tp       the engine over serve-tp's chips: one decode capture
+                (56 launches a layer per replay), a replay equal to the
+                eager step bit for bit, 4 requests each equal to it alone
+                (tokens; logits within TRAFFIC_ATOL)
+  replicas      `launch/env.launch` runs 2 ranks of the serve CLI
+                (gemma2-9b, 1 layer, 6144 cores, --traffic, 8 requests of
+                up to 8 tokens) as a gloo group on the one card, beside a
+                solo run of the same command: the ranks' request ids
+                partition the stream as `route_requests` says, each
+                request's tokens and logits equal the solo run's bit for
+                bit (no row's arithmetic depends on its neighbours: the
+                pool's step always runs every slot, a prompt prefills
+                alone in its slot), rank 0's merged summary counts 8
+                requests
   kernels       one line per the contract below, then the result line
 
 Tolerances: every kernel and its plain version must agree bit for bit in
@@ -305,11 +342,12 @@ SERVE = dict(n_layers=4, batch=4, prompt_len=64, gen=32, cim_cores=6144)
 MERGED = dict(n_layers=4, batch=4, prompt_len=64, gen=8, cim_cores=3072)
 IRDROP = dict(n_layers=2, batch=4, prompt_len=64, gen=4, cim_cores=32768,
               cim_ir_drop=2e-7)
-TRAFFIC = dict(n_layers=4, cim_cores=6144, slots=4, chunk=32, requests=16,
+# 2 of serve's 4 layers, and serve-merged's with 8 requests: their plain
+# reruns of the stream were the script's longest phases (PERF.md section 4
+# names every cut)
+TRAFFIC = dict(n_layers=2, cim_cores=6144, slots=4, chunk=32, requests=16,
                prompt_len=64, gen=32, rate=50.0)
-# 2 of serve-merged's 4 layers: its plain rerun of the stream (the
-# scheduled kernel's plain version) was the script's longest phase
-TRAFFIC_MERGED = dict(TRAFFIC, cim_cores=3072, n_layers=2)
+TRAFFIC_MERGED = dict(TRAFFIC, cim_cores=3072, requests=8)
 # deepseek-moe-16b at full width (d 2048, 64 routed experts of width 1408,
 # top-6, 2 shared experts): one chip per layer (attention and shared
 # experts: 1040 tiles) and one per (layer, expert) (280 tiles). 2048 cores
@@ -320,7 +358,7 @@ MOE = "deepseek-moe-16b"
 MOE_EXPERTS = 64
 SERVE_MOE = dict(n_layers=2, batch=4, prompt_len=64, gen=8, cim_cores=2048)
 MERGED_MOE = dict(n_layers=1, batch=4, prompt_len=64, gen=4, cim_cores=260)
-TRAFFIC_MOE = dict(TRAFFIC, n_layers=2, cim_cores=2048)
+TRAFFIC_MOE = dict(TRAFFIC, n_layers=2, cim_cores=2048, requests=8)
 # the CIMEngine phase: two full-width gemma2-9b matrices, both directions,
 # a clip of their own per matrix and direction
 ENGINE = dict(cores=4096, fwd_rows=(4, 64), bwd_rows=(4, 64),
@@ -457,7 +495,7 @@ TRAIN_CNN7 = dict(hw=28, train=2048, test=512, batch=64, steps=240,
 CHIP_IN_LOOP = dict(train=192, cal=24, ft_steps=25, lr=5e-4, noise=0.1)
 TRAIN_RESNET20 = dict(hw=32, train=2048, batch=64, steps=20, cal=32,
                       uptos=(1, 9, 10, 22))
-LSTM = dict(train=2048, test=512, batch=64, steps=200, noise=0.15, lr=3e-3,
+LSTM = dict(train=2048, test=512, batch=64, steps=100, noise=0.15, lr=3e-3,
             cal=16)
 # LM training (`launch/train.py`) at qwen2-72b's full width, 2 of 80 layers
 TRAIN_LM = ["--arch", "qwen2-72b", "--layers", "2", "--steps", "6",
@@ -465,6 +503,28 @@ TRAIN_LM = ["--arch", "qwen2-72b", "--layers", "2", "--steps", "6",
 TRAIN_LM_SPLIT_REPS = 3          # steps timed piece by piece after the run
 TRAIN_PARITY = dict(batch=8, seq=128, lr=3e-4)   # qwen2-72b smoke, float32
 TRAIN_RESUME = dict(batch=4, seq=64, steps=8, ckpt_every=2, fault_at=5)
+# tensor-parallel serving: gemma2-9b at full width, 'model' width 8 on a mesh
+# that repeats cuda:0. A shard chip holds 756 tiles (wq 56, wk 28, wv 28, wo
+# 56, w_g w_i w_o 196): 768 cores keep it single-pass; on 384 its w_g, w_i
+# and w_o merge into 4 passes each (the scheduled kernel), as on the
+# unsharded 3072-core chip. deepseek-moe-16b's shard chip holds 152 tiles,
+# each expert chip 280
+TP = 8
+SERVE_TP = dict(n_layers=2, batch=4, prompt_len=64, gen=8, cim_cores=768)
+MERGED_TP = dict(n_layers=1, batch=4, prompt_len=64, gen=4, cim_cores=384)
+MOE_TP = dict(n_layers=1, batch=4, prompt_len=64, gen=4, cim_cores=2048)
+POOL_TP = dict(TRAFFIC, n_layers=2, cim_cores=768, requests=4, gen=8)
+TP_ROUTES = {"cim_mvm_packed": 7 * TP}
+MERGED_TP_ROUTES = {"cim_mvm_packed": 4 * TP, "cim_mvm_scheduled": 3 * TP}
+MOE_TP_ROUTES = {"cim_mvm_packed": 7 * TP + 3 * MOE_EXPERTS}
+TP_PARTITIONS = {"wq": "col", "wk": "col", "wv": "col", "wo": "row",
+                 "w_g": "col", "w_i": "col", "w_o": "row"}
+TP_TILES = {"wq": 56, "wk": 28, "wv": 28, "wo": 56, "w_g": 196, "w_i": 196,
+            "w_o": 196}
+TP_ROWS = (4, 256)               # a decode step, a prefill
+# the replicas' serve command (2 ranks and a solo run on the one card)
+REPLICAS = ["--arch", "gemma2-9b", "--layers", "1", "--cim", "--cim-cores",
+            "6144", "--traffic", "--requests", "8", "--gen", "8"]
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 peak (tensor cores)
 # the card's step against the CPU's from one state (f32 sums in another
 # order): loss and gnorm; params where every gradient entry is above 1e-4
@@ -1089,9 +1149,14 @@ def compare_runs(torch, ref, other, what, atol):
 
 
 def layer0_chips(v):
-    """Layer 0's chips of a deployed '<name>_cim' stack: one, or one per
-    expert."""
-    return v[0] if isinstance(v[0], list) else [v[0]]
+    """Layer 0's chips of a deployed '<name>_cim' stack: one, one per
+    expert, or one per tensor-parallel shard."""
+    return v[0] if isinstance(v[0], list) else chips_of(v[0])
+
+
+def chips_of(c):
+    """The chips of one layer's projection: its shards, or itself."""
+    return list(c.shards) if hasattr(c, "shards") else [c]
 
 
 def token_launches(K, cfg, routes, arch):
@@ -1635,7 +1700,7 @@ def plan_summary(params):
     for prefix, tree, first in (("", params["layers"], layer0_chips),
                                 ("shared_attn/", params.get("shared_attn",
                                                             {}),
-                                 lambda v: [v])):
+                                 chips_of)):
         for k, v in tree.items():
             if k.endswith("_cim"):
                 chips = first(v)
@@ -1655,19 +1720,25 @@ def call_order(params, cfg):
     RWKV_ORDER; a group of zamba2's mamba2 layers (MAMBA_ORDER each), then
     its shared block's PROJ_ORDER (as shared_attn/<name>)."""
     lay = params["layers"]
+
+    def each(names, tree=lay, prefix=""):
+        # a tensor-parallel projection launches once per shard, in order
+        return [prefix + n for n in names
+                for _ in chips_of(tree[n + "_cim"][0] if tree is lay
+                                  else tree[n + "_cim"])]
     if "wr_cim" in lay:
-        return list(RWKV_ORDER), 1
+        return each(RWKV_ORDER), 1
     if "in_proj_cim" in lay:
         every = cfg.hybrid_attn_every or cfg.n_layers
-        shared = ["shared_attn/" + n for n in PROJ_ORDER] \
+        shared = each(PROJ_ORDER, params["shared_attn"], "shared_attn/") \
             if "shared_attn" in params else []
-        return list(MAMBA_ORDER) * every + shared, every
+        return each(MAMBA_ORDER) * every + shared, every
     if "ew_g_cim" not in lay:
-        return list(PROJ_ORDER), 1
+        return each(PROJ_ORDER), 1
     n_e = len(lay["ew_g_cim"][0])
-    return ["wq", "wk", "wv", "wo"] + [n for n in ("ew_g", "ew_i", "ew_o")
-                                       for _ in range(n_e)] \
-        + ["sw_g", "sw_i", "sw_o"], 1
+    return each(["wq", "wk", "wv", "wo"]) \
+        + [n for n in ("ew_g", "ew_i", "ew_o") for _ in range(n_e)] \
+        + each(["sw_g", "sw_i", "sw_o"]), 1
 
 
 def device_us_by_kernel(events):
@@ -2655,6 +2726,8 @@ def kernels_line(stats):
                           "each one's device time in the call; "
                           "matmul_only_ms: torch.matmul on the "
                           "materialised noisy weight, no noise drawn)"}
+    at["cim_mvm_packed"] += ("; tp_layer: serve-tp's layer at 'model' width "
+                             "8, its 56 launches at M = 4 and 256")
     main_path = {"cim_mvm_packed": "serve",
                  "cim_mvm_scheduled": "serve-merged",
                  "cim_mvm_transposed": "recover-digital",
@@ -2680,7 +2753,7 @@ def kernels_line(stats):
                         "weight_ms", "sgemm_ms", "fused_ms", "fused_plain_ms",
                         "fused_bound_ms", "fused_host_us", "lstm_ms",
                         "lstm_bound_ms")
-               or k.startswith("prefill_")},
+               or k.startswith(("prefill_", "tp_"))},
             "ok": not failures})
     return {"kernels": rows}
 
@@ -3144,6 +3217,287 @@ def train_resume_phase(torch, dev):
     return {**child, "restored_step": sa, "restored_leaves": len(la)}
 
 
+def tp_mesh(dev):
+    """The 'model'-width-TP mesh over one card: `dev` repeated."""
+    from repro_torch.launch.mesh import Mesh
+    return Mesh([[dev] * TP])
+
+
+def tp_conf(conf, dev):
+    return dict(conf, mesh_shape={"model": TP}, mesh=tp_mesh(dev))
+
+
+def tp_layer_times(torch, K, lay, dev, stats):
+    """Layer 0's 7 x TP packed launches at each of TP_ROWS: the sum over
+    all 7 x TP launches of each one's own time (each shard's chip on its
+    own input; flush and spin before each, median of 10), and the 7 x TP
+    launches in one window (flush, a spin covering their host time, then
+    every launch; median of 10); with the bound, the sum of each
+    launch's."""
+    gen = torch.Generator(dev).manual_seed(13)
+    flush = torch.empty(64 * 1024 * 1024, device=dev)
+    named = [(n, c) for n in PROJ_ORDER for c in chips_of(lay[n + "_cim"][0])]
+    chips = [c for _, c in named]
+    out = {}
+    for m in TP_ROWS:
+        xs = [torch.randint(-7, 8, (m, c.packed.n_rows), generator=gen,
+                            device=dev).to(torch.float32) for c in chips]
+
+        def launch(c, x):
+            p = c.packed
+            return K.cim_mvm_packed(x, *packed_args(p), activation="none",
+                                    n_row_blocks=p.n_row_blocks,
+                                    n_ranks=p.n_ranks, v_read=0.5, seed=SEED)
+        per_launch = dict.fromkeys(PROJ_ORDER, 0.0)
+        for (n, c), x in zip(named, xs):
+            launch(c, x)
+            per_launch[n] += median_ms(torch, lambda: launch(c, x), 10,
+                                       flush)
+
+        def layer():
+            for c, x in zip(chips, xs):
+                launch(c, x)
+        layer()
+        times = []
+        for _ in range(10):
+            flush.zero_()
+            torch.cuda._sleep(8 * SPIN_CYCLES)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            layer()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        bounds = [bound(c.packed, m, "cim_mvm_packed") for c in chips]
+        unsharded = stats["time"].get("cim_mvm_packed", {})
+        out[m] = {"launches": len(chips), "route": route_name(K, m),
+                  "ms": sum(per_launch.values()),
+                  "window_ms": statistics.median(times),
+                  "bound_ms": sum(b[0] for b in bounds),
+                  "bound_by": common_bound({"bound_by": b[1]}
+                                           for b in bounds),
+                  "ms_by_projection": per_launch,
+                  "unsharded_layer_ms": unsharded.get(
+                      "ms" if m == 4 else "prefill_ms")}
+        del xs
+    del flush
+    return out
+
+
+def tp_executor_check(torch, nn, cfg, lay, dev):
+    """Layer 0's projections at each of TP_ROWS: the executor equals its
+    shards' own launches concatenated in shard order ('col') or added
+    left to right from shard 0 ('row'), bit for bit."""
+    ccfg = nn.arch_cim_config(cfg)
+    gen = torch.Generator(dev).manual_seed(5)
+    for n in PROJ_ORDER:
+        spl = lay[n + "_cim"][0]
+        r = spl.shards[0].packed.n_rows
+        row = spl.partition == "row"
+        for m in TP_ROWS:
+            x = torch.randn(m, r * (spl.n_shards if row else 1),
+                            generator=gen, device=dev)
+            parts = [nn.cim_api.packed_forward(
+                c, x[:, s * r:(s + 1) * r] if row else x, ccfg)
+                for s, c in enumerate(spl.shards)]
+            want = parts[0]
+            for part in parts[1:]:
+                want = want + part if row else torch.cat((want, part), -1)
+            if not torch.equal(nn.sharded_packed_loop(spl, x, ccfg), want):
+                raise AssertionError(f"{n} M={m}: the executor differs from "
+                                     "its shards' launches combined in order")
+
+
+def check_tp_chips(lay, mesh):
+    """Each projection's shards: partition and width, tiles per shard, and
+    shard s's chips on the mesh's 'model' device s."""
+    for n, kind in TP_PARTITIONS.items():
+        for li, spl in enumerate(lay[n + "_cim"]):
+            if (spl.partition, spl.n_shards) != (kind, TP):
+                raise AssertionError(f"{n} layer {li}: {spl.partition} x "
+                                     f"{spl.n_shards}, expected {kind} x {TP}")
+            tiles = [c.packed.n_tiles for c in spl.shards]
+            if any(t != TP_TILES[n] for t in tiles):
+                raise AssertionError(f"{n} layer {li}: shard tiles {tiles}, "
+                                     f"expected {TP_TILES[n]}")
+            if [c.packed.gd_tiles.device for c in spl.shards] != \
+                    list(mesh.devices[0]):
+                raise AssertionError(f"{n} layer {li}: shards not on the "
+                                     "mesh's devices")
+
+
+def serve_tp_phase(torch, K, ops, serve, dev, stats):
+    """serve-tp (module docstring); returns (line, served result)."""
+    from repro_torch.models import nn
+    torch.cuda.reset_peak_memory_stats(dev)
+    conf = tp_conf(SERVE_TP, dev)
+    res, launches, err = serve_and_check(torch, K, ops, serve, dev, stats,
+                                         "serve-tp", conf, TP_ROUTES)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    lay = res.params["layers"]
+    check_tp_chips(lay, conf["mesh"])
+    tp_executor_check(torch, nn, res.cfg, lay, dev)
+    layer_t = tp_layer_times(torch, K, lay, dev, stats)
+    t = stats["time"].setdefault("cim_mvm_packed", {})
+    t["tp_layer"] = {m: {k: v for k, v in r.items() if k != "ms_by_projection"}
+                     for m, r in layer_t.items()}
+    prof = profile_decode(torch, res, dev)
+    line = {"config": f"gemma2-9b full width, {SERVE_TP['n_layers']} of 42 "
+                      f"layers, 'model' width {TP} on one card, "
+                      f"{SERVE_TP['cim_cores']}-core shard chips",
+            "nvidia_smi": stats["smi"], **serve_numbers(res, conf),
+            "launches": launches, "plain_max_abs_logit_err": err,
+            "executor": "equal to its shards combined in order",
+            "layer_launch_times": layer_t,
+            "decode_profile": {k: prof.get(k) for k in (
+                "steps", "device_ms_per_step", "device_busy_share",
+                "device_busy_share_of_serve_step", "cim_ms_per_step",
+                "host_ms_per_step")},
+            "peak_mem_gb": peak, "plans": plan_summary(res.params)}
+    return line, res
+
+
+def serve_tp_merged_phase(torch, K, ops, serve, dev, stats):
+    torch.cuda.reset_peak_memory_stats(dev)
+    conf = tp_conf(MERGED_TP, dev)
+    res, launches, err = serve_and_check(torch, K, ops, serve, dev, stats,
+                                         "serve-tp-merged", conf,
+                                         MERGED_TP_ROUTES)
+    out = {"config": f"gemma2-9b full width, 1 of 42 layers, 'model' width "
+                     f"{TP}, {MERGED_TP['cim_cores']}-core shard chips",
+           **serve_numbers(res, conf), "launches": launches,
+           "plain_max_abs_logit_err": err,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "plans": plan_summary(res.params)}
+    del res
+    free(torch)
+    return out
+
+
+def serve_tp_moe_phase(torch, K, ops, serve, dev, stats):
+    torch.cuda.reset_peak_memory_stats(dev)
+    conf = tp_conf(MOE_TP, dev)
+    res, launches, err = serve_and_check(torch, K, ops, serve, dev, stats,
+                                         "serve-tp-moe", conf, MOE_TP_ROUTES,
+                                         MOE)
+    p0 = {k: v[0] for k, v in res.params["layers"].items()}
+    per = MOE_EXPERTS // TP
+    for n in ("ew_g", "ew_i", "ew_o"):
+        devs = [c.packed.gd_tiles.device for c in p0[n + "_cim"]]
+        if devs != [d for d in conf["mesh"].devices[0] for _ in range(per)]:
+            raise AssertionError(f"{n}: experts not placed {per} a shard")
+    out = {"config": f"deepseek-moe-16b full width, 1 of 28 layers, 'model' "
+                     f"width {TP}, {MOE_TP['cim_cores']}-core chips, "
+                     f"{MOE_EXPERTS} experts ({per} a shard)",
+           **serve_numbers(res, conf), "launches": launches,
+           "plain_max_abs_logit_err": err,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "plans": plan_summary(res.params)}
+    del res, p0
+    free(torch)
+    return out
+
+
+def replicas_phase(torch, dev):
+    """replicas (module docstring)."""
+    import threading
+    import numpy as np
+    from types import SimpleNamespace
+    from repro_torch.launch import env
+    from repro_torch.launch.distributed import route_requests
+    out = Path(tempfile.mkdtemp(prefix="replicas-"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", *REPLICAS]
+
+    def cmd(tag):
+        return base + ["--results-out", str(out / f"{tag}_{{rank}}.npz"),
+                       "--summary-out", str(out / f"{tag}_summary.json")]
+    extra = {"PYTHONPATH": str(ROOT / "src")}
+    solo = {}
+    th = threading.Thread(target=lambda: solo.update(r=env.launch(
+        cmd("solo"), num_processes=1, timeout=600, extra_env=extra)))
+    th.start()
+    group = env.launch(cmd("group"), num_processes=2, timeout=600,
+                       extra_env=extra)
+    th.join()
+    for tag, rs in (("solo", solo.get("r") or []), ("group", group)):
+        for rank, r in enumerate(rs):
+            if r.returncode != 0:
+                raise AssertionError(f"{tag} rank {rank} exited "
+                                     f"{r.returncode}: {r.stderr[-3000:]}")
+    if not solo.get("r"):
+        raise AssertionError("the solo run did not finish")
+
+    def load(path):
+        z = np.load(path)
+        return {int(rid): (z[f"tokens_{rid}"], z[f"logits_{rid}"])
+                for rid in z["rids"]}
+    ref = load(out / "solo_0.npz")
+    n_req = len(ref)
+    fake = [SimpleNamespace(rid=i) for i in range(n_req)]
+    rids = []
+    for rank in range(2):
+        got = load(out / f"group_{rank}.npz")
+        want = [q.rid for q in route_requests(fake, 2, rank)]
+        if sorted(got) != want:
+            raise AssertionError(f"rank {rank} served {sorted(got)}, the "
+                                 f"router assigns {want}")
+        rids.append(sorted(got))
+        for rid, (toks, lg) in got.items():
+            if toks.tolist() != ref[rid][0].tolist():
+                raise AssertionError(f"request {rid}: tokens {toks} != solo "
+                                     f"{ref[rid][0]}")
+            if not np.array_equal(lg, ref[rid][1]):
+                raise AssertionError(
+                    f"request {rid}: logits differ from the solo run's by "
+                    f"{float(np.abs(lg - ref[rid][1]).max())}")
+    merged = json.loads((out / "group_summary.json").read_text())
+    single = json.loads((out / "solo_summary.json").read_text())
+    if merged["requests"] != n_req or merged["ranks"] != 2 or \
+            merged["decode_traces"] != 1:
+        raise AssertionError(f"merged summary: {merged['requests']} requests"
+                             f", {merged['ranks']} ranks, "
+                             f"{merged['decode_traces']} decode captures")
+    keys = ("requests", "tokens", "wall_s", "tok_per_s", "p50_ms", "p99_ms")
+    return {"config": "gemma2-9b full width, 1 of 42 layers, 6144 cores, "
+                      f"{n_req} requests; 2 ranks (gloo) and a solo run on "
+                      "one card at once",
+            "command": REPLICAS, "rids_per_rank": rids,
+            "tokens_equal": True, "logits_equal": True,
+            "fleet": {k: merged[k] for k in keys},
+            "per_rank": merged["per_rank"],
+            "solo": {k: single[k] for k in keys}}
+
+
+def tp_phases(torch, K, ops, serve, dev, stats):
+    """The tensor-parallel and replica phases, after the training phases
+    have freed the card: serve-tp (its chips kept for pool-tp),
+    serve-tp-merged, serve-tp-moe, pool-tp, replicas."""
+    held = {}
+
+    def serve_tp(*a):
+        line, held["res"] = serve_tp_phase(*a)
+        return line
+    phase("serve-tp")(serve_tp)(torch, K, ops, serve, dev, stats)
+    res = held.pop("res", None)
+    if res is None:
+        failures.append("pool-tp")
+        emit({"phase": "pool-tp", "ok": False,
+              "error": "no serve-tp chips to serve"})
+    else:
+        phase("pool-tp")(traffic_path)(torch, K, serve, dev, stats,
+                                       "pool-tp", POOL_TP, TP_ROUTES,
+                                       deployed=res, full=False)
+    del res
+    free(torch)
+    phase("serve-tp-merged")(serve_tp_merged_phase)(torch, K, ops, serve,
+                                                    dev, stats)
+    phase("serve-tp-moe")(serve_tp_moe_phase)(torch, K, ops, serve, dev,
+                                              stats)
+    free(torch)
+    phase("replicas")(replicas_phase)(torch, dev)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -3206,6 +3560,8 @@ def main() -> int:
     train_lm_phase(torch, K, dev, stats)
     train_lm_parity_phase(torch, dev)
     train_resume_phase(torch, dev)
+    free(torch)
+    tp_phases(torch, K, ops, serve, dev, stats)
 
     emit(kernels_line(stats))
     if failures or info is None:

@@ -10,9 +10,10 @@ Leaves go in `train/optimizer.tree_leaves` order — dicts by sorted key,
 tuples and lists in order — which is the order of `jax.tree_util`'s
 flatten, so the two packages restore each other's checkpoints leaf for
 leaf. NumPy has no bfloat16: a bf16 leaf is saved as f32 (exact) and
-restored to the dtype of the `like` tree. `restore_checkpoint(device=)`
-takes the place of the reference's `shardings=`: resharding onto a mesh
-waits for the multi-device port (ROADMAP A13).
+restored to the dtype of the `like` tree. `restore_checkpoint` places
+the restored leaves on `device`, or by the reference's `shardings=`
+(`distributed/fault.elastic_reshard`'s placements: a checkpoint saved
+under one mesh restores onto another).
 """
 from __future__ import annotations
 
@@ -82,11 +83,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
-                       device=None):
+                       device=None, shardings: Any = None):
     """(tree, step) restored into the structure of `like` — each leaf as a
     tensor of the matching `like` leaf's dtype, on `device` or, when None,
-    on that leaf's device — from `step` or the latest complete one;
-    (None, None) when there is none."""
+    on that leaf's device, then placed by `shardings` when given
+    (`distributed/fault.elastic_reshard`) — from `step` or the latest
+    complete one; (None, None) when there is none."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -101,7 +103,11 @@ def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
         elif device is not None:
             arr = arr.to(device)
         out.append(arr)
-    return tree_unflatten(like, out), step
+    tree = tree_unflatten(like, out)
+    if shardings is not None:
+        from ..distributed.fault import elastic_reshard
+        tree = elastic_reshard(tree, shardings)
+    return tree, step
 
 
 class AsyncCheckpointer:

@@ -566,12 +566,25 @@ _STACK_TENSORS = ("gd_tiles", "inv_norm_tiles", "v_decr_tiles",
                   "denorm_tiles")
 
 
+def _is_sharded(x) -> bool:
+    """A models/nn.ShardedPackedLayer (duck-typed: nn imports this
+    module)."""
+    return hasattr(x, "shards") and hasattr(x, "partition")
+
+
 def _stack_members(node, kind):
-    """The `kind` leaves of a (nested) list of them, else None."""
+    """The `kind` leaves of a (nested) list of them, or of
+    ShardedPackedLayers holding them, else None."""
     out = []
     for x in node:
         if isinstance(x, list):
             sub = _stack_members(x, kind)
+            if sub is None:
+                return None
+            out += sub
+        elif _is_sharded(x):
+            check_sharded(x)
+            sub = _stack_members(x.shards, kind)
             if sub is None:
                 return None
             out += sub
@@ -580,6 +593,17 @@ def _stack_members(node, kind):
         else:
             return None
     return out
+
+
+def check_sharded(spl, *, layer: Optional[str] = None) -> None:
+    """A ShardedPackedLayer holds one chip per shard and a known
+    partition; its shards stack (`check_stack`)."""
+    if spl.partition not in ("col", "row", "none") \
+            or len(spl.shards) != spl.n_shards or spl.n_shards < 1:
+        raise ChipVerifyError(
+            "deploy", "shard-stack",
+            f"{len(spl.shards)} shard chips for n_shards {spl.n_shards}, "
+            f"partition {spl.partition!r}", layer=layer)
 
 
 def check_stack(plans: Sequence[PackedPlan], *,
@@ -609,8 +633,12 @@ def verify_deployed(tree):
     """Verify every chip artifact reachable in a deployed tree (dicts,
     lists, tuples and dataclasses, as the port's deploys build them):
     CompiledChips get `verify_chip`, PackedPlans `check_packed`, and a
-    list (or list of lists: layer x expert) of PackedCIMLayers
-    `check_stack`. Returns the tree."""
+    list (or list of lists: layer x expert) of PackedCIMLayers, or of
+    ShardedPackedLayers (layer x shard), `check_stack` over all its
+    chips — every layer and shard of a tensor-parallel stack shares one
+    plan; a list of ShardedPackedLayers also one partition and width.
+    A bare ShardedPackedLayer (zamba2's shared block) gets
+    `check_sharded` and its shards `check_stack`. Returns the tree."""
     from .cim import CompiledChip, PackedCIMLayer   # cim imports this module
     stack = [tree]
     while stack:
@@ -623,8 +651,18 @@ def verify_deployed(tree):
             stack.extend(node.values())
         elif isinstance(node, list) and node and \
                 (members := _stack_members(node, PackedCIMLayer)):
+            kinds = {(x.partition, x.n_shards) for x in node
+                     if _is_sharded(x)}
+            if len(kinds) > 1:
+                raise ChipVerifyError(
+                    "deploy", "shard-stack",
+                    f"the layers of one stack are sharded differently: "
+                    f"{sorted(kinds)}", layer=members[0].packed.layer)
             check_stack([m.packed for m in members])
             stack.extend(members)
+        elif _is_sharded(node):
+            check_sharded(node)
+            stack.append(node.shards)
         elif isinstance(node, (list, tuple)):
             stack.extend(node)
         elif dataclasses.is_dataclass(node) and not isinstance(node, type):

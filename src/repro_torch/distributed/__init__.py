@@ -1,4 +1,3 @@
-"""Fault tolerance of the port (the single-process half of
-`repro/distributed`; sharding and elastic resharding wait for ROADMAP
-A13)."""
-from .fault import FaultTolerantTrainer  # noqa: F401
+"""Sharding rules, fault tolerance and elastic resharding of the port
+(port of `repro/distributed`)."""
+from .fault import FaultTolerantTrainer, elastic_reshard  # noqa: F401

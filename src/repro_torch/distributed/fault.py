@@ -14,8 +14,11 @@ checkpoint.
     Each step's time includes waiting for the device (the reference's
     block_until_ready on the state's first leaf).
 
-The reference's `elastic_reshard` (device_put onto a new mesh's
-shardings) waits for the multi-device port, ROADMAP A13.
+  * elastic_reshard places a tree onto a new mesh: each leaf moves to the
+    device its placement names (a torch.device, or a tuple of devices
+    from `distributed/sharding.named_shardings` that names one).
+    Placement is single-controller: a leaf is never split across
+    devices, so a placement naming several distinct devices raises.
 """
 from __future__ import annotations
 
@@ -26,6 +29,34 @@ import torch
 from ..checkpoint import AsyncCheckpointer, restore_checkpoint
 from ..obs.clock import now
 from ..train.optimizer import tree_leaves
+
+
+def _placement_device(placement) -> torch.device:
+    """The one device a placement names (a device, a device string, or a
+    tuple of them that all name one device)."""
+    if isinstance(placement, (tuple, list)):
+        devs = {torch.device(d) for d in placement}
+        if len(devs) != 1:
+            raise ValueError(
+                f"placement {placement} splits a leaf across devices; the "
+                "port places whole tensors (shard stacks are placed by "
+                "models/nn.place_packed_stack)")
+        return devs.pop()
+    return torch.device(placement)
+
+
+def elastic_reshard(tree: Any, shardings: Any):
+    """`tree` with each tensor leaf on the device its placement names:
+    `shardings` is a tree of the same structure with a placement per leaf
+    (module docstring), or one device (or device string) for every leaf.
+    Non-tensor leaves are kept."""
+    from ..train.optimizer import tree_map
+    if isinstance(shardings, (torch.device, str)):
+        dev = torch.device(shardings)
+        return tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                        else t, tree)
+    return tree_map(lambda t, s: t.to(_placement_device(s))
+                    if isinstance(t, torch.Tensor) else t, tree, shardings)
 
 
 def _wait_for_device(state: Any):
@@ -51,12 +82,14 @@ class FaultTolerantTrainer:
         self.straggler_hits = 0
         self.events = []          # (step, kind) log for tests/observability
 
-    def resume(self, state: Any, device=None):
+    def resume(self, state: Any, device=None, shardings: Any = None):
         """(state, step): the latest complete checkpoint restored into
-        `state`'s structure and dtypes (on `device`, or where each leaf of
-        `state` lies), or (state, 0) when there is none."""
+        `state`'s structure and dtypes (placed by `shardings`, else on
+        `device`, else where each leaf of `state` lies), or (state, 0)
+        when there is none."""
         restored, step = restore_checkpoint(self.ckpt_dir, state,
-                                            device=device)
+                                            device=device,
+                                            shardings=shardings)
         if restored is None:
             return state, 0
         self.events.append((step, "resumed"))

@@ -1,0 +1,340 @@
+"""Named-axis sharding rules (DP / TP / EP) for every architecture (PyTorch
+port of `repro/distributed/sharding.py`), as spec arithmetic on plain
+tuples.
+
+Megatron-style tensor parallelism expressed as rules over parameter path
+names:
+
+  * column-parallel in-projections (wq/wk/wv, w_g/w_i, in_proj, rwkv
+    mixes): output dim on 'model'
+  * row-parallel out-projections (wo, w_o, out_proj, cv): input dim on
+    'model'
+  * embeddings / unembeddings: vocab on 'model'
+  * MoE expert stacks (ew_*): expert dim on 'model' (expert parallelism)
+  * norms / small vectors: replicated
+  * batch dims of activations: ('pod', 'data'); decode KV caches shard
+    the head_dim on 'model' (or the sequence, kv_mode 'seq')
+
+Stacked layer params (a leading L dim) get a leading None. A spec is a
+`P`, the port's own PartitionSpec: a tuple of entries, each None, one
+axis name or a tuple of them. Trees are nested dicts, lists and tuples
+(the port's params, caches and pools); every other value is a leaf, with
+its `shape` (a leaf without one is a scalar).
+
+Placement is single-controller (`launch/mesh.Mesh`, a grid of
+torch.devices): nothing here splits a tensor across devices. What the
+port places is whole compiled chips — shard s of a packed stack on the
+device at 'model' position s (`models/nn.place_packed_stack`).
+`named_shardings` therefore maps each spec to the devices that hold its
+blocks, in row-major order over the axes the spec uses, and
+`packed_shardings` is that map for a packed shard stack; where the
+reference's `device_put` moves an array, the port moves shard s's tensors
+to the s-th device.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Any, Dict, Tuple
+
+
+class P:
+    """A PartitionSpec: one entry per tensor dim (trailing dims may be
+    left out), each None, an axis name or a tuple of axis names. Compares
+    equal to another P or a tuple with the same entries."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, *parts):
+        self.parts = tuple(parts)
+
+    def __iter__(self):
+        return iter(self.parts)
+
+    def __len__(self):
+        return len(self.parts)
+
+    def __getitem__(self, i):
+        return self.parts[i]
+
+    def __eq__(self, other):
+        if isinstance(other, P):
+            return self.parts == other.parts
+        if isinstance(other, tuple):
+            return self.parts == other
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(self.parts)
+
+    def __repr__(self):
+        return f"P{self.parts!r}"
+
+
+# (the last path key) -> spec for the UNSTACKED param
+_RULES = [
+    # dense attention + MLP
+    ("wq", P(None, "model")), ("wk", P(None, "model")),
+    ("wv", P(None, "model")), ("wo", P("model", None)),
+    ("bq", P("model")), ("bk", P("model")), ("bv", P("model")),
+    ("xwq", P(None, "model")), ("xwk", P(None, "model")),
+    ("xwv", P(None, "model")), ("xwo", P("model", None)),
+    ("w_g", P(None, "model")), ("w_i", P(None, "model")),
+    ("w_o", P("model", None)),
+    # MoE
+    ("router", P(None, None)),
+    ("ew_g", P("model", None, None)), ("ew_i", P("model", None, None)),
+    ("ew_o", P("model", None, None)),
+    ("sw_g", P(None, "model")), ("sw_i", P(None, "model")),
+    ("sw_o", P("model", None)),
+    # rwkv6
+    ("wr", P(None, "model")), ("wg", P(None, "model")),
+    ("ck", P(None, "model")), ("cv", P("model", None)),
+    ("cr", P(None, "model")),
+    ("u", P("model", None)),
+    # mamba2
+    ("in_proj", P(None, "model")), ("out_proj", P("model", None)),
+    ("a_log", P("model")), ("dt_bias", P("model")), ("dd", P("model")),
+    # embeddings
+    ("embed", P("model", None)), ("unembed", P(None, "model")),
+    ("vis_proj", P(None, None)),
+]
+
+_STACKED_KEYS = ("layers", "dense_layers", "enc_layers")
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def _map(fn, tree, *rest, path=()):
+    """fn(path, leaf, *matching leaves of rest) over a tree of dicts,
+    lists and tuples (a P is a leaf); the path holds the dict keys and
+    sequence indices from the root."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k], *(r[k] for r in rest), path=path + (k,))
+                for k in tree}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return type(tree)(_map(fn, t, *(r[i] for r in rest),
+                               path=path + (i,))
+                          for i, t in enumerate(tree))
+    return fn(path, tree, *rest)
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    """{axis: size} of a `launch/mesh.Mesh` or of a mesh-shape dict."""
+    return dict(mesh.shape) if hasattr(mesh, "shape") else dict(mesh)
+
+
+def _spec_for(path, leaf) -> P:
+    keys = [str(k) for k in path]
+    last = keys[-1] if keys else ""
+    stacked = any(k in _STACKED_KEYS for k in keys[:-1])
+    spec = P()
+    for suffix, s in _RULES:
+        if last == suffix:
+            spec = s
+            break
+    if stacked:
+        spec = P(None, *spec)
+    ndim = len(_shape(leaf))
+    parts = tuple(spec) + (None,) * (ndim - len(spec))
+    return P(*parts[:ndim])
+
+
+def param_pspecs(params_tree) -> Any:
+    """The spec tree matching a tree of params."""
+    return _map(_spec_for, params_tree)
+
+
+def batch_pspecs(batch_tree, data_axes=("pod", "data")) -> Any:
+    """Shard every batch leaf's leading dim over the data axes."""
+    def spec(path, leaf):
+        ndim = len(_shape(leaf))
+        return P(data_axes, *([None] * (ndim - 1)))
+    return _map(spec, batch_tree)
+
+
+def cache_pspecs(cache_tree, data_axes=("pod", "data"),
+                 kv_mode: str = "hd") -> Any:
+    """Decode-state sharding: batch over the data axes; KV tensors shard
+    either the head_dim ('hd') or the sequence dim ('seq')."""
+    def spec(path, leaf):
+        last = str(path[-1]) if path else ""
+        ndim = len(_shape(leaf))
+        if ndim >= 4:
+            # (L, B, S, nkv, hd) KV / (L, B, H, n, p) ssm states
+            parts = [None] * ndim
+            parts[1] = data_axes
+            if kv_mode == "seq" and ndim == 5 and last in ("k", "v", "ak",
+                                                           "av"):
+                parts[2] = "model"
+            else:
+                parts[-1] = "model"
+            return P(*parts)
+        if ndim >= 2 and last in ("x_tm", "x_cm"):
+            return P(None, data_axes, None)
+        return P()
+    return _map(spec, cache_tree)
+
+
+def pool_pspecs(pool_tree, data_axes=("data",)) -> Any:
+    """The continuous-batching slot pool's specs (`launch/scheduler`): the
+    SLOT dim — axis 1 of every cache / state leaf, axis 0 of the per-slot
+    `len` / `active` / `tok` vectors — over the data axes; nothing else
+    is partitioned."""
+    def spec(path, leaf):
+        last = str(path[-1]) if path else ""
+        ndim = len(_shape(leaf))
+        if last in ("len", "active", "tok"):
+            return P(data_axes)
+        if ndim >= 2:
+            return P(None, data_axes, *([None] * (ndim - 2)))
+        return P()
+    return _map(spec, pool_tree)
+
+
+def opt_pspecs(params_specs) -> Dict:
+    """AdamW state shards like its params; the step counter replicated."""
+    return {"m": params_specs, "v": params_specs, "t": P()}
+
+
+def zero_pspecs(shape_tree, spec_tree, mesh, data_axes=("pod", "data"),
+                min_size: int = 1 << 20):
+    """ZeRO-style extra sharding: the data axes on the first unsharded,
+    divisible dim of every leaf of at least `min_size` elements, preferring
+    non-leading dims (dim 0 of a stacked param is the layer axis). `mesh`
+    is a Mesh or a mesh-shape dict. Idempotent."""
+    sizes = _axis_sizes(mesh)
+    axes = tuple(a for a in data_axes if a in sizes)
+    if not axes:
+        return spec_tree
+    n = math.prod(sizes[a] for a in axes)
+
+    def fix(path, leaf, spec):
+        shape = _shape(leaf)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        if math.prod(shape) < min_size:
+            return P(*parts)
+        used = {a for ax in parts for a in spec_axes(ax)}
+        if any(a in used for a in axes):
+            return P(*parts)              # already data-sharded
+        order = list(range(1, len(shape))) + [0] if len(shape) >= 2 else [0]
+        for i in order:
+            if parts[i] is None and shape[i] % n == 0:
+                parts[i] = axes if len(axes) > 1 else axes[0]
+                break
+        return P(*parts)
+
+    return _map(fix, shape_tree, spec_tree)
+
+
+def spec_axes(ax) -> tuple:
+    """One spec entry as a tuple of mesh axis names: None / '' -> (),
+    'model' -> ('model',), ('pod', 'data') -> itself."""
+    return ax if isinstance(ax, tuple) else ((ax,) if ax else ())
+
+
+def partition_kind(spec) -> str:
+    """'col' when the output (last) dim is on 'model' (column-parallel),
+    'row' when an inner / input dim is (row-parallel), 'none' when
+    replicated: whether per-shard chip outputs concatenate or sum
+    (`models/nn.ShardedPackedLayer`)."""
+    parts = tuple(spec)
+    for d, ax in enumerate(parts):
+        if "model" in spec_axes(ax):
+            return "col" if d == len(parts) - 1 else "row"
+    return "none"
+
+
+def shard_shape(shape, spec, mesh_shape: Dict[str, int]):
+    """The local (per-shard) shape of a tensor sharded by `spec` on a mesh
+    of {axis: size}; raises when a dim is not divisible."""
+    shape = tuple(shape)
+    parts = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for dim, ax in zip(shape, parts):
+        axes = spec_axes(ax)
+        n = math.prod(mesh_shape.get(a, 1) for a in axes)
+        if dim % n:
+            raise ValueError(f"dim {dim} not divisible by mesh axes {axes} "
+                             f"(product {n})")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def shard_slice(x, spec, mesh_shape: Dict[str, int], index: Dict[str, int]):
+    """The local block of tensor `x` held by the shard at `index`
+    ({axis: position}) on a mesh of {axis: size}: a view (`torch.narrow`
+    along each sharded dim). Axes absent from `index` take position 0;
+    raises like `shard_shape` when a dim is not divisible."""
+    local = shard_shape(x.shape, spec, mesh_shape)
+    parts = tuple(spec) + (None,) * (x.ndim - len(spec))
+    out = x
+    for d, (ax, loc) in enumerate(zip(parts, local)):
+        pos = 0
+        for a in spec_axes(ax):             # row-major over the axes tuple
+            pos = pos * mesh_shape.get(a, 1) + index.get(a, 0)
+        if loc != x.shape[d]:
+            out = out.narrow(d, pos * loc, loc)
+    return out
+
+
+def spec_devices(mesh, spec) -> tuple:
+    """The devices holding the blocks of a tensor sharded by `spec` on
+    `mesh`, in row-major order over the mesh axes the spec uses (one
+    device, the mesh's first, when it uses none)."""
+    sizes = _axis_sizes(mesh)
+    axes = [a for ax in spec for a in spec_axes(ax)]
+    out = []
+    for pos in itertools.product(*(range(sizes[a]) for a in axes)):
+        at = dict(zip(axes, pos))
+        out.append(mesh.devices[at.get("data", 0)][at.get("model", 0)])
+    return tuple(out)
+
+
+def named_shardings(mesh, spec_tree):
+    """Each spec of the tree bound to `mesh`: the tuple of devices holding
+    its blocks (`spec_devices`)."""
+    return _map(lambda path, s: spec_devices(mesh, s), spec_tree)
+
+
+def packed_pspecs(shards_tree, n_shards: int, shard_axis: int = 0):
+    """The spec tree of a packed shard stack: axis `shard_axis` of every
+    leaf on 'model', every other dim replicated; a single-engine stack
+    (n_shards == 1) replicates fully. MoE routed-expert stacks reuse it
+    with the expert dim as the shard axis (expert parallelism)."""
+    def spec(path, leaf):
+        parts = [None] * len(_shape(leaf))
+        if n_shards > 1:
+            parts[shard_axis] = "model"
+        return P(*parts)
+    return _map(spec, shards_tree)
+
+
+def packed_shardings(mesh, n_shards: int) -> tuple:
+    """Shard s of a packed stack -> the device that holds its chips: the
+    mesh's 'model' position s (`named_shardings` of the shard axis'
+    spec); a single-engine stack stays on the mesh's first device."""
+    return spec_devices(mesh, P("model") if n_shards > 1 else P())
+
+
+def fit_pspecs(shape_tree, spec_tree, mesh):
+    """Any spec axis whose tensor dim is not divisible by the mesh axes'
+    product downgraded to replicated (e.g. a smoke config's 2 heads on a
+    16-way model axis). `mesh` is a Mesh or a mesh-shape dict."""
+    sizes = _axis_sizes(mesh)
+
+    def fix(path, leaf, spec):
+        shape = _shape(leaf)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        out = []
+        for dim, ax in zip(shape, parts):
+            if ax is None:
+                out.append(None)
+                continue
+            n = math.prod(sizes[a] for a in spec_axes(ax))
+            out.append(ax if dim % n == 0 else None)
+        return P(*out)
+
+    return _map(fix, shape_tree, spec_tree)

@@ -920,26 +920,27 @@ def launch_walk(kernel: str, x, gd_tiles, tile_tensors, index_tensors,
     out = torch.empty((m, n_cb * out_w), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    lib = load()[kernel]
-    epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
-    g, grid = walk_launch_geometry(kernel, m, in_w, out_w, n_cb, dev)
-    if kernel == "cim_mvm_transposed":
-        row_index, tile_slot, *runs = index_tensors
-    else:
-        (row_index, *runs), tile_slot = index_tensors, None
-    run_start, col_run_start, col_runs = (runs + [None, None])[:3]
-    # the walk reads x as int8: exact for the integer inputs it takes
-    # (|x| <= 127), a quarter of the bytes its items re-read
-    x8 = x.to(torch.int8)
-    args = WalkArgs(x8.data_ptr(), m, k, gd_tiles.data_ptr(),
-                    inv.data_ptr(), den.data_ptr(), vd.data_ptr(),
-                    row_index.data_ptr(), _ptr(tile_slot),
-                    run_start.data_ptr(), _ptr(col_run_start),
-                    _ptr(col_runs), gd_tiles.shape[0], n_cb, in_w, out_w,
-                    out.data_ptr())
-    err = getattr(lib, f"{kernel}_launch")(
-        ctypes.byref(args), ctypes.byref(g), ctypes.byref(epi), grid,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):    # a shard's chip may lie on another card
+        lib = load()[kernel]
+        epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
+        g, grid = walk_launch_geometry(kernel, m, in_w, out_w, n_cb, dev)
+        if kernel == "cim_mvm_transposed":
+            row_index, tile_slot, *runs = index_tensors
+        else:
+            (row_index, *runs), tile_slot = index_tensors, None
+        run_start, col_run_start, col_runs = (runs + [None, None])[:3]
+        # the walk reads x as int8: exact for the integer inputs it takes
+        # (|x| <= 127), a quarter of the bytes its items re-read
+        x8 = x.to(torch.int8)
+        args = WalkArgs(x8.data_ptr(), m, k, gd_tiles.data_ptr(),
+                        inv.data_ptr(), den.data_ptr(), vd.data_ptr(),
+                        row_index.data_ptr(), _ptr(tile_slot),
+                        run_start.data_ptr(), _ptr(col_run_start),
+                        _ptr(col_runs), gd_tiles.shape[0], n_cb, in_w, out_w,
+                        out.data_ptr())
+        err = getattr(lib, f"{kernel}_launch")(
+            ctypes.byref(args), ctypes.byref(g), ctypes.byref(epi), grid,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1
@@ -972,12 +973,13 @@ def launch_split(kernel: str, x, gd_tiles, tile_tensors, row_index,
     terms = torch.empty((n_tiles, m, bn), dtype=f32, device=dev)
     n_live = n_tiles if live_slots is None else live_slots.numel()
     epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
-    err = getattr(lib, f"{kernel}_split_launch")(
-        x.data_ptr(), m, k, gd_tiles.data_ptr(), inv.data_ptr(),
-        den.data_ptr(), vd.data_ptr(), row_index.data_ptr(),
-        *(_ptr(t) for t in run_tables), _ptr(live_slots), n_live, n_cb, bk,
-        bn, terms.data_ptr(), out.data_ptr(), ctypes.byref(epi),
-        split_rows(m), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):    # a shard's chip may lie on another card
+        err = getattr(lib, f"{kernel}_split_launch")(
+            x.data_ptr(), m, k, gd_tiles.data_ptr(), inv.data_ptr(),
+            den.data_ptr(), vd.data_ptr(), row_index.data_ptr(),
+            *(_ptr(t) for t in run_tables), _ptr(live_slots), n_live, n_cb,
+            bk, bn, terms.data_ptr(), out.data_ptr(), ctypes.byref(epi),
+            split_rows(m), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} split launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1

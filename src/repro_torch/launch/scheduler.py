@@ -38,8 +38,10 @@ capacity, and a request's tokens would depend on its neighbours. The
 recurrent archs' chunked scans (rwkv6 in chunks of 32, mamba2 in 64) see
 the same chunks in the pool as in a one-shot prefill only where the
 engine's chunk is a multiple of the scan's and the prompt fills whole scan
-chunks; elsewhere the scan reassociates, within rounding. A mesh waits for
-ROADMAP A13.
+chunks; elsewhere the scan reassociates, within rounding. On a
+tensor-parallel mesh (a 'data' width of 1) the pool lives on the params'
+device and the chips' shards run where deploy placed them; a 'data'
+width above 1 (the striped slot pool) waits for ROADMAP A17.
 """
 from __future__ import annotations
 
@@ -67,10 +69,12 @@ from .steps import (CapturedStep, make_decode_step, make_pool_decode_step,
 def init_pool(cfg, n_slots: int, max_len: int, mesh=None, device=None):
     """Slot pool on `device` (CUDA unless "cpu" is passed): the arch's
     cache with `len` widened to a per-slot (n_slots,) int32 tensor, plus
-    the `active` bitmap and the per-slot last token."""
+    the `active` bitmap and the per-slot last token. A mesh is accepted
+    at a 'data' width of 1 (the pool is not striped: module docstring)
+    and raises above it."""
     if mesh is not None:
-        raise NotImplementedError(
-            "a sharded slot pool is not ported yet (ROADMAP A13)")
+        from .mesh import check_serving_mesh
+        check_serving_mesh(mesh)
     dev = resolve_device(device)
     pool = dict(T.init_cache(cfg, n_slots, max_len, dtype=cfg.dtype,
                              device=dev))

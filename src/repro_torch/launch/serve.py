@@ -79,9 +79,41 @@ chip's IR drop (alpha A in 1/uS): the planner caps the columns per core
 (47 at 2e-7), so a full-width layer needs about 33,000 tiles and, at
 `--cim-cores 32768`, every projection merges and runs scheduled.
 
+Tensor parallelism (`--cim-mesh auto|off|DxM`): each projection compiles
+one chip per 'model' shard from its local slice (`nn.deploy_cim` with a
+`launch/mesh.Mesh`), placed on the mesh's 'model' device s, and every
+call launches each shard's kernel where its chips lie
+(`nn.sharded_packed_loop`). 'auto' (the default) builds a 'model'-only
+mesh over this process's first M local devices, M the largest power of
+two that divides their count (`launch/mesh.model_mesh`: one card gives
+1x1, an unsharded deploy; 6 cards 1x2); 'off' deploys at the same width
+with every chip on the serving device; 'DxM' asks for an explicit shape
+over the local devices, and a 'data' width above 1 raises (ROADMAP A17).
+Shards on distinct cards are untried (ROADMAP A13). From Python,
+`serve_static` / `serve_traffic(mesh_shape=, mesh=)` take any mesh, one
+that repeats a device included: gemma2-9b at full width deploys eight
+shard chips per layer (`mesh_shape={'model': 8}`,
+`mesh=Mesh([['cuda:0'] * 8])`), one packed launch per projection and
+shard.
+
+Multi-process scale-out (`launch/distributed`): launched through
+`launch/env` (REPRO_COORDINATOR / REPRO_NUM_PROCESSES / REPRO_PROCESS_ID
+set), serve joins the process group (gloo) first and every rank
+becomes one data-parallel replica with its own chips, deterministic from
+the shared seeds; in --traffic mode it serves the subset of the one seeded
+stream that `distributed.route_requests` assigns it. Rank 0 owns the
+output files: the per-rank summaries and rank-tagged metrics gather
+through the group's store and rank 0 writes the merged ones. The
+one-capture contract is asserted per rank before the gather.
+--results-out writes each served request's tokens and logits
+(`{rank}` in the path becomes the rank).
+
+    PYTHONPATH=src python -m repro_torch.launch.env --procs 2 -- \
+        python -m repro_torch.launch.serve --arch gemma2-9b --layers 1 \
+        --cim --cim-cores 6144 --traffic --requests 8
+
 Runs on the card unless `--device cpu` is given; without CUDA it raises.
-Times are CUDA-event times on the card. The mesh flags and multi-process
-serving wait for ROADMAP A13.
+Times are CUDA-event times on the card.
 """
 from __future__ import annotations
 
@@ -100,6 +132,7 @@ from ..models import transformer as T
 from ..obs import MetricsRegistry, TraceBuffer
 from ..obs.chipmeter import ChipMeter
 from ..obs.clock import stopwatch, timed_call
+from . import distributed as dist
 from .scheduler import ContinuousBatchingEngine, Request
 from .steps import arch_serving, make_decode_step, make_prefill_step
 
@@ -185,14 +218,19 @@ def deploy(arch: str = "gemma2-9b", *, smoke: bool = False,
            cim: bool = False, cim_mode: str = "ideal", cim_bits: int = 0,
            cim_cores: int = 0, cim_ir_drop: float = 0.0,
            device: Optional[str] = None, n_layers: Optional[int] = None,
-           params=None, x_cal=None):
+           params=None, x_cal=None, mesh_shape=None, mesh=None,
+           x_cal_shards=None):
     """(cfg, params, deploy seconds): the served config, its params (drawn
     from a generator seeded 0 unless given, on `device`) and, under
     `cim`, every projection compiled onto its chip (calibration batches
-    from a generator seeded 7 unless `x_cal` is given)."""
+    from a generator seeded 7 unless `x_cal` / `x_cal_shards` are given),
+    one per tensor-parallel shard at mesh_shape's 'model' width, placed
+    on `mesh` (which the config then serves on: cfg.cim_mesh)."""
     dev = resolve_device(device)
     cfg = serving_config(arch, smoke=smoke, cim=cim, cim_bits=cim_bits,
                          cim_ir_drop=cim_ir_drop, n_layers=n_layers)
+    if mesh is not None:
+        cfg = cfg.replace(cim_mesh=mesh)
     sv = arch_serving(cfg, dev)
     if params is None:
         params = sv.init_params(0)
@@ -204,7 +242,8 @@ def deploy(arch: str = "gemma2-9b", *, smoke: bool = False,
         spec = CoreSpec(n_cores=cim_cores) if cim_cores else None
         with stopwatch() as sw:
             params = sv.deploy_cim(params, mode=cim_mode, spec=spec,
-                                   x_cal=x_cal)
+                                   x_cal=x_cal, mesh_shape=mesh_shape,
+                                   mesh=mesh, x_cal_shards=x_cal_shards)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         deploy_s = sw.s
@@ -218,7 +257,9 @@ def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
                  cim_ir_drop: float = 0.0, device: Optional[str] = None,
                  n_layers: Optional[int] = None,
                  params=None, prompts=None, x_cal=None, src_embeds=None,
-                 vis_prefix: bool = False, vis_embeds=None) -> ServeResult:
+                 vis_prefix: bool = False, vis_embeds=None,
+                 mesh_shape=None, mesh=None,
+                 x_cal_shards=None) -> ServeResult:
     """Build (or take) params, deploy the chip under `cim`, serve one
     static batch. The params, prompts and calibration batches are drawn
     from generators seeded 0, 1 and 7; params / prompts / x_cal, when
@@ -226,12 +267,14 @@ def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
     encoder-decoder encodes `src_embeds` (default 0.02 * normal (batch,
     prompt_len, d), seeded 2) once; its memory feeds prefill and decode.
     vis_prefix: a VLM's prefill runs `vis_embeds` (default 0.02 * normal
-    (batch, vis_patches, d), seeded 3) ahead of the prompt."""
+    (batch, vis_patches, d), seeded 3) ahead of the prompt. mesh_shape /
+    mesh / x_cal_shards: a tensor-parallel deploy (`deploy`)."""
     dev = resolve_device(device)
     cfg, params, deploy_s = deploy(
         arch, smoke=smoke, cim=cim, cim_mode=cim_mode, cim_bits=cim_bits,
         cim_cores=cim_cores, cim_ir_drop=cim_ir_drop, device=dev,
-        n_layers=n_layers, params=params, x_cal=x_cal)
+        n_layers=n_layers, params=params, x_cal=x_cal,
+        mesh_shape=mesh_shape, mesh=mesh, x_cal_shards=x_cal_shards)
     if prompts is None:
         prompts = lm_tokens(torch.Generator(dev).manual_seed(1), batch,
                             prompt_len, cfg.vocab)
@@ -298,11 +341,14 @@ def serve_traffic(arch: str = "gemma2-9b", *, smoke: bool = False,
                   cim_ir_drop: float = 0.0, device: Optional[str] = None,
                   n_layers: Optional[int] = None,
                   capture_logits: bool = False, metrics=None, trace=None,
-                  strict_jit: bool = False) -> TrafficResult:
+                  strict_jit: bool = False, mesh_shape=None, mesh=None,
+                  rank: int = 0, n_ranks: int = 1) -> TrafficResult:
     """Deploy as `serve_static` does, then serve `traffic_stream`'s
     requests in real time through a `slots`-slot continuous-batching
-    engine with `chunk`-token prefill chunks. Encoder-decoder and VLM archs
-    are refused, as the reference refuses them."""
+    engine with `chunk`-token prefill chunks: all of them, or replica
+    `rank`'s share of `n_ranks` (`distributed.route_requests`).
+    Encoder-decoder and VLM archs are refused, as the reference refuses
+    them."""
     dev = resolve_device(device)
     arch_cfg = configs.get(arch, smoke=smoke)
     if arch_cfg.enc_layers > 0 or arch_cfg.vis_patches > 0:
@@ -311,12 +357,13 @@ def serve_traffic(arch: str = "gemma2-9b", *, smoke: bool = False,
     cfg, params, deploy_s = deploy(
         arch, smoke=smoke, cim=cim, cim_mode=cim_mode, cim_bits=cim_bits,
         cim_cores=cim_cores, cim_ir_drop=cim_ir_drop, device=dev,
-        n_layers=n_layers)
+        n_layers=n_layers, mesh_shape=mesh_shape, mesh=mesh)
     reqs, max_len = traffic_stream(cfg, requests, prompt_len=prompt_len,
                                    gen=gen, chunk=chunk, rate=rate,
                                    device=dev)
+    reqs = dist.route_requests(reqs, n_ranks, rank)
     eng = ContinuousBatchingEngine(cfg, params, n_slots=slots,
-                                   max_len=max_len, chunk=chunk,
+                                   max_len=max_len, chunk=chunk, mesh=mesh,
                                    capture_logits=capture_logits,
                                    metrics=metrics, trace=trace,
                                    strict_jit=strict_jit)
@@ -340,14 +387,29 @@ def _add_obs_flags(ap):
                          "assertion: any compilation after warmup raises")
 
 
-def _write_obs(args, metrics, trace=None, summary=None):
-    """Flush whichever observability outputs were requested."""
-    if args.metrics_out:
-        metrics.write_json(args.metrics_out)
-        print(f"metrics: wrote {args.metrics_out}")
-    if args.prom_out:
-        metrics.write_prometheus(args.prom_out)
-        print(f"metrics: wrote {args.prom_out}")
+def _write_obs(args, metrics, trace=None, summary=None, extra_labels=None):
+    """Flush whichever observability outputs were requested. `metrics` is
+    a MetricsRegistry, or an already merged `to_dict` document (the
+    multi-rank path: rank 0 holds the fleet's series, no live registry
+    exists for them)."""
+    if isinstance(metrics, dict):
+        from ..obs import dict_to_prometheus
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                json.dump(metrics, f, indent=2, sort_keys=True)
+                f.write("\n")
+            print(f"metrics: wrote {args.metrics_out}")
+        if args.prom_out:
+            with open(args.prom_out, "w") as f:
+                f.write(dict_to_prometheus(metrics))
+            print(f"metrics: wrote {args.prom_out}")
+    else:
+        if args.metrics_out:
+            metrics.write_json(args.metrics_out, extra_labels)
+            print(f"metrics: wrote {args.metrics_out}")
+        if args.prom_out:
+            metrics.write_prometheus(args.prom_out, extra_labels)
+            print(f"metrics: wrote {args.prom_out}")
     if args.trace_out and trace is not None:
         trace.write(args.trace_out)
         print(f"trace: wrote {args.trace_out} ({len(trace.events)} events)")
@@ -358,30 +420,78 @@ def _write_obs(args, metrics, trace=None, summary=None):
         print(f"summary: wrote {args.summary_out}")
 
 
-def _print_chip(args, cfg, params, deploy_s):
+def _first_chip(v):
+    """Layer 0's first chip of a '<name>_cim' entry (a per-layer list of
+    PackedCIMLayers, ShardedPackedLayers or per-expert lists)."""
+    c = v[0][0] if isinstance(v[0], list) else v[0]
+    return c.shards[0] if hasattr(c, "shards") else c
+
+
+def _print_chip(args, cfg, params, deploy_s, tp: int, rtag: str = ""):
     stacks = {k[:-4]: v for k, v in params["layers"].items()
               if k.endswith("_cim")}
-    # an expert stack is a per-layer list of per-expert chips
-    first = {k: v[0][0] if isinstance(v[0], list) else v[0]
-             for k, v in stacks.items()}
-    passes = {k: c.packed.n_passes for k, c in first.items()}
+    passes = {k: _first_chip(v).packed.n_passes for k, v in stacks.items()}
     experts = sum(1 for v in stacks.values() if isinstance(v[0], list))
     per_expert = f" ({experts} of them one chip per expert, " \
         f"{cfg.n_experts} experts)" if experts else ""
     n_shared = sum(1 for k in params.get("shared_attn", {})
                    if k.endswith("_cim"))
     shared = f" + {n_shared} shared-attn projections" if n_shared else ""
-    print(f"cim: compiled {len(stacks)} projection stacks{per_expert} x "
-          f"{len(next(iter(stacks.values())))} layers{shared} "
+    mesh_s = "off" if cfg.cim_mesh is None else \
+        "{data}x{model}".format(**cfg.cim_mesh.shape)
+    print(f"{rtag}cim: compiled {len(stacks)} projection stacks{per_expert} "
+          f"x {len(next(iter(stacks.values())))} layers{shared} "
           f"({args.cim_mode}, "
           f"bits={cfg.cim_in_bits}/{cfg.cim_out_bits}, "
-          f"ir_drop={cfg.cim_ir_drop}, tp=1) in {deploy_s:.1f}s; "
-          f"passes per projection {passes}")
+          f"ir_drop={cfg.cim_ir_drop}, tp={tp}, mesh={mesh_s}) in "
+          f"{deploy_s:.1f}s; passes per projection {passes}")
 
 
-def _serve_traffic(args, kw):
-    """--traffic: the seeded open-loop stream through the slotted pool;
-    the one-compilation contract is asserted before anything is written."""
+def _cli_mesh(ap, args):
+    """(mesh, mesh_shape) of --cim-mesh over this process's distinct local
+    devices: 'auto' the 'model'-only mesh, 'off' no mesh at its width,
+    'DxM' that shape (it must use every local device)."""
+    import re
+    from . import mesh as mesh_mod
+    kind = torch.device(args.device).type
+    if args.cim_mesh == "auto":
+        return mesh_mod.model_mesh(device_type=kind), None
+    if args.cim_mesh == "off":
+        return None, {"model": mesh_mod.model_mesh(
+            device_type=kind).shape["model"]}
+    m = re.fullmatch(r"(\d+)x(\d+)", args.cim_mesh)
+    if not m:
+        ap.error(f"--cim-mesh must be 'auto', 'off' or 'DxM' (e.g. '1x8'), "
+                 f"got {args.cim_mesh!r}")
+    try:
+        return mesh_mod.serving_mesh(device_type=kind, shape={
+            "data": int(m.group(1)), "model": int(m.group(2))}), None
+    except ValueError as e:
+        ap.error(f"--cim-mesh {args.cim_mesh}: {e}")
+
+
+def _write_results(path: str, requests, rank: int, n_ranks: int):
+    """--results-out: every served request's tokens and logits rows as
+    numpy arrays (`tokens_<rid>`, `logits_<rid>`), with the rank and the
+    rank count, to `path` ('{rank}' in it becomes the rank)."""
+    import numpy as np
+    path = path.format(rank=rank)
+    arrs = {"rank": np.array(rank), "n_ranks": np.array(n_ranks),
+            "rids": np.array([r.rid for r in requests], dtype=np.int64)}
+    for r in requests:
+        arrs[f"tokens_{r.rid}"] = np.array(r.tokens, dtype=np.int64)
+        arrs[f"logits_{r.rid}"] = np.stack(r.logits)
+    with open(path, "wb") as f:
+        np.savez(f, **arrs)
+    print(f"results: wrote {path} ({len(requests)} requests)")
+
+
+def _serve_traffic(args, kw, tp: int = 1, rank: int = 0, n_ranks: int = 1):
+    """--traffic: the seeded open-loop stream (this replica's share of it)
+    through the slotted pool; the one-compilation contract is asserted
+    per rank before anything is written or gathered. Under a process
+    group, rank 0 gathers every rank's summary and rank-tagged metrics
+    and writes the merged files."""
     metrics = MetricsRegistry()
     trace = TraceBuffer() if args.trace_out else None
     slots = args.slots or args.batch
@@ -389,14 +499,18 @@ def _serve_traffic(args, kw):
                         chunk=args.chunk, rate=args.rate,
                         prompt_len=args.prompt_len, gen=args.gen,
                         metrics=metrics, trace=trace,
-                        strict_jit=args.strict_jit, **kw)
+                        strict_jit=args.strict_jit,
+                        capture_logits=bool(args.results_out),
+                        rank=rank, n_ranks=n_ranks, **kw)
     cfg, stats = res.cfg, res.stats
+    dist_on = n_ranks > 1
+    rtag = f"[rank {rank}/{n_ranks}] " if dist_on else ""
     if args.cim:
-        _print_chip(args, cfg, res.params, res.deploy_s)
+        _print_chip(args, cfg, res.params, res.deploy_s, tp, rtag)
     assert stats["decode_traces"] == 1, \
         f"decode recompiled across occupancy changes: {stats['decode_traces']}"
     tag = " cim=packed" if args.cim else ""
-    print(f"arch={cfg.name}{tag} traffic: {stats['requests']} reqs "
+    print(f"{rtag}arch={cfg.name}{tag} traffic: {stats['requests']} reqs "
           f"slots={slots} chunk={args.chunk} rate={args.rate}/s -> "
           f"{stats['tokens']} tokens in {stats['wall_s']:.2f}s "
           f"({stats['tok_per_s']:.1f} tok/s) "
@@ -404,15 +518,45 @@ def _serve_traffic(args, kw):
           f"ttft_p50={stats['ttft_p50_ms']:.1f}ms "
           f"decode_traces={stats['decode_traces']}")
     if stats["energy_pj"] > 0:
-        print(f"chip energy: {stats['energy_pj']/1e6:.2f} uJ "
+        print(f"{rtag}chip energy: {stats['energy_pj']/1e6:.2f} uJ "
               f"({stats['pj_per_token']/1e3:.1f} nJ/token, "
               f"{stats['tops_per_w']:.2f} TOPS/W, "
               f"utilization={stats['utilization']:.2f})")
+    if args.results_out:
+        _write_results(args.results_out, res.requests, rank, n_ranks)
     summary = dict(stats)
     summary.update({"mode": "traffic", "arch": cfg.name,
                     "cim": bool(args.cim), "slots": slots,
                     "chunk": args.chunk, "rate": args.rate})
-    _write_obs(args, metrics, trace=trace, summary=summary)
+    if not dist_on:
+        _write_obs(args, metrics, trace=trace, summary=summary)
+        return stats
+
+    # the rank-0 reporting contract: gather, merge, write once
+    from ..obs import merge_registries
+    summary.update({"rank": rank, "ranks": n_ranks,
+                    "rids": [r.rid for r in res.requests]})
+    docs = dist.gather_json("serve_traffic", {
+        "summary": summary,
+        "metrics": metrics.to_dict(extra_labels={"rank": str(rank)})})
+    if rank != 0:
+        return stats
+    merged = dist.merge_summaries([d["summary"] for d in docs])
+    merged.update({"mode": "traffic", "arch": cfg.name,
+                   "cim": bool(args.cim), "slots": slots,
+                   "chunk": args.chunk, "rate": args.rate,
+                   "mesh_shape": dist.global_mesh_shape(
+                       device_type=torch.device(args.device).type),
+                   "routing": "round_robin",
+                   "rids_per_rank": [d["summary"]["rids"] for d in docs]})
+    print(f"fleet[{n_ranks} replicas]: {merged['requests']} reqs -> "
+          f"{merged['tokens']} tokens, aggregate "
+          f"{merged['tok_per_s']:.1f} tok/s "
+          f"(slowest replica wall {merged['wall_s']:.2f}s), "
+          f"p99={merged['p99_ms']:.1f}ms, "
+          f"decode_traces(max)={merged['decode_traces']}")
+    _write_obs(args, merge_registries([d["metrics"] for d in docs]),
+               trace=trace, summary=merged)
     return stats
 
 
@@ -442,6 +586,13 @@ def main(argv=None):
     ap.add_argument("--cim-ir-drop", type=float, default=0.0,
                     help="ir_drop_alpha for --cim: > 0 plans IR-drop-bounded "
                          "vertical column splits")
+    ap.add_argument("--cim-mesh", default="auto",
+                    help="tensor-parallel placement for --cim: 'auto' "
+                         "builds a 'model'-only mesh over the local devices "
+                         "and places each shard's chips on its own device; "
+                         "'off' keeps every chip on the serving device; "
+                         "'DxM' (e.g. '1x8') asks for that (data, model) "
+                         "shape")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--traffic", action="store_true",
@@ -456,24 +607,40 @@ def main(argv=None):
                     help="--traffic: prefill chunk size (and prompt page)")
     ap.add_argument("--rate", type=float, default=50.0,
                     help="--traffic: Poisson arrival rate (req/s)")
+    ap.add_argument("--results-out", default="",
+                    help="--traffic: write each served request's tokens and "
+                         "logits (.npz; '{rank}' in the path becomes the "
+                         "rank)")
     _add_obs_flags(ap)
     args = ap.parse_args(argv)
+
+    # join the process group (if any) before the first device query
+    dist_on = dist.initialize()
+    rank, n_ranks = dist.process_info()
+    rtag = f"[rank {rank}/{n_ranks}] " if dist_on else ""
+    mesh, mesh_shape = _cli_mesh(ap, args) if args.cim else (None, None)
+    tp = (mesh.shape["model"] if mesh is not None
+          else (mesh_shape or {}).get("model", 1))
     kw = dict(smoke=args.smoke, cim=args.cim, cim_mode=args.cim_mode,
               cim_bits=args.cim_bits, cim_cores=args.cim_cores,
               cim_ir_drop=args.cim_ir_drop, device=args.device,
-              n_layers=args.layers or None)
+              n_layers=args.layers or None, mesh_shape=mesh_shape,
+              mesh=mesh)
     if args.traffic:
-        return _serve_traffic(args, dict(kw, arch=args.arch))
+        return _serve_traffic(args, dict(kw, arch=args.arch), tp, rank,
+                              n_ranks)
     res = serve_static(args.arch, batch=args.batch,
                        prompt_len=args.prompt_len, gen=args.gen, **kw)
     cfg, g = res.cfg, res.out
     if args.cim:
-        _print_chip(args, cfg, res.params, res.deploy_s)
+        _print_chip(args, cfg, res.params, res.deploy_s, tp, rtag)
     t_decode = sum(g.decode_s) / len(g.decode_s) if g.decode_s else 0.0
     thr = (args.batch / t_decode) if t_decode else float("nan")
     dev = torch.device(args.device)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     tag = " cim=packed" if args.cim else ""
+    if dist_on:
+        tag += f" rank={rank}/{n_ranks}"
     print(f"arch={cfg.name}{tag} device={where} batch={args.batch} "
           f"prefill={g.prefill_s * 1e3:.1f}ms "
           f"decode={t_decode * 1e3:.1f}ms/tok throughput={thr:.1f} tok/s")
@@ -506,7 +673,15 @@ def main(argv=None):
         "pj_per_token": energy_pj / n_tok if n_tok else 0.0,
         "sample_tokens": g.tokens[0, :16].tolist(),
     }
-    _write_obs(args, metrics, summary=summary)
+    if dist_on:
+        # static mode replicates the same batch on every rank (a group
+        # smoke, not a routed workload); rank 0 owns the output files
+        summary.update({"rank": rank, "ranks": n_ranks})
+        if rank == 0:
+            _write_obs(args, metrics, summary=summary,
+                       extra_labels={"rank": str(rank)})
+    else:
+        _write_obs(args, metrics, summary=summary)
     return g.tokens
 
 

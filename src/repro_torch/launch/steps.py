@@ -12,7 +12,7 @@ in chunks of ADAMW_CHUNK elements (the reference donates both buffers):
 a tree-at-once update would hold the old and the new f32 moments together,
 34 GB more at qwen2-72b's full width, two layers deep. The sharded
 gradients of the reference's step (grad_spec, data_axes, mesh) wait for
-the multi-device port (ROADMAP A13)."""
+training on a mesh (ROADMAP A18)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple
@@ -35,6 +35,8 @@ class ArchServing(NamedTuple):
       prefill(params, state, tokens, memory=None)      -> (logits, state)
       decode_step(params, state, tokens, memory=None)  -> (logits, state)
       deploy_cim(params, **kw)             -> params with '_cim' entries
+                                              (kw: mode, spec, mesh_shape,
+                                              mesh, x_cal, ...)
 
     memory: an encoder-decoder's encoded source (`transformer._encode`).
     """
@@ -147,7 +149,7 @@ def make_train_step(cfg: T.ArchConfig, lr: float = 1e-4, accum: int = 1,
             or grad_sync != "micro":
         raise NotImplementedError(
             "sharded gradients (grad_spec, data_axes, mesh, grad_sync) "
-            "wait for the multi-device port, ROADMAP A13")
+            "wait for training on a mesh, ROADMAP A18")
 
     def train_step(params, opt_state, batch):
         if accum == 1:

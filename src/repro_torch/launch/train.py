@@ -21,7 +21,7 @@ VLM's or an encoder-decoder's stub frontend embeddings, 0.02 x normal)
 from one seeded 1000 + i; each step's time is taken with CUDA events on
 the card. As in the reference, a resumed run's data stream restarts at
 batch 0 (`data_iter` is made after `resume`, from 0). --production-mesh
-(the reference's multi-host mesh) waits for ROADMAP A13; there are no TPU
+(the reference's multi-host mesh) waits for ROADMAP A18; there are no TPU
 XLA flags.
 """
 from __future__ import annotations
@@ -146,8 +146,8 @@ def run(args) -> TrainResult:
     dev = resolve_device(args.device)
     if args.production_mesh:
         raise NotImplementedError("--production-mesh (the multi-host mesh) "
-                                  "waits for the multi-device port, "
-                                  "ROADMAP A13")
+                                  "waits for training on a mesh, "
+                                  "ROADMAP A18")
     cfg = train_config(args)
     params = T.init_params(cfg, seed=0, device=dev)
     opt = adamw_init_f32(params)

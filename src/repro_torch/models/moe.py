@@ -34,8 +34,13 @@ Two orders are fixed so that runs are bit-reproducible on the card:
     order and summed left to right from zeros — never `index_add_`,
     whose CUDA atomics would add them in a different order every run.
 
-`moe_ffn_ep_shardmap` (expert parallelism over a mesh) waits for ROADMAP
-A13.
+On a tensor-parallel mesh (`cfg.cim_mesh`) whose 'model' width m
+divides E, deploy places the expert chips expert-parallel
+(`nn.place_packed_stack`: shard j holds experts j * E/m .. (j+1) * E/m -
+1), and `_expert_matmul` launches each expert where its chip lies, with
+the same seeds and order as on one device.
+`moe_ffn_ep_shardmap` (all-to-all expert parallelism for training) waits
+for training on a mesh (ROADMAP A18).
 """
 from __future__ import annotations
 
@@ -59,16 +64,19 @@ def _router(x2, router_w, top_k: int):
 def _expert_matmul(p: Dict, name: str, xe, cfg, *, seed: int = 0):
     """Batched expert matmul (E, C, d) @ (E, d, f) -> (E, C, f): expert e's
     group through its own chip (p['<name>_cim'][e], one launch, seed
-    seed + e) under cim_mode="packed", else the float einsum."""
+    seed + e) under cim_mode="packed", else the float einsum. Each
+    expert's group launches where its chip lies (expert-parallel chips:
+    module docstring); every launch is enqueued before the outputs come
+    back to xe's device."""
     pcls = p.get(name + "_cim")
     if pcls is None or cfg.cim_mode != "packed":
         return torch.einsum("ecd,edf->ecf", xe, p[name])
     from . import nn as nn_mod
     ccfg = nn_mod.arch_cim_config(cfg)
-    ys = [nn_mod.packed_linear(pcls[e], xe[e], ccfg, seed=seed + e,
-                               impl=cfg.cim_impl)
-          for e in range(cfg.n_experts)]
-    return torch.stack(ys).to(xe.dtype)
+    ys = [nn_mod.packed_linear(c, xe[e].to(c.packed.gd_tiles.device), ccfg,
+                               seed=seed + e, impl=cfg.cim_impl)
+          for e, c in enumerate(pcls)]
+    return torch.stack([y.to(xe.device) for y in ys]).to(xe.dtype)
 
 
 def capacity(t: int, cfg, capacity_factor: float = 1.25) -> int:

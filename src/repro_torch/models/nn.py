@@ -31,22 +31,37 @@ half before (asymmetric at stride 2).
 projections onto one simulated chip (`core.cim.compile_chip`) and each
 routed expert of each layer onto a chip of its own (the paper's
 power-gated cores), and returns params augmented with '<name>_cim'
-entries: a list with one PackedCIMLayer per layer (experts: per layer, a
-list with one per expert), which `models/transformer.cim_linear` and
-`models/moe.moe_ffn` serve through `packed_linear`. As in the reference,
-the dense layers of llama4's interleave ('dense_layers') are not
-deployed: they serve float under --cim.
+entries: a list with one entry per layer (experts: per layer, a list
+with one PackedCIMLayer per expert), which `models/transformer.cim_linear`
+and `models/moe.moe_ffn` serve through `packed_linear`. As in the
+reference, the dense layers of llama4's interleave ('dense_layers') are
+not deployed: they serve float under --cim.
 `deploy_recurrent_cim` compiles the recurrent stacks (rwkv6, mamba2) one
 chip per layer and zamba2's shared attention block onto a chip of its own;
 `deploy_cim` picks it or `deploy_transformer_cim` by the arch's family.
 `deploy_rbm_cim` compiles an RBM onto one bidirectional chip.
 
-At one tensor-parallel shard the reference compiles every projection as
-one replicated ("none") stack; that is all the port does. Sharded deploys
-(a 'model' width above 1, `ShardedPackedLayer`) wait for ROADMAP A13.
+Tensor parallelism (`mesh_shape` / `mesh` with a 'model' width M > 1):
+ONE ENGINE PER SHARD. Each shard compiles its own chip per layer from its
+local slice of every projection (`distributed/sharding.param_pspecs` and
+`shard_slice`: a NeuRRAM core is an intra-shard unit), so a layer entry
+is a `ShardedPackedLayer` holding M per-shard PackedCIMLayers.
+Column-parallel shards each produce a slice of the output (concatenated
+in shard order), row-parallel shards each read a slice of the input and
+produce partial sums (folded left to right in shard order). A projection
+whose sharded dim does not divide by M stays one replicated ('none')
+stack of bare PackedCIMLayers, compiled on chips of its own. With a
+`launch/mesh.Mesh`, shard s's chips are placed on the mesh's 'model'
+device s at deploy time; without one they stay on the params' device.
+One executor serves both (`sharded_packed_loop`, the reference's loop
+and its shard_map executor in one): each shard's kernel launches where
+its chips lie. Routed experts place expert-parallel: expert e on the
+device of shard e // (E / M). At M = 1 every projection is a 'none'
+stack, as in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -308,10 +323,101 @@ def deploy_packed_stack(stacked_w: Dict[str, torch.Tensor], ccfg: CIMConfig,
                           generator)[0]
 
 
+@dataclasses.dataclass
+class ShardedPackedLayer:
+    """One layer's projection as per-tensor-parallel-shard packed chips,
+    and how their outputs combine: 'col' shards each produce a slice of
+    the output (concatenated in shard order), 'row' shards each read a
+    slice of the input and produce partial sums (`_ordered_fold`).
+    Executed by `sharded_packed_loop`."""
+    shards: List[cim_api.PackedCIMLayer]    # one per 'model' shard
+    partition: str                          # 'col' | 'row' | 'none'
+    n_shards: int
+
+
+def _ordered_fold(parts):
+    """Partial sums added left to right in shard order, one f32 add at a
+    time from the first (the reference's loop's reduction)."""
+    y = parts[0]
+    for p in parts[1:]:
+        y = y + p
+    return y
+
+
+def _shard_input(spl: ShardedPackedLayer, x, s: int):
+    """Shard s's input: x itself, or its s-th column slice for 'row'."""
+    if spl.partition != "row":
+        return x
+    r = x.shape[-1] // spl.n_shards
+    return x.narrow(-1, s * r, r)
+
+
+def sharded_packed_loop(spl: ShardedPackedLayer, x, ccfg: CIMConfig, *,
+                        seed: int = 0, impl: str = "auto"):
+    """Serve one projection through its per-shard chips. x: (B, R_global)
+    float. Shard s's kernel launches where its chips lie (on a mesh's
+    'model' device s when deploy placed them there, x's slice moved to
+    it); every shard's launch is enqueued before any output is copied
+    back to x's device, so shards on distinct cards may overlap. 'col'
+    outputs concatenate in shard order, 'row' partials fold left to right
+    in shard order (`_ordered_fold`)."""
+    outs = []
+    for s, pcl in enumerate(spl.shards):
+        dev = pcl.packed.gd_tiles.device
+        outs.append(cim_api.packed_forward(
+            pcl, _shard_input(spl, x, s).to(dev), ccfg, seed=seed, impl=impl))
+    outs = [y.to(x.device) for y in outs]
+    if spl.n_shards == 1:
+        return outs[0]
+    if spl.partition == "col":
+        return torch.cat(outs, dim=-1)
+    return _ordered_fold(outs)
+
+
+def _place_chip(pcl: cim_api.PackedCIMLayer, dev) -> cim_api.PackedCIMLayer:
+    """The chip with every tensor on `dev` (itself when already there)."""
+    p = pcl.packed
+    if p.gd_tiles.device == dev:
+        return pcl
+    layer = pcl.layer._replace(**{
+        f: v.to(dev) for f, v in zip(pcl.layer._fields, pcl.layer)
+        if isinstance(v, torch.Tensor)})
+    packed = dataclasses.replace(
+        p, gd_tiles=p.gd_tiles.to(dev),
+        inv_norm_tiles=p.inv_norm_tiles.to(dev),
+        v_decr_tiles=p.v_decr_tiles.to(dev),
+        denorm_tiles=p.denorm_tiles.to(dev))
+    return cim_api.PackedCIMLayer(layer, packed)
+
+
+def place_packed_stack(stack, mesh, n_shards: int):
+    """Place a packed chip stack onto the serving mesh at DEPLOY time:
+    shard s of a ShardedPackedLayer (or of each layer's, for a per-layer
+    list of them) on the mesh's 'model' device s
+    (`distributed/sharding.packed_shardings`); a routed-expert stack
+    ([L][E] PackedCIMLayers) expert-parallel, expert e on the device of
+    shard e // (E / n_shards). Serving then moves no chip state."""
+    from ..distributed.sharding import packed_shardings
+    devs = packed_shardings(mesh, n_shards)
+    if isinstance(stack, ShardedPackedLayer):
+        return ShardedPackedLayer(
+            [_place_chip(c, d) for c, d in zip(stack.shards, devs)],
+            stack.partition, stack.n_shards)
+    if isinstance(stack[0], ShardedPackedLayer):
+        return [place_packed_stack(s, mesh, n_shards) for s in stack]
+    per = len(stack[0]) // n_shards
+    return [[_place_chip(c, devs[e // per]) for e, c in enumerate(layer)]
+            for layer in stack]
+
+
 def packed_linear(pcl, x, ccfg: CIMConfig, *, seed: int = 0,
                   impl: str = "auto"):
-    """x: (B, n_in) float -> (B, n_out) float through one packed launch
-    (seed: the stochastic neuron's salt)."""
+    """x: (B, n_in) float -> (B, n_out) float through one packed launch,
+    or one per shard of a ShardedPackedLayer (`sharded_packed_loop`;
+    seed: the stochastic neuron's salt)."""
+    if isinstance(pcl, ShardedPackedLayer):
+        return sharded_packed_loop(pcl, x.to(torch.float32), ccfg,
+                                   seed=seed, impl=impl)
     return cim_api.packed_forward(pcl, x.to(torch.float32), ccfg, seed=seed,
                                   impl=impl)
 
@@ -325,41 +431,130 @@ def arch_cim_config(arch_cfg) -> CIMConfig:
         nonideal=NonIdealityConfig(ir_drop_alpha=arch_cfg.cim_ir_drop))
 
 
+def _deploy_sharded_stacks(stacked: Dict[str, torch.Tensor],
+                           ccfg: CIMConfig, *, mode: str, in_alpha: Alpha,
+                           mesh_shape: Dict[str, int],
+                           spec: Optional[CoreSpec], generator,
+                           mesh=None, x_cal=None, x_cal_shards=None):
+    """Compile (L, R, C) weight stacks into per-shard packed chip stacks:
+    the deploy core of `deploy_transformer_cim` and
+    `deploy_recurrent_cim`. ONE ENGINE PER 'model' SHARD, compiled from
+    that shard's local slice of every projection; returns name -> a
+    per-layer list of ShardedPackedLayers (placed on `mesh` when given),
+    or of bare PackedCIMLayers for a replicated ('none') projection.
+
+    A projection whose sharded dim does not divide by the 'model' width
+    falls back to one replicated engine (the fit_pspecs rule), compiled on
+    chips of its own: mixed into shard 0's chip it would make shard 0's
+    plan differ from the other shards'. x_cal: per-layer name -> (64, R)
+    batches for the 'none' chips; x_cal_shards: per shard, per layer,
+    name -> (64, R_local) batches for the shard chips (the reference
+    draws shard s's from fold_in(key, s) and the 'none' chips' from
+    fold_in(key, M)); missing batches come from `generator`. Every shard
+    chip has the same shapes, so the first one's plan serves them all."""
+    from ..distributed.sharding import (param_pspecs, partition_kind,
+                                        shard_shape, shard_slice)
+    _check_alpha_names(in_alpha, stacked)
+    n_sh = max(int(mesh_shape.get("model", 1)), 1)
+    specs = param_pspecs({"layers": dict(stacked)})["layers"]
+    kinds = {}
+    for n, w in stacked.items():
+        try:
+            shard_shape(w.shape, specs[n], {"model": n_sh})
+            kinds[n] = partition_kind(specs[n]) if n_sh > 1 else "none"
+        except ValueError:      # not divisible: replicate (fit_pspecs rule)
+            kinds[n] = "none"
+    sharded = sorted(n for n in stacked if kinds[n] != "none")
+    none = sorted(n for n in stacked if kinds[n] == "none")
+    if sharded and x_cal_shards is not None and len(x_cal_shards) != n_sh:
+        raise ValueError(f"x_cal_shards has {len(x_cal_shards)} shards, the "
+                         f"deploy {n_sh}")
+    shard_chips, plan = [], None
+    for s in range(n_sh if sharded else 0):
+        local = {n: shard_slice(stacked[n], specs[n], {"model": n_sh},
+                                {"model": s}) for n in sharded}
+        chips, plan = _compile_stack(
+            local, ccfg, mode, _group_alpha(in_alpha, sharded), spec,
+            None if x_cal_shards is None else x_cal_shards[s], generator,
+            plan=plan)
+        shard_chips.append(chips)
+    out = {}
+    if none:
+        out = _compile_stack({n: stacked[n] for n in none}, ccfg, mode,
+                             _group_alpha(in_alpha, none), spec, x_cal,
+                             generator)[0]
+    for n in sharded:
+        spls = [ShardedPackedLayer([sc[n][li] for sc in shard_chips],
+                                   kinds[n], n_sh)
+                for li in range(len(shard_chips[0][n]))]
+        out[n] = spls if mesh is None else place_packed_stack(spls, mesh,
+                                                              n_sh)
+    return {n: out[n] for n in stacked}
+
+
+def _resolve_mesh(arch_cfg, mesh, mesh_shape):
+    """The (mesh, mesh_shape) a CIM deploy plans and places with: an
+    explicit `mesh` wins, else the arch's `cim_mesh`; `mesh_shape`
+    defaults to the mesh's own axis sizes, and one whose 'model' width
+    disagrees with the mesh's raises. A mesh whose 'data' width is above
+    1 raises (`launch/mesh.check_serving_mesh`)."""
+    from ..launch.mesh import check_serving_mesh
+    mesh = mesh if mesh is not None else getattr(arch_cfg, "cim_mesh", None)
+    if mesh is not None:
+        check_serving_mesh(mesh)
+    if mesh_shape is None:
+        mesh_shape = dict(mesh.shape) if mesh is not None else {"model": 1}
+    elif mesh is not None \
+            and int(mesh_shape.get("model", 1)) != mesh.shape["model"]:
+        raise ValueError(
+            f"mesh_shape {dict(mesh_shape)} disagrees with the serving "
+            f"mesh's axes {mesh.shape}: per-shard chip stacks are placed "
+            "with shard s on the mesh's 'model' device s, so the TP width "
+            "must equal the mesh's 'model' size (drop mesh_shape to derive "
+            "it from the mesh)")
+    return mesh, dict(mesh_shape)
+
+
 def deploy_transformer_cim(params, arch_cfg, *, mode: str = "ideal",
                            in_alpha: Alpha = 3.0,
                            mesh_shape: Optional[Dict[str, int]] = None,
-                           spec: Optional[CoreSpec] = None,
+                           spec: Optional[CoreSpec] = None, mesh=None,
                            x_cal: Optional[List[Dict[str, Any]]] = None,
+                           x_cal_shards: Optional[
+                               List[List[Dict[str, Any]]]] = None,
                            x_cal_experts: Optional[
                                List[List[Dict[str, Any]]]] = None):
     """Compile every packed-servable projection of a transformer onto CIM
     chips and return params augmented with '<name>_cim' entries,
     re-verified by the chip-IR verifier.
 
-    One chip per layer carries the dense-block and shared-expert
-    projections (PACKED_PROJ_KEYS). The routed experts (PACKED_EXPERT_KEYS,
-    (L, E, R, C) stacks) get one chip per (layer, expert), which
-    `moe.moe_ffn` serves; each '<name>_cim' expert entry is a per-layer
-    list of per-expert PackedCIMLayers ([L][E]). Every expert chip has
-    the same shapes, so the first one's plan serves them all.
+    One chip per layer (per shard under tensor parallelism, module
+    docstring) carries the dense-block and shared-expert projections
+    (PACKED_PROJ_KEYS). The routed experts (PACKED_EXPERT_KEYS, (L, E, R,
+    C) stacks) get one chip per (layer, expert), which `moe.moe_ffn`
+    serves; each '<name>_cim' expert entry is a per-layer list of
+    per-expert PackedCIMLayers ([L][E]), placed expert-parallel on a mesh
+    whose 'model' width divides E. Every expert chip has the same shapes,
+    so the first one's plan serves them all.
 
-    in_alpha: the PACT clip, a float or a per-name dict over both groups
-    (an unknown name raises). x_cal: optional per-layer name -> (64, R)
-    calibration batches for the layer chips; x_cal_experts: optional
-    per-layer, per-expert name -> (64, R) batches for the expert chips
-    (the reference draws them from jax.random, which the port cannot
-    replay: the parity tests hand them in). Missing batches are drawn from
-    a torch.Generator seeded 7 on the params' device. mesh_shape: a
-    'model' width above 1 raises (sharded deploys are ROADMAP A13).
+    mesh_shape / mesh: the tensor-parallel width ({'model': M}) and the
+    serving `launch/mesh.Mesh` the shard chips are placed on (default
+    `arch_cfg.cim_mesh`; without either, M = 1). in_alpha: the PACT clip,
+    a float or a per-name dict over both groups (an unknown name raises).
+    x_cal: optional per-layer name -> (64, R) calibration batches for the
+    replicated ('none') layer chips; x_cal_shards: optional per-shard,
+    per-layer ones for the shard chips; x_cal_experts: optional
+    per-layer, per-expert ones for the expert chips (the reference draws
+    them from jax.random, which the port cannot replay: the parity tests
+    hand them in). Missing batches are drawn from a torch.Generator
+    seeded 7 on the params' device.
     """
     if "layers" not in params or "wq" not in params["layers"]:
         raise ValueError(
             "deploy_transformer_cim covers dense attention+MLP stacks "
             "(params['layers']['wq']); recurrent archs (rwkv6 / mamba2) "
             "deploy through deploy_recurrent_cim")
-    if int((mesh_shape or {}).get("model", 1)) > 1:
-        raise NotImplementedError(
-            "tensor-parallel CIM deploys are not ported yet (ROADMAP A13)")
+    mesh, mesh_shape = _resolve_mesh(arch_cfg, mesh, mesh_shape)
     layers = params["layers"]
     stacked = {n: layers[n] for n in PACKED_PROJ_KEYS if n in layers}
     expert_w = {n: layers[n] for n in PACKED_EXPERT_KEYS if n in layers}
@@ -367,11 +562,12 @@ def deploy_transformer_cim(params, arch_cfg, *, mode: str = "ideal",
     ccfg = arch_cim_config(arch_cfg)
     gen = torch.Generator(layers["wq"].device).manual_seed(7)
     new_layers = dict(layers)
-    for n, pcls in deploy_packed_stack(
+    for n, v in _deploy_sharded_stacks(
             stacked, ccfg, mode=mode,
-            in_alpha=_group_alpha(in_alpha, stacked), spec=spec,
-            x_cal=x_cal, generator=gen).items():
-        new_layers[n + "_cim"] = pcls
+            in_alpha=_group_alpha(in_alpha, stacked), mesh_shape=mesh_shape,
+            spec=spec, generator=gen, mesh=mesh, x_cal=x_cal,
+            x_cal_shards=x_cal_shards).items():
+        new_layers[n + "_cim"] = v
     if expert_w:
         names = sorted(expert_w)
         n_layers, n_experts = expert_w[names[0]].shape[:2]
@@ -385,10 +581,14 @@ def deploy_transformer_cim(params, arch_cfg, *, mode: str = "ideal",
                 {n: expert_w[n][:, e] for n in names}, ccfg, mode, alpha,
                 spec, xc, gen, plan=plan)
             per_exp.append(chips)
+        n_model = int(mesh_shape.get("model", 1))
         for n in names:
-            new_layers[n + "_cim"] = [[per_exp[e][n][li]
-                                       for e in range(n_experts)]
-                                      for li in range(n_layers)]
+            stack = [[per_exp[e][n][li] for e in range(n_experts)]
+                     for li in range(n_layers)]
+            if mesh is not None and n_model > 1 \
+                    and n_experts % n_model == 0:
+                stack = place_packed_stack(stack, mesh, n_model)
+            new_layers[n + "_cim"] = stack
     out = dict(params)
     out["layers"] = new_layers
     return verify_deployed(out)
@@ -422,30 +622,33 @@ def deploy_cim(params, arch_cfg, **kw):
 def deploy_recurrent_cim(params, arch_cfg, *, mode: str = "ideal",
                          in_alpha: float = 3.0,
                          mesh_shape: Optional[Dict[str, int]] = None,
-                         spec: Optional[CoreSpec] = None,
+                         spec: Optional[CoreSpec] = None, mesh=None,
                          x_cal: Optional[List[Dict[str, Any]]] = None,
+                         x_cal_shards: Optional[
+                             List[List[Dict[str, Any]]]] = None,
                          x_cal_shared: Optional[List[Dict[str, Any]]] = None):
     """Compile a recurrent stack's projections onto CIM chips and return
     params augmented with '<name>_cim' entries, re-verified by the chip-IR
     verifier.
 
-    One chip per layer carries every weight-stationary projection: rwkv6's
-    time-mix `wr wk wv wg wo` and channel-mix `ck cv cr`, or mamba2's
-    `in_proj out_proj` and MLP `w_g w_i w_o`. The S / h recurrences (and
-    rwkv6's decay LoRA) stay float: they are state-dependent, nothing
-    weight-stationary to program. zamba2's one shared attention block
-    compiles its dense projections onto a chip of its own, as a one-layer
-    stack whose entries are then unstacked (bare PackedCIMLayers under
+    One chip per layer (per shard under tensor parallelism, as in
+    `deploy_transformer_cim`) carries every weight-stationary projection:
+    rwkv6's time-mix `wr wk wv wg wo` and channel-mix `ck cv cr`, or
+    mamba2's `in_proj out_proj` and MLP `w_g w_i w_o`. The S / h
+    recurrences (and rwkv6's decay LoRA) stay float: they are
+    state-dependent, nothing weight-stationary to program. zamba2's one
+    shared attention block compiles its dense projections onto a chip of
+    its own, as a one-layer stack whose entries are then unstacked (a
+    bare PackedCIMLayer or ShardedPackedLayer per projection under
     params['shared_attn'], served by `transformer.dense_block`).
 
     in_alpha: the scalar PACT clip of the rms-normed inputs; rwkv6's `cv`,
     driven by the squared relu of `ck`'s output, gets in_alpha ** 2.
-    x_cal: optional per-layer name -> (64, R) calibration batches for the
-    layer chips, x_cal_shared a one-entry list of them for the shared
-    block's chip (the parity seam with the reference, whose batches come
-    from jax.random); missing batches are drawn from a torch.Generator
-    seeded 7 on the params' device. mesh_shape: a 'model' width above 1
-    raises (sharded deploys are ROADMAP A13).
+    x_cal / x_cal_shards: the layer chips' calibration batches, as
+    `deploy_transformer_cim` takes them; x_cal_shared: a one-entry list of
+    them for the shared block's replicated chips (the reference draws
+    those from fold_in(key, 104729)). Missing batches are drawn from a
+    torch.Generator seeded 7 on the params' device.
     """
     names = recurrent_proj_keys(arch_cfg)
     layers = params["layers"]
@@ -453,30 +656,29 @@ def deploy_recurrent_cim(params, arch_cfg, *, mode: str = "ideal",
     if not stacked:
         raise ValueError("no recurrent projections found in "
                          f"params['layers'] (expected some of {names})")
-    if int((mesh_shape or {}).get("model", 1)) > 1:
-        raise NotImplementedError(
-            "tensor-parallel CIM deploys are not ported yet (ROADMAP A13)")
+    mesh, mesh_shape = _resolve_mesh(arch_cfg, mesh, mesh_shape)
     ccfg = arch_cim_config(arch_cfg)
     alphas = {n: float(in_alpha) for n in stacked}
     if "cv" in alphas:          # squared-relu input range (docstring)
         alphas["cv"] = float(in_alpha) ** 2
     gen = torch.Generator(layers[names[0]].device).manual_seed(7)
     new_layers = dict(layers)
-    for n, pcls in deploy_packed_stack(
-            stacked, ccfg, mode=mode, in_alpha=alphas, spec=spec,
-            x_cal=x_cal, generator=gen).items():
-        new_layers[n + "_cim"] = pcls
+    for n, v in _deploy_sharded_stacks(
+            stacked, ccfg, mode=mode, in_alpha=alphas,
+            mesh_shape=mesh_shape, spec=spec, generator=gen, mesh=mesh,
+            x_cal=x_cal, x_cal_shards=x_cal_shards).items():
+        new_layers[n + "_cim"] = v
     out = dict(params)
     out["layers"] = new_layers
     if getattr(arch_cfg, "hybrid_attn_every", 0) > 0 \
             and "shared_attn" in params:
         sa = params["shared_attn"]
-        chips = deploy_packed_stack(
+        chips = _deploy_sharded_stacks(
             {n: sa[n][None] for n in PACKED_PROJ_KEYS if n in sa}, ccfg,
-            mode=mode, in_alpha=in_alpha, spec=spec, x_cal=x_cal_shared,
-            generator=gen)
-        out["shared_attn"] = dict(sa, **{n + "_cim": pcls[0]
-                                         for n, pcls in chips.items()})
+            mode=mode, in_alpha=in_alpha, mesh_shape=mesh_shape, spec=spec,
+            generator=gen, mesh=mesh, x_cal=x_cal_shared)
+        out["shared_attn"] = dict(sa, **{n + "_cim": v[0]
+                                         for n, v in chips.items()})
     return verify_deployed(out)
 
 

@@ -107,6 +107,10 @@ class ArchConfig:
     # "auto" launches the CIM kernels on CUDA tensors; "plain" forces
     # their plain PyTorch versions (the on-card comparison only)
     cim_impl: str = "auto"
+    # tensor-parallel serving: the `launch/mesh.Mesh` a CIM deploy places
+    # shard s's chips on (its 'model' device s; `nn.deploy_cim`); every
+    # shard's kernel launches where its chips lie (`nn.sharded_packed_loop`)
+    cim_mesh: Any = None
 
     @property
     def head_dim(self) -> int:
@@ -173,10 +177,11 @@ def cim_linear(x, w, cfg: ArchConfig, *, seed: int = 0, packed=None):
              cim_in_bits grid, the noisy weight, the output on the
              cim_out_bits grid.
     packed:  the programmed chip datapath — `packed` is this projection's
-             PackedCIMLayer; the whole tile plan is one kernel launch
-             (seed: the stochastic neuron's salt, the reference's per
-             call site). Without a deployed plan, packed mode keeps the
-             float path.
+             PackedCIMLayer (the whole tile plan is one kernel launch) or
+             ShardedPackedLayer (one launch per tensor-parallel shard,
+             where its chips lie); seed: the stochastic neuron's salt,
+             the reference's per call site. Without a deployed plan,
+             packed mode keeps the float path.
     """
     if cfg.cim_mode == "packed" and packed is not None:
         from . import nn as nn_mod

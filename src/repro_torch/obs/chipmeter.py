@@ -14,12 +14,14 @@ entry, exactly (one float product of integer counts):
     energy_pj == mvm_cost(rows, cols, in_bits, out_bits).energy_pj
                  * mvm_dispatches
 
-The port's deploy keeps a per-layer LIST of PackedCIMLayers under
+The port's deploy keeps a per-layer LIST under
 params["layers"]["<name>_cim"] (the reference stacks layers on a leading
-axis of one pytree), and for routed experts a per-layer list of
+axis of one pytree): of PackedCIMLayers, of ShardedPackedLayers under
+tensor parallelism (one chip per shard), and for routed experts of
 per-expert lists; an entry's `n_stack` is the number of chips in it, the
-reference's product of the stack's leading dims: layers x one
-tensor-parallel shard, or layers x experts. An expert entry thus meters
+reference's product of the stack's leading dims: layers x tensor-parallel
+shards, or layers x experts, and its `partition` the shards' ('col',
+'row', or 'none' for a replicated stack). An expert entry thus meters
 all E expert chips per token, not only the top-k a token reaches — the
 reference's modeled energy, which the port reproduces. zamba2's shared
 attention block is a bare PackedCIMLayer per projection under
@@ -49,7 +51,7 @@ class ChipEntry:
     rows: int
     cols: int
     n_stack: int
-    partition: str              # 'none' (tensor-parallel splits: ROADMAP A13)
+    partition: str              # 'col' | 'row' | 'none' (TP split kind)
     in_bits: int
     out_bits: int
 
@@ -71,22 +73,34 @@ def _iter_cim_entries(tree, prefix=""):
 
 
 def _chips(obj) -> list:
-    """The PackedCIMLayers of a (nested) list of them, or a bare one."""
+    """The PackedCIMLayers of a (nested) list of them or of
+    ShardedPackedLayers, or of a bare one of either."""
     if isinstance(obj, list):
         return [c for x in obj for c in _chips(x)]
+    if hasattr(obj, "shards"):
+        return list(obj.shards)
     return [obj]
+
+
+def _partition(obj) -> str:
+    """The TP split kind of a stack: its ShardedPackedLayers' ('none' for
+    bare PackedCIMLayers)."""
+    while isinstance(obj, list):
+        obj = obj[0]
+    return getattr(obj, "partition", "none")
 
 
 def _entry_from_packed(name: str, obj, in_bits: int, out_bits: int,
                        direction: str = "fwd") -> ChipEntry:
     """A ChipEntry from a per-layer list of PackedCIMLayers (one chip per
-    layer, all on one plan), a per-layer list of per-expert lists (one
-    chip per layer and expert) or a bare PackedCIMLayer (one chip)."""
+    layer, all on one plan) or of ShardedPackedLayers (one per layer and
+    shard), a per-layer list of per-expert lists (one per layer and
+    expert) or a bare PackedCIMLayer or ShardedPackedLayer."""
     chips = _chips(obj)
     plan = chips[0].packed
     return ChipEntry(name=name, direction=direction,
                      rows=int(plan.n_rows), cols=int(plan.n_cols),
-                     n_stack=len(chips), partition="none",
+                     n_stack=len(chips), partition=_partition(obj),
                      in_bits=int(in_bits), out_bits=int(out_bits))
 
 

@@ -204,7 +204,7 @@ def test_sharded_step_options_raise():
     _, tc = _configs()
     for kw in ({"grad_spec": {}}, {"data_axes": ("data",)},
                {"mesh": object()}, {"grad_sync": "once"}):
-        with pytest.raises(NotImplementedError, match="A13"):
+        with pytest.raises(NotImplementedError, match="A18"):
             tsteps.make_train_step(tc, **kw)
 
 
@@ -420,7 +420,7 @@ def test_train_driver_raises_without_cuda_or_on_a_mesh(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttrain.main(["--smoke", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A18"):
         ttrain.main(["--smoke", "--device", "cpu", "--production-mesh",
                      "--ckpt-dir", str(tmp_path)])
 

@@ -447,10 +447,17 @@ def test_deploy_recurrent_rejects_dense_arch():
 
 
 def test_deploy_recurrent_rejects_model_width():
+    """A 'model' width the serving mesh does not have, or a mesh with a
+    'data' width above 1 (ROADMAP A17), is refused."""
+    from repro_torch.launch.mesh import Mesh
     cfg = tserve.serving_config(RWKV, smoke=True, cim=True)
     params = tT.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tnn.deploy_recurrent_cim(params, cfg, mesh_shape={"model": 2})
+    with pytest.raises(ValueError, match="disagrees with the serving"):
+        tnn.deploy_recurrent_cim(params, cfg, mesh_shape={"model": 2},
+                                 mesh=Mesh([["cpu"]]))
+    with pytest.raises(NotImplementedError, match="A17"):
+        tnn.deploy_recurrent_cim(params, cfg,
+                                 mesh=Mesh([["cpu"], ["cpu"]]))
 
 
 @pytest.mark.parametrize("arch", [RWKV, ZAMBA])

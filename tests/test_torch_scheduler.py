@@ -400,9 +400,14 @@ def test_serve_traffic_cli_writes_obs_files(tmp_path, served):
 
 
 def test_engine_refuses_a_mesh():
+    """A mesh whose 'data' width is above 1 (the striped slot pool,
+    ROADMAP A17) is refused; a 'model'-only mesh is served."""
+    from repro_torch.launch.mesh import Mesh
     cfg = tserve.serving_config("gemma2-9b", smoke=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        S.init_pool(cfg, 2, 8, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A17"):
+        S.init_pool(cfg, 2, 8, mesh=Mesh([["cpu"], ["cpu"]]), device="cpu")
+    assert S.init_pool(cfg, 2, 8, mesh=Mesh([["cpu"] * 2]),
+                       device="cpu")["len"].shape == (2,)
 
 
 @pytest.mark.cuda

@@ -256,7 +256,14 @@ def test_cpu_entry_points_build_on_cpu():
 
 
 def test_deploy_rejects_tensor_parallel_width():
+    """A tensor-parallel width the serving mesh does not have, or a mesh
+    with a 'data' width above 1 (ROADMAP A17), is refused."""
+    from repro_torch.launch.mesh import Mesh
     cfg = tserve.serving_config("gemma2-9b", smoke=True, cim=True)
     params = tT.init_params(cfg.replace(n_layers=1), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tnn.deploy_transformer_cim(params, cfg, mesh_shape={"model": 2})
+    with pytest.raises(ValueError, match="disagrees with the serving"):
+        tnn.deploy_transformer_cim(params, cfg, mesh_shape={"model": 2},
+                                   mesh=Mesh([["cpu"]]))
+    with pytest.raises(NotImplementedError, match="A17"):
+        tnn.deploy_transformer_cim(params, cfg,
+                                   mesh=Mesh([["cpu"], ["cpu"]]))
