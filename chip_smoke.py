@@ -285,6 +285,35 @@ the final result line:
                 pool's step always runs every slot, a prompt prefills
                 alone in its slot), rank 0's merged summary counts 8
                 requests
+  serve-dp      the data axis: full-width gemma2-9b (2 of 42 layers) on a
+                2 x 2 ('data', 'model') mesh that repeats cuda:0: one
+                deploy of 3072-core 'model'-width-2 shard chips, a copy per
+                data row (`nn.row_params`); batch 4 striped 2 a row,
+                prompt 64, 8 tokens; launches exactly 2 rows x 2 shards x
+                7 a layer and token; tokens equal the same chips' unstriped
+                serve, logits within TRAFFIC_ATOL; a profiled striped
+                decode
+  pool-dp       serve-dp's chips behind the engine: slots 4 in 2 stripes,
+                8 requests of 4-8 tokens; one capture per stripe (28
+                launches a replay), a replay equal to the eager step with
+                every slot live, every request equal to it alone and to the
+                unstriped pool's run of the same stream (tokens; logits
+                within TRAFFIC_ATOL)
+  train-dp      full-width deepseek-moe-16b (1 of 28 layers, f32) with the
+                expert-parallel FFN on a 2 x 4 mesh over cuda:0, batch 8 x
+                128, accum 2, 2 steps: unmeshed, then grad_spec =
+                zero_pspecs, data_axes ('data',) under each grad_sync;
+                loss and gnorm within TRAIN_RTOL of the unmeshed step,
+                params after each step within TRAIN_PARAM_ATOL where
+                every unmeshed gradient so far is above TRAIN_GRAD_FLOOR
+                of its norm or zero, else 2 lr a step; the EP FFN on
+                the card against its CPU run (EP_RTOL, the same drops)
+                and, at capacity 4 (nothing dropped), against moe_ffn
+  train-production  `launch/train.py --arch qwen2-72b --layers 1 --steps 2
+                --batch 8 --seq 128` with and without --production-mesh
+                (16 x 16 over cuda:0): every leaf's shards where its spec
+                puts them (views: nothing copied), losses equal within
+                bf16 rounding
   kernels       one line per the contract below, then the result line
 
 Tolerances: every kernel and its plain version must agree bit for bit in
@@ -522,6 +551,23 @@ TP_PARTITIONS = {"wq": "col", "wk": "col", "wv": "col", "wo": "row",
 TP_TILES = {"wq": 56, "wk": 28, "wv": 28, "wo": 56, "w_g": 196, "w_i": 196,
             "w_o": 196}
 TP_ROWS = (4, 256)               # a decode step, a prefill
+# the data axis: gemma2-9b at full width on a 2 x 2 ('data', 'model') mesh
+# that repeats cuda:0: two data rows, each with its own copy of the layer's
+# 'model'-width-2 shard chips (3024 tiles a shard: wq 224, wk 112, wv 112,
+# wo 224, w_g w_i w_o 784; 3072 cores keep them single-pass)
+DP = {"data": 2, "model": 2}
+SERVE_DP = dict(n_layers=2, batch=4, prompt_len=64, gen=8, cim_cores=3072)
+POOL_DP = dict(TRAFFIC, n_layers=2, cim_cores=3072, slots=4, requests=8,
+               gen=8)
+DP_PER_LAYER = 7 * DP["model"]   # one row's packed launches a layer
+# training on a mesh: deepseek-moe-16b at full width, 1 of 28 layers, f32,
+# the expert-parallel FFN on a 2 x 4 mesh over cuda:0; qwen2-72b's CLI on
+# the production mesh (16 x 16 over cuda:0)
+TRAIN_DP = dict(mesh={"data": 2, "model": 4}, batch=8, seq=128, accum=2,
+                steps=2, lr=1e-4)
+TRAIN_PROD = ["--arch", "qwen2-72b", "--layers", "1", "--steps", "2",
+              "--batch", "8", "--seq", "128"]
+EP_RTOL = 1e-5
 # the replicas' serve command (2 ranks and a solo run on the one card)
 REPLICAS = ["--arch", "gemma2-9b", "--layers", "1", "--cim", "--cim-cores",
             "6144", "--traffic", "--requests", "8", "--gen", "8"]
@@ -531,6 +577,10 @@ BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 peak (tensor cores)
 # of the global norm (else Adam's first step is the sign of a rounding)
 TRAIN_RTOL = 1e-5
 TRAIN_PARAM_ATOL = 1e-6
+# train-dp, meshed against unmeshed: params held at TRAIN_PARAM_ATOL where
+# every step's unmeshed gradient so far is above this share of its norm or
+# zero (the MoE's routed experts take gradients mostly under 1e-4 of it)
+TRAIN_GRAD_FLOOR = 1e-6
 
 failures = []
 
@@ -1287,12 +1337,13 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
     # every prefill and decode call (warm-ups, the capture call's one
     # eager run, replays) runs each projection once per layer; the profiled
     # replays in traffic_times show the replays' kernels on the device
-    runs = {"prefill": eng._prefill.calls, "decode": eng._decode.calls}
+    decode = eng.stripes[0].decode
+    runs = {"prefill": eng._prefill.calls, "decode": decode.calls}
     per_token = token_launches(K, eng.cfg, routes, arch)
     per_exec = sum(per_token.values())
-    if sum(eng._decode.fun.per_replay.values()) != per_exec:
+    if sum(decode.fun.per_replay.values()) != per_exec:
         raise AssertionError(f"{path}: the captured step holds "
-                             f"{eng._decode.fun.per_replay} launches, the "
+                             f"{decode.fun.per_replay} launches, the "
                              f"path needs {per_exec}")
     want = {k: n * sum(runs.values()) for k, n in per_token.items()}
     if launches != want:
@@ -1373,7 +1424,7 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
                                  "decode": runs["decode"] - steps},
            "launches": launches,
            "packed_launches_per_execution": per_token["cim_mvm_packed"],
-           "launches_per_replay": eng._decode.fun.per_replay,
+           "launches_per_replay": decode.fun.per_replay,
            "moe_dropless": eng.cfg.moe_dropless,
            "replay_vs_eager": replay, "alone_max_abs_logit_err": alone_err,
            **times, **extra,
@@ -1437,7 +1488,8 @@ def replay_equals_eager(torch, res, eng):
             probe._activate(probe.pool, 0, False)
         before = {k: v.clone() for k, v in probe.pool.items()}
         clone = {k: v.clone() for k, v in probe.pool.items()}
-        logits, _ = probe._decode(probe.params, probe.pool)    # a replay
+        logits, _ = probe.stripes[0].decode(probe.params,
+                                            probe.pool)         # a replay
         logits = logits.clone()
         eager, _ = probe._step(probe.params, clone)
         torch.cuda.synchronize()
@@ -1496,7 +1548,7 @@ def traffic_times(torch, eng, dev, per_exec):
     `per_exec` walks above 16 rows, `per_exec` term passes and folds at 16
     or fewer. Each profiled window opens on a lead call and a marker
     (`marked_window`)."""
-    replay = lambda: eng._decode(eng.params, eng.pool)
+    replay = lambda: eng.stripes[0].decode(eng.params, eng.pool)
     eager = lambda: eng._step(eng.params, eng.pool)
     for f in (replay, eager):
         f()
@@ -3498,6 +3550,455 @@ def tp_phases(torch, K, ops, serve, dev, stats):
     phase("replicas")(replicas_phase)(torch, dev)
 
 
+def dp_mesh(dev, shape):
+    """A (data, model) Mesh of `shape` that repeats `dev`."""
+    from repro_torch.launch.mesh import Mesh
+    return Mesh.over([dev] * (shape["data"] * shape["model"]), shape)
+
+
+def check_dp_rows(params, n_layers):
+    """Each data row's copy of every projection: 'model'-width shards on
+    the packed kernel, shard s on the row's 'model' device s."""
+    rows = params["cim_rows"]
+    if len(rows) != DP["data"]:
+        raise AssertionError(f"{len(rows)} data rows, expected {DP['data']}")
+    for r, row in enumerate(rows):
+        for (_, n), stack in row["entries"].items():
+            if len(stack) != n_layers:
+                raise AssertionError(f"row {r} {n}: {len(stack)} layers")
+            for spl in stack:
+                if spl.n_shards != DP["model"] or any(
+                        c.packed.route() != "cim_mvm_packed"
+                        for c in spl.shards):
+                    raise AssertionError(f"row {r} {n}: {spl.n_shards} "
+                                         "shards or a merged chip")
+
+
+def profile_striped_decode(torch, res, stripes, dev, steps):
+    """Device time of `steps` striped decode steps (every row's decode,
+    then the argmax), after a prefill and as many unprofiled steps
+    (torch.profiler / CUPTI), and the device's busy share of the profiled
+    window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import (arch_serving, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.obs.clock import now
+    cfg, prompts = res.cfg, res.prompts
+    m = prompts.shape[0] // len(stripes)
+    caches = [arch_serving(cfg, dev).init_state(
+        m, prompts.shape[1] + 2 * steps + 1) for _ in stripes]
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    toks = []
+    for r, p in enumerate(stripes):
+        lg, caches[r] = prefill(p, caches[r],
+                                {"tokens": prompts[r * m:(r + 1) * m]})
+        toks.append(torch.argmax(lg, -1)[:, None])
+
+    def step():
+        for r, p in enumerate(stripes):
+            lg, caches[r] = decode(p, caches[r], {"tokens": toks[r]})
+            toks[r] = torch.argmax(lg, -1)[:, None]
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = now()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = now() - t0
+    by_name = device_us_by_kernel(prof.events())
+    busy = sum(by_name.values())
+    if not busy:
+        return {"device_ms_per_step": "not measured"}
+    cim = sum(v for k, v in by_name.items()
+              if "cim_" in k) / 1e3 / steps
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_ms_per_step": busy / 1e3 / steps,
+            "cim_ms_per_step": cim,
+            "device_busy_share": busy / 1e6 / wall}
+
+
+def serve_dp_phase(torch, K, serve, dev, stats):
+    """serve-dp (module docstring); returns (line, served result)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = dp_mesh(dev, DP)
+    c = SERVE_DP
+    reset_launches(K)                    # the path's run starts here
+    res = serve.serve_static("gemma2-9b", cim=True, device=str(dev),
+                             mesh=mesh, **c)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)          # ... and ends here
+    stats["launches"]["serve-dp"] = launches
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check_dp_rows(res.params, c["n_layers"])
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want["cim_mvm_packed"] = DP["data"] * DP_PER_LAYER * c["n_layers"] \
+        * c["gen"]
+    if launches != want:
+        raise AssertionError(f"serve-dp: launches {launches}, the path "
+                             f"needs {want}")
+    stripes = serve.data_stripes(res.params, c["batch"])
+    if stripes is None:
+        raise AssertionError("serve-dp: the batch did not stripe")
+    # the same chips, the whole batch on row 0 (the unstriped serve)
+    whole = serve.greedy_decode(res.params, res.cfg, res.prompts, c["gen"],
+                                dev)
+    if not torch.equal(whole.tokens, res.out.tokens):
+        raise AssertionError(f"serve-dp: striped tokens {res.out.tokens} "
+                             f"!= unstriped {whole.tokens}")
+    err = max(float((a - b).abs().max())
+              for a, b in zip(res.out.logits, whole.logits))
+    if err > TRAFFIC_ATOL:
+        raise AssertionError(f"serve-dp: striped vs unstriped logits "
+                             f"{err} > {TRAFFIC_ATOL}")
+    prof = profile_striped_decode(torch, res, stripes, dev, c["gen"] - 1)
+    line = {"config": f"gemma2-9b full width, {c['n_layers']} of 42 layers, "
+                      f"a {DP['data']} x {DP['model']} (data, model) mesh on "
+                      f"one card, {c['cim_cores']}-core shard chips, a copy "
+                      "per data row",
+            "nvidia_smi": stats["smi"], **serve_numbers(res, c),
+            "launches": launches,
+            "packed_launches_per_token": want["cim_mvm_packed"] // c["gen"],
+            "striped_vs_unstriped_max_abs_logit_err": err,
+            "decode_profile": prof, "peak_mem_gb": peak,
+            "plans": plan_summary(res.params)}
+    return line, res
+
+
+def pool_dp_phase(torch, K, serve, dev, stats, deployed):
+    """pool-dp (module docstring)."""
+    from repro_torch.launch.scheduler import ContinuousBatchingEngine
+    cfg, params, c = deployed.cfg, deployed.params, POOL_DP
+    reqs, max_len = serve.traffic_stream(
+        cfg, c["requests"], prompt_len=c["prompt_len"], gen=c["gen"],
+        chunk=c["chunk"], rate=c["rate"], device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(K)                    # the path's run starts here
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=c["slots"],
+                                   max_len=max_len, chunk=c["chunk"],
+                                   mesh=cfg.cim_mesh, capture_logits=True)
+    st = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)          # ... and ends here
+    stats["launches"]["pool-dp"] = launches
+    if eng.stripe_traces() != [1] * DP["data"]:
+        raise AssertionError(f"pool-dp: captures per stripe "
+                             f"{eng.stripe_traces()}, the contract is 1")
+    per_exec = DP_PER_LAYER * cfg.n_layers
+    for s in eng.stripes:
+        if sum(s.decode.fun.per_replay.values()) != per_exec:
+            raise AssertionError(f"pool-dp: a stripe's capture holds "
+                                 f"{s.decode.fun.per_replay}, not {per_exec}")
+    runs = eng._prefill.calls + sum(s.decode.calls for s in eng.stripes)
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want["cim_mvm_packed"] = per_exec * runs
+    if launches != want:
+        raise AssertionError(f"pool-dp: launches {launches}, the path needs "
+                             f"{want} ({runs} executions)")
+    # a replay equals the eager step, every slot live, stripe by stripe
+    replay_eq = []
+    for s in eng.stripes:
+        saved = {k: v.clone() for k, v in s.pool.items()}
+        s.pool["active"].fill_(True)
+        clone = {k: v.clone() for k, v in s.pool.items()}
+        got = s.decode.fun(s.params, s.pool)[0].clone()
+        want_l = eng._step(s.params, clone)[0]
+        same = torch.equal(got, want_l) and all(
+            torch.equal(s.pool[k], clone[k]) for k in clone)
+        for k, v in saved.items():
+            s.pool[k].copy_(v)
+        if not same:
+            raise AssertionError("pool-dp: a replay differs from the eager "
+                                 "step")
+        replay_eq.append(True)
+    replay_ms = median_ms(torch, eng._decode_all, 10)
+    eager_ms = median_ms(torch, lambda: [eng._step(s.params, s.pool)
+                                         for s in eng.stripes], 10)
+    # each request alone on the static path (row 0's chips), and the same
+    # stream through the unstriped pool
+    alone_err = 0.0
+    for r in reqs:
+        g = serve.greedy_decode(params, eng.cfg,
+                                torch.as_tensor(r.prompt[None]).long()
+                                .to(dev), r.max_new, dev, max_len=max_len)
+        if g.tokens[0].tolist() != r.tokens:
+            raise AssertionError(f"pool-dp: request {r.rid} tokens "
+                                 f"{r.tokens} != alone {g.tokens[0]}")
+        alone_err = max(alone_err, max(
+            float((torch.as_tensor(a) - b[0].cpu()).abs().max())
+            for a, b in zip(r.logits, g.logits)))
+    whole = ContinuousBatchingEngine(cfg, params, n_slots=c["slots"],
+                                     max_len=max_len, chunk=c["chunk"],
+                                     capture_logits=True)
+    copies = [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
+                      arrival=r.arrival) for r in reqs]
+    whole.run(copies, realtime=False)
+    pool_err = 0.0
+    for r, q in zip(reqs, copies):
+        if q.tokens != r.tokens:
+            raise AssertionError(f"pool-dp: request {r.rid} striped "
+                                 f"{r.tokens} != unstriped {q.tokens}")
+        pool_err = max(pool_err, max(float(abs(a - b).max())
+                                     for a, b in zip(r.logits, q.logits)))
+    if max(alone_err, pool_err) > TRAFFIC_ATOL:
+        raise AssertionError(f"pool-dp: logits off alone {alone_err}, "
+                             f"unstriped {pool_err} > {TRAFFIC_ATOL}")
+    del whole
+    return {"config": f"gemma2-9b full width, {cfg.n_layers} of 42 layers, "
+                      f"serve-dp's chips, slots {c['slots']} in "
+                      f"{DP['data']} stripes, chunk {c['chunk']}, "
+                      f"{c['requests']} requests",
+            "nvidia_smi": stats["smi"],
+            **{k: st[k] for k in ("requests", "tokens", "wall_s",
+                                  "tok_per_s", "p50_ms", "p99_ms",
+                                  "ttft_p50_ms", "decode_traces",
+                                  "utilization")},
+            "captures_per_stripe": eng.stripe_traces(),
+            "launches": launches, "packed_launches_per_replay": per_exec,
+            "replay_equals_eager": replay_eq,
+            "replay_ms_all_stripes": replay_ms,
+            "eager_ms_all_stripes": eager_ms,
+            "alone_max_abs_logit_err": alone_err,
+            "unstriped_pool_max_abs_logit_err": pool_err,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def train_dp_phase(torch, dev, stats):
+    """train-dp (module docstring)."""
+    from repro_torch import configs
+    from repro_torch.data import lm_tokens
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.obs.clock import timed_call
+    from repro_torch.train.optimizer import tree_leaves
+    c = TRAIN_DP
+    cfg = configs.get("deepseek-moe-16b").replace(
+        dtype=torch.float32, n_layers=1, moe_impl="ep", batch_axes=("data",))
+    mesh = dp_mesh(dev, c["mesh"])
+    gen = torch.Generator(dev).manual_seed(1000)
+    batches = [{"tokens": lm_tokens(gen, c["batch"], c["seq"] + 1,
+                                    cfg.vocab)} for _ in range(c["steps"])]
+
+    def masks(params, batch):
+        """Where the unmeshed step's gradient (the mean over the
+        microbatches, before the clip) is above TRAIN_GRAD_FLOOR of its
+        norm or zero: the params held at TRAIN_PARAM_ATOL."""
+        g = None
+        for i in range(c["accum"]):
+            _, gi = steps.loss_and_grads(
+                params, steps._micro(batch, c["accum"], i), cfg)
+            gi = [x.detach() for x in tree_leaves(gi)]
+            g = gi if g is None else [a.add_(b) for a, b in zip(g, gi)]
+            del gi
+        norm = float(torch.sqrt(sum((x.double() ** 2).sum() for x in g)))
+        return [((x.abs() > TRAIN_GRAD_FLOOR * norm) | (x == 0)).cpu()
+                for x in g]
+
+    def run(with_masks=False, **kw):
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = T.init_params(cfg, seed=0, device=dev)
+        opt = steps.adamw_init_f32(params)
+        if "grad_spec" in kw:
+            kw["grad_spec"] = sh.zero_pspecs(params, sh.param_pspecs(params),
+                                             mesh)
+        step = steps.make_train_step(cfg, lr=c["lr"], accum=c["accum"],
+                                     **kw)
+        out, first, big, trail, peak = [], None, None, [], 0.0
+        with moe.ep_mesh(mesh):
+            for i, b in enumerate(batches):
+                if with_masks:      # every step's so far, outside the time
+                    now = masks(params, b)  # and outside the peak
+                    big = now if big is None else [
+                        x & y for x, y in zip(big, now)]
+                    trail.append(big)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                (params, opt, loss, gnorm), dt = timed_call(
+                    step, params, opt, b, device=dev)
+                out.append((float(loss), float(gnorm), dt * 1e3))
+                peak = max(peak, torch.cuda.max_memory_allocated(dev) / 1e9)
+                if i == 0:          # held on the host: peaks are the run's
+                    first = [p.cpu() for p in tree_leaves(params)]
+        return params, opt, out, first, trail, peak
+
+    def param_err(got, want, big, k):
+        """Largest error where `big`; fails past TRAIN_PARAM_ATOL there, 2
+        lr a step elsewhere, or where `big` holds under half the params.
+        Returns (error, share of params held)."""
+        err, n_big, n_all = 0.0, 0, 0
+        for a, b, m in zip(got, want, big):
+            d = (a.cpu() - b).abs()
+            if bool((d[~m] > 2 * c["lr"] * (k + 1)).any()):
+                raise AssertionError(f"after step {k + 1} a param moved by "
+                                     f"more than {k + 1} x 2 lr off the "
+                                     "held set")
+            if m.any():
+                err = max(err, float(d[m].max()))
+            n_big += int(m.sum())
+            n_all += m.numel()
+        if err > TRAIN_PARAM_ATOL or n_big < 0.5 * n_all:
+            raise AssertionError(f"after step {k + 1} params off by {err} "
+                                 f"> {TRAIN_PARAM_ATOL}, or fewer than "
+                                 f"half held ({n_big} of {n_all})")
+        return err, n_big / n_all
+
+    base, base_opt, base_out, base_first, big, base_peak = run(
+        with_masks=True)
+    base_last = [x.cpu() for x in tree_leaves(base)]
+    n_params = sum(x.numel() for x in base_last)
+    del base, base_opt
+    free(torch)
+    line = {"config": "deepseek-moe-16b full width (64 experts of 1408, "
+                      "top-6, 2 shared), 1 of 28 layers, f32, moe_impl ep "
+                      f"on a {c['mesh']['data']} x {c['mesh']['model']} mesh "
+                      f"over one card, batch {c['batch']} x {c['seq']}, "
+                      f"accum {c['accum']}, lr {c['lr']}",
+            "nvidia_smi": stats["smi"], "params": n_params,
+            "unmeshed": {"loss": [o[0] for o in base_out],
+                         "gnorm": [o[1] for o in base_out],
+                         "ms_per_step": [o[2] for o in base_out],
+                         "peak_mem_gb": base_peak}}
+    for sync in ("micro", "once"):
+        params, opt, out, first, _, peak = run(
+            grad_spec=True, data_axes=("data",), mesh=mesh, grad_sync=sync)
+        for (l, g, _), (bl, bg, _) in zip(out, base_out):
+            if abs(l - bl) > TRAIN_RTOL * abs(bl) or \
+                    abs(g - bg) > TRAIN_RTOL * abs(bg):
+                raise AssertionError(f"{sync}: loss {l} / gnorm {g} vs "
+                                     f"unmeshed {bl} / {bg}")
+        d1, held1 = param_err(first, base_first, big[0], 0)
+        d2, held2 = param_err(tree_leaves(params), base_last, big[-1],
+                              c["steps"] - 1)
+        moments = tree_leaves(opt["m"])
+        sharded = sum(isinstance(m, sh.Sharded) and any(
+            "data" in sh.spec_axes(a) for a in m.spec) for m in moments)
+        line[sync] = {"loss": [o[0] for o in out],
+                      "gnorm": [o[1] for o in out],
+                      "ms_per_step": [o[2] for o in out],
+                      "max_abs_param_diff_step1": d1,
+                      "max_abs_param_diff_last": d2,
+                      "share_held_step1": held1, "share_held_last": held2,
+                      "moment_leaves_data_sharded": sharded,
+                      "peak_mem_gb": peak}
+        del params, opt, first
+        free(torch)
+    # the expert-parallel FFN alone (layer 0 of the params at seed 0): the
+    # card against its CPU run, and at a capacity that drops nothing
+    # against moe_ffn
+    layers = T.init_params(cfg, seed=0, device=dev)["layers"]
+    p = {k: layers[k][0] for k in ("router", "ew_g", "ew_i", "ew_o", "sw_g",
+                                   "sw_i", "sw_o")}
+    g = torch.Generator(dev).manual_seed(7)
+    x = torch.randn((c["batch"] // c["accum"], c["seq"], cfg.d_model),
+                    generator=g, device=dev)
+    st_card, st_cpu, st_free = {}, {}, {}
+    cpu_mesh = dp_mesh(torch.device("cpu"), c["mesh"])
+    with torch.no_grad():
+        y = moe.moe_ffn_ep_shardmap(p, x, cfg, mesh, data_axes=("data",),
+                                    stats=st_card)
+        y_cpu = moe.moe_ffn_ep_shardmap(
+            {k: v.cpu() for k, v in p.items()}, x.cpu(), cfg, cpu_mesh,
+            data_axes=("data",), stats=st_cpu)
+        ep = c["mesh"]["model"]
+        y_free = moe.moe_ffn_ep_shardmap(p, x, cfg, mesh,
+                                         capacity_factor=float(ep),
+                                         data_axes=("data",), stats=st_free)
+        y_sort = moe.moe_ffn(p, x, cfg.replace(moe_dropless=True))
+    scale = float(y.abs().max())
+    e_cpu = float((y.cpu() - y_cpu).abs().max())
+    e_sort = float((y_free - y_sort).abs().max())
+    if st_card != st_cpu or e_cpu > EP_RTOL * scale:
+        raise AssertionError(f"EP card vs CPU: {e_cpu} (scale {scale}), "
+                             f"drops {st_card} vs {st_cpu}")
+    if any(st_free.values()) or e_sort > EP_RTOL * scale:
+        raise AssertionError(f"EP at capacity {ep}: drops {st_free}, "
+                             f"{e_sort} off moe_ffn")
+    line["ep_ffn"] = {"tokens": x.shape[0] * x.shape[1],
+                      "drops_at_1.25": st_card,
+                      "card_vs_cpu_max_abs_err": e_cpu,
+                      "dropless_capacity": float(ep),
+                      "vs_moe_ffn_max_abs_err": e_sort, "scale": scale,
+                      "rtol": EP_RTOL}
+    del base_first, base_last, big, layers, p, x, y, y_cpu, y_free, y_sort
+    free(torch)
+    return line
+
+
+def train_production_phase(torch, dev, stats):
+    """train-production (module docstring)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import train
+    from repro_torch.train.optimizer import tree_leaves
+    out = {"command": TRAIN_PROD + ["--production-mesh"],
+           "nvidia_smi": stats["smi"]}
+    runs = {}
+    for tag, extra in (("unmeshed", []),
+                       ("production", ["--production-mesh"])):
+        torch.cuda.reset_peak_memory_stats(dev)
+        ck = tempfile.mkdtemp(prefix=f"train-{tag}-")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            res = train.run(train.parse_args(TRAIN_PROD + extra
+                                             + ["--ckpt-dir", ck]))
+        runs[tag] = {"printed": [ln for ln in text.getvalue().splitlines()
+                                 if ln.startswith(("arch=", "mesh="))],
+                     "loss": res.losses,
+                     "ms_per_step": [s * 1e3 for s in res.step_s],
+                     "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                     / 1e9}
+        if tag == "production":
+            leaves = tree_leaves((res.params, res.opt))
+            mesh = leaves[0].mesh
+            for x in leaves:
+                if not isinstance(x, sh.Sharded):
+                    raise AssertionError("a leaf is not placed on the mesh")
+                whole = x.gather()
+                for s, at, d in zip(x.shards, sh.spec_indices(mesh, x.spec),
+                                    sh.spec_devices(mesh, x.spec)):
+                    if s.device != d or s.data_ptr() != sh.shard_slice(
+                            whole, x.spec, mesh.shape, at).data_ptr():
+                        raise AssertionError(f"a shard of {x} is not where "
+                                             "its spec puts it")
+            runs[tag].update(
+                mesh=dict(mesh.shape), distinct_devices=mesh.n_distinct(),
+                leaves=len(leaves),
+                shards=sum(len(x.shards) for x in leaves))
+        del res
+        free(torch)
+    for a, b in zip(runs["production"]["loss"], runs["unmeshed"]["loss"]):
+        if abs(a - b) > 2.0 ** -8 * abs(b):
+            raise AssertionError(f"production-mesh loss {a} vs unmeshed {b}")
+    out.update(runs)
+    return out
+
+
+def dp_phases(torch, K, serve, dev, stats):
+    """The data-axis phases, last: serve-dp (its chips kept for pool-dp),
+    pool-dp, train-dp, train-production."""
+    held = {}
+
+    def serve_dp(*a):
+        line, held["res"] = serve_dp_phase(*a)
+        return line
+    phase("serve-dp")(serve_dp)(torch, K, serve, dev, stats)
+    res = held.pop("res", None)
+    if res is None:
+        failures.append("pool-dp")
+        emit({"phase": "pool-dp", "ok": False,
+              "error": "no serve-dp chips to serve"})
+    else:
+        phase("pool-dp")(pool_dp_phase)(torch, K, serve, dev, stats, res)
+    del res
+    free(torch)
+    phase("train-dp")(train_dp_phase)(torch, dev, stats)
+    free(torch)
+    phase("train-production")(train_production_phase)(torch, dev, stats)
+    free(torch)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -3562,6 +4063,8 @@ def main() -> int:
     train_resume_phase(torch, dev)
     free(torch)
     tp_phases(torch, K, ops, serve, dev, stats)
+    free(torch)
+    dp_phases(torch, K, serve, dev, stats)
 
     emit(kernels_line(stats))
     if failures or info is None:

@@ -13,7 +13,9 @@ leaf. NumPy has no bfloat16: a bf16 leaf is saved as f32 (exact) and
 restored to the dtype of the `like` tree. `restore_checkpoint` places
 the restored leaves on `device`, or by the reference's `shardings=`
 (`distributed/fault.elastic_reshard`'s placements: a checkpoint saved
-under one mesh restores onto another).
+under one mesh restores onto another). A `distributed/sharding.Sharded`
+leaf is saved whole (gathered) and, as a placement, cuts the restored
+leaf into its blocks again.
 """
 from __future__ import annotations
 
@@ -40,7 +42,11 @@ def _structure(tree) -> str:
 
 
 def _to_numpy(leaf) -> np.ndarray:
-    """A leaf as a host numpy array that owns its memory (bf16 as f32)."""
+    """A leaf as a host numpy array that owns its memory (bf16 as f32); a
+    `Sharded` leaf gathered first."""
+    from ..distributed.sharding import Sharded
+    if isinstance(leaf, Sharded):
+        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -93,11 +99,12 @@ def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
         step = latest_step(ckpt_dir)
         if step is None:
             return None, None
+    from ..distributed.sharding import Sharded
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     out = []
     for i, leaf in enumerate(tree_leaves(like)):
         arr = torch.from_numpy(np.load(os.path.join(d, f"arr_{i}.npy")))
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, (torch.Tensor, Sharded)):
             arr = arr.to(device=device if device is not None
                          else leaf.device, dtype=leaf.dtype)
         elif device is not None:

@@ -16,9 +16,11 @@ checkpoint.
 
   * elastic_reshard places a tree onto a new mesh: each leaf moves to the
     device its placement names (a torch.device, or a tuple of devices
-    from `distributed/sharding.named_shardings` that names one).
-    Placement is single-controller: a leaf is never split across
-    devices, so a placement naming several distinct devices raises.
+    from `distributed/sharding.named_shardings` that names one), or is
+    cut into the blocks of a `distributed/sharding.Sharded` placement
+    (the production mesh's params and moments, `launch/train.py`). A
+    tuple naming several distinct devices raises: it says where blocks
+    go, not how to cut them.
 """
 from __future__ import annotations
 
@@ -55,8 +57,15 @@ def elastic_reshard(tree: Any, shardings: Any):
         dev = torch.device(shardings)
         return tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor)
                         else t, tree)
-    return tree_map(lambda t, s: t.to(_placement_device(s))
-                    if isinstance(t, torch.Tensor) else t, tree, shardings)
+    from .sharding import Sharded
+
+    def put(t, s):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if isinstance(s, Sharded):
+            return s.place(t)
+        return t.to(_placement_device(s))
+    return tree_map(put, tree, shardings)
 
 
 def _wait_for_device(state: Any):

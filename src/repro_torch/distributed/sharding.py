@@ -22,20 +22,25 @@ axis name or a tuple of them. Trees are nested dicts, lists and tuples
 its `shape` (a leaf without one is a scalar).
 
 Placement is single-controller (`launch/mesh.Mesh`, a grid of
-torch.devices): nothing here splits a tensor across devices. What the
-port places is whole compiled chips — shard s of a packed stack on the
-device at 'model' position s (`models/nn.place_packed_stack`).
-`named_shardings` therefore maps each spec to the devices that hold its
-blocks, in row-major order over the axes the spec uses, and
-`packed_shardings` is that map for a packed shard stack; where the
-reference's `device_put` moves an array, the port moves shard s's tensors
-to the s-th device.
+torch.devices). `named_shardings` maps each spec to the devices that hold
+its blocks, in row-major order over the axes the spec uses
+(`spec_devices`, with `spec_indices` the matching mesh positions), and
+`packed_shardings` is that map for a packed shard stack: shard s of a
+packed stack goes whole to the device at 'model' position s
+(`models/nn.place_packed_stack`). Where the reference's `device_put` cuts
+an array into blocks, `shard_tensor` cuts a tensor into a `Sharded`:
+block i is `shard_slice(x, spec, mesh.shape, spec_indices(mesh,
+spec)[i])` on `spec_devices(mesh, spec)[i]`, a view when that device is
+x's own (so a mesh that repeats a device copies nothing). `Sharded.gather`
+puts the blocks back together in index order.
 """
 from __future__ import annotations
 
 import itertools
 import math
 from typing import Any, Dict, Tuple
+
+import torch
 
 
 class P:
@@ -280,17 +285,130 @@ def shard_slice(x, spec, mesh_shape: Dict[str, int], index: Dict[str, int]):
     return out
 
 
-def spec_devices(mesh, spec) -> tuple:
-    """The devices holding the blocks of a tensor sharded by `spec` on
-    `mesh`, in row-major order over the mesh axes the spec uses (one
-    device, the mesh's first, when it uses none)."""
+def spec_indices(mesh, spec) -> tuple:
+    """The mesh positions ({axis: position} over the axes `spec` uses) of
+    the blocks of a tensor sharded by `spec`, in row-major order over
+    those axes, in the order the spec names them (one block, {}, when it
+    uses none)."""
     sizes = _axis_sizes(mesh)
     axes = [a for ax in spec for a in spec_axes(ax)]
-    out = []
-    for pos in itertools.product(*(range(sizes[a]) for a in axes)):
-        at = dict(zip(axes, pos))
-        out.append(mesh.devices[at.get("data", 0)][at.get("model", 0)])
-    return tuple(out)
+    return tuple(dict(zip(axes, pos)) for pos in itertools.product(
+        *(range(sizes[a]) for a in axes)))
+
+
+def spec_devices(mesh, spec) -> tuple:
+    """The devices holding the blocks of a tensor sharded by `spec` on
+    `mesh`, in `spec_indices` order (one device, the mesh's first, when it
+    uses none)."""
+    return tuple(mesh.device_at(at) for at in spec_indices(mesh, spec))
+
+
+class Sharded:
+    """A tensor of `shape` cut into the blocks of `spec` on `mesh`:
+    `shards[i]` is the block at `spec_indices(mesh, spec)[i]`, on
+    `spec_devices(mesh, spec)[i]`. `gather` puts it back together;
+    `place(x)` cuts another tensor of the same shape the same way (a
+    checkpoint restored onto the mesh: `distributed/fault.elastic_reshard`).
+    """
+
+    __slots__ = ("shards", "spec", "mesh", "shape")
+
+    def __init__(self, shards, spec, mesh, shape):
+        self.shards = tuple(shards)
+        self.spec = P(*spec)
+        self.mesh = mesh
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+    @property
+    def device(self):
+        return self.shards[0].device
+
+    def place(self, x) -> "Sharded":
+        return shard_tensor(x, self.spec, self.mesh)
+
+    def gather(self, device=None):
+        return gather(self, device)
+
+    def __repr__(self):
+        return (f"Sharded({self.shape}, {self.spec}, "
+                f"{len(self.shards)} shards)")
+
+
+def shard_tensor(x, spec, mesh) -> Sharded:
+    """`x` cut into the blocks of `spec` on `mesh`, each moved to its
+    device (a view of x, no copy, where that device is x's own). Raises
+    like `shard_shape` when a dim does not divide."""
+    sizes = _axis_sizes(mesh)
+    shards = [shard_slice(x, spec, sizes, at).to(dev)
+              for at, dev in zip(spec_indices(mesh, spec),
+                                 spec_devices(mesh, spec))]
+    return Sharded(shards, spec, mesh, x.shape)
+
+
+def _aliased_whole(sh: Sharded, device):
+    """The whole tensor as one view, when every block is a view of it on
+    `device` (the blocks of a tensor cut on a mesh that repeats its
+    device): block 0 starts where the whole does, with its strides. None
+    otherwise."""
+    first = sh.shards[0]
+    if any(s.device != device or s.untyped_storage().data_ptr()
+           != first.untyped_storage().data_ptr() for s in sh.shards):
+        return None
+    try:
+        whole = first.as_strided(sh.shape, first.stride(),
+                                 first.storage_offset())
+    except RuntimeError:            # would run past the storage
+        return None
+    sizes = _axis_sizes(sh.mesh)
+    for s, at in zip(sh.shards, spec_indices(sh.mesh, sh.spec)):
+        v = shard_slice(whole, sh.spec, sizes, at)
+        if v.data_ptr() != s.data_ptr() or v.stride() != s.stride():
+            return None
+    return whole
+
+
+def gather(sh: Sharded, device=None):
+    """The whole tensor of a `Sharded` on `device` (default: block 0's):
+    each block copied into its place in index order, or, where the blocks
+    are views of one tensor on that device, that tensor (no copy)."""
+    dev = torch.device(device) if device is not None else sh.device
+    whole = _aliased_whole(sh, dev)
+    if whole is not None:
+        return whole
+    out = torch.empty(sh.shape, dtype=sh.dtype, device=dev)
+    sizes = _axis_sizes(sh.mesh)
+    for s, at in zip(sh.shards, spec_indices(sh.mesh, sh.spec)):
+        shard_slice(out, sh.spec, sizes, at).copy_(s)
+    return out
+
+
+def scatter_(sh: Sharded, x) -> Sharded:
+    """Write the whole tensor `x` back into the blocks of `sh` (each block
+    of x copied into its shard, skipped where the shard is that block
+    already: a gather that copied nothing). Returns sh."""
+    sizes = _axis_sizes(sh.mesh)
+    for s, at in zip(sh.shards, spec_indices(sh.mesh, sh.spec)):
+        v = shard_slice(x, sh.spec, sizes, at)
+        if v.device != s.device or v.data_ptr() != s.data_ptr():
+            s.copy_(v)
+    return sh
+
+
+def place(tree, spec_tree, mesh):
+    """Every tensor leaf of `tree` cut by its spec on `mesh`
+    (`shard_tensor`); non-tensor leaves are kept."""
+    return _map(lambda path, x, spec: shard_tensor(x, spec, mesh)
+                if isinstance(x, torch.Tensor) else x, tree, spec_tree)
+
+
+def gather_tree(tree, device=None):
+    """Every `Sharded` leaf of `tree` gathered (`gather`)."""
+    return _map(lambda path, x: gather(x, device)
+                if isinstance(x, Sharded) else x, tree)
 
 
 def named_shardings(mesh, spec_tree):

@@ -40,8 +40,18 @@ the same chunks in the pool as in a one-shot prefill only where the
 engine's chunk is a multiple of the scan's and the prompt fills whole scan
 chunks; elsewhere the scan reassociates, within rounding. On a
 tensor-parallel mesh (a 'data' width of 1) the pool lives on the params'
-device and the chips' shards run where deploy placed them; a 'data'
-width above 1 (the striped slot pool) waits for ROADMAP A17.
+device and the chips' shards run where deploy placed them.
+
+The striped slot pool (a mesh whose 'data' width D is above 1, the
+reference's `pool_pspecs`): stripe r holds slots r * S/D .. (r + 1) * S/D
+- 1 on data row r's first device (`init_pool(mesh=)`), served with row
+r's copy of the chips (`models/nn.row_params`). The engine runs one
+sub-pool per stripe, each with its own decode step, captured once on its
+row's device (a CUDA graph cannot span devices): `obs/capturewatch`
+counts one capture per stripe ('pool_decode/stripe<r>'). Admission takes
+the lowest free slot of the whole pool, as the reference does, so slots
+fill in the reference's order across the stripes; every decode step
+runs every stripe, and tokens and logits are gathered in slot order.
 """
 from __future__ import annotations
 
@@ -66,22 +76,43 @@ from .steps import (CapturedStep, make_decode_step, make_pool_decode_step,
                     make_prefill_step, make_slot_prefill_step)
 
 
-def init_pool(cfg, n_slots: int, max_len: int, mesh=None, device=None):
-    """Slot pool on `device` (CUDA unless "cpu" is passed): the arch's
-    cache with `len` widened to a per-slot (n_slots,) int32 tensor, plus
-    the `active` bitmap and the per-slot last token. A mesh is accepted
-    at a 'data' width of 1 (the pool is not striped: module docstring)
-    and raises above it."""
-    if mesh is not None:
-        from .mesh import check_serving_mesh
-        check_serving_mesh(mesh)
-    dev = resolve_device(device)
+def _pool_on(cfg, n_slots: int, max_len: int, dev):
     pool = dict(T.init_cache(cfg, n_slots, max_len, dtype=cfg.dtype,
                              device=dev))
     pool["len"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
     pool["active"] = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
     pool["tok"] = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
     return pool
+
+
+def init_pool(cfg, n_slots: int, max_len: int, mesh=None, device=None):
+    """Slot pool on `device` (CUDA unless "cpu" is passed): the arch's
+    cache with `len` widened to a per-slot (n_slots,) int32 tensor, plus
+    the `active` bitmap and the per-slot last token. On a mesh whose
+    'data' width D is above 1 the pool is striped (`pool_pspecs`): every
+    leaf a `distributed/sharding.Sharded` whose stripe r, the slots r *
+    n_slots / D .. (r + 1) * n_slots / D - 1, lies on data row r's first
+    device (n_slots must divide by D); at D = 1 a mesh changes nothing."""
+    if mesh is not None:
+        from .mesh import check_serving_mesh
+        check_serving_mesh(mesh)
+    if mesh is None or mesh.shape["data"] == 1:
+        return _pool_on(cfg, n_slots, max_len, resolve_device(device))
+    from ..distributed.sharding import Sharded, pool_pspecs
+    n_rows = mesh.shape["data"]
+    if n_slots % n_rows:
+        raise ValueError(f"{n_slots} slots do not stripe over {n_rows} data "
+                         "rows")
+    stripes = [_pool_on(cfg, n_slots // n_rows, max_len, row.devices[0][0])
+               for row in mesh.rows(("data",))]
+    specs = pool_pspecs(stripes[0])
+    out = {}
+    for k, spec in specs.items():
+        axis = 0 if k in ("len", "active", "tok") else 1
+        shape = list(stripes[0][k].shape)
+        shape[axis] *= n_rows
+        out[k] = Sharded([st[k] for st in stripes], spec, mesh, shape)
+    return out
 
 
 def _reset_slot(pool, slot: int):
@@ -116,6 +147,16 @@ class Request:
     t_admit: float = -1.0                # seconds into the run at admission
     energy_pj: float = 0.0               # attributed modeled chip energy
     logits: List[np.ndarray] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Stripe:
+    """One stripe of the pool: its slots' sub-pool, the params it serves
+    with (its data row's chips), its device and its decode step."""
+    params: dict
+    pool: dict
+    device: torch.device
+    decode: Any = None
 
 
 @dataclasses.dataclass
@@ -156,6 +197,16 @@ class ContinuousBatchingEngine:
         self.capture_logits = capture_logits
         self.pool = init_pool(cfg, n_slots, max_len, mesh=mesh,
                               device=self.device)
+        n_rows = 1 if mesh is None else mesh.shape["data"]
+        if n_rows == 1:
+            self.stripes = [_Stripe(self.params, self.pool, self.device)]
+        else:
+            from ..models.nn import row_params
+            self.stripes = [_Stripe(
+                row_params(self.params, r),
+                {k: v.shards[r] for k, v in self.pool.items()},
+                self.pool["len"].shards[r].device) for r in range(n_rows)]
+        self._per_stripe = n_slots // n_rows
         # Every step goes through the watchdog: compilations become a
         # metric on every run and, under strict_jit, a hard assertion. On
         # the card the decode step is captured once and replayed
@@ -165,11 +216,12 @@ class ContinuousBatchingEngine:
         # capture forbids: they run eagerly.
         self.jitwatch = JitWatcher(strict=strict_jit)
         self._step = make_pool_decode_step(cfg)
-        captured = self.device.type == "cuda" and cfg.cim_impl != "plain"
-        self._decode = self.jitwatch.wrap(
-            "pool_decode",
-            CapturedStep(self._step, LAUNCHES) if captured else self._step,
-            max_traces=1)
+        for r, st in enumerate(self.stripes):
+            captured = st.device.type == "cuda" and cfg.cim_impl != "plain"
+            st.decode = self.jitwatch.wrap(
+                "pool_decode" if n_rows == 1 else f"pool_decode/stripe{r}",
+                CapturedStep(self._step, LAUNCHES) if captured
+                else self._step, max_traces=1)
         self._prefill = self.jitwatch.wrap("slot_prefill",
                                            make_slot_prefill_step(cfg))
         self._reset = self.jitwatch.wrap("slot_reset", _reset_slot,
@@ -219,35 +271,50 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------- plumbing
 
     def decode_traces(self) -> int:
-        """Compilations of the pool decode step (contract: 1): on the card
-        its CUDA-graph captures, elsewhere its input signatures."""
-        return self._decode.traces
+        """Compilations of the pool decode step (contract: 1), the most of
+        any stripe's: on the card its CUDA-graph captures, elsewhere its
+        input signatures."""
+        return max(st.decode.traces for st in self.stripes)
+
+    def stripe_traces(self) -> List[int]:
+        """Each stripe's decode compilations (one per stripe)."""
+        return [st.decode.traces for st in self.stripes]
+
+    def _where(self, slot: int):
+        """(stripe, slot within it) of a pool slot."""
+        st = self.stripes[slot // self._per_stripe]
+        return st, slot % self._per_stripe
+
+    def _decode_all(self):
+        """Every stripe's decode step, in stripe order."""
+        return [st.decode(st.params, st.pool) for st in self.stripes]
 
     def _chunks(self, prompt: np.ndarray) -> List[np.ndarray]:
         c = self.chunk
         return [prompt[i:i + c] for i in range(0, len(prompt), c)]
 
-    def _tokens(self, chunk) -> torch.Tensor:
-        return torch.from_numpy(np.array(chunk, np.int64)[None]).to(
-            self.device)
+    def _tokens(self, chunk, device) -> torch.Tensor:
+        return torch.from_numpy(np.array(chunk, np.int64)[None]).to(device)
 
     def warmup(self, chunk_lens) -> None:
         """Run each distinct prefill-chunk length on slot 0 of the idle
         pool (resetting it after each), both activate flags, the reset,
         and the decode step (on the card its capture). Keeps first-use
         work out of every reported latency."""
-        for n in sorted(set(chunk_lens)):
-            self._prefill(self.params, self.pool,
-                          self._tokens(np.zeros(int(n))), 0)
-            self._reset(self.pool, 0)
-        # both static variants of the activate flag, so a sealed watcher
-        # sees no fresh compilation on the first real admit / evict
-        self._activate(self.pool, 0, True)
-        self._activate(self.pool, 0, False)
-        self._reset(self.pool, 0)
-        self._decode(self.params, self.pool)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for st in self.stripes:
+            for n in sorted(set(chunk_lens)):
+                self._prefill(st.params, st.pool,
+                              self._tokens(np.zeros(int(n)), st.device), 0)
+                self._reset(st.pool, 0)
+            # both static variants of the activate flag, so a sealed
+            # watcher sees no fresh compilation on the first real admit /
+            # evict
+            self._activate(st.pool, 0, True)
+            self._activate(st.pool, 0, False)
+            self._reset(st.pool, 0)
+            st.decode(st.params, st.pool)
+            if st.device.type == "cuda":
+                torch.cuda.synchronize(st.device)
 
     # ------------------------------------------------------------ scheduling
 
@@ -256,7 +323,8 @@ class ContinuousBatchingEngine:
             f"request {req.rid} would overflow the slot (max_len)"
         slot = self._free.pop(0)
         assert slot not in self._live, "slot double-assign"
-        self._reset(self.pool, slot)
+        st, local = self._where(slot)
+        self._reset(st.pool, local)
         self._jobs.append(_PrefillJob(slot, req, self._chunks(req.prompt)))
         self._m_admitted.inc()
 
@@ -285,7 +353,8 @@ class ContinuousBatchingEngine:
     def _finish(self, slot: int, now: float) -> None:
         req = self._live.pop(slot)
         req.t_done = now
-        self._activate(self.pool, slot, False)
+        st, local = self._where(slot)
+        self._activate(st.pool, local, False)
         self._free.append(slot)
         self._free.sort()
         self._request_done(req, slot)
@@ -296,9 +365,10 @@ class ContinuousBatchingEngine:
         seeded into pool['tok'] by the chunk step)."""
         job = self._jobs[0]
         chunk = job.chunks[job.next]
-        (logits, _), dt = timed_call(self._prefill, self.params, self.pool,
-                                     self._tokens(chunk), job.slot,
-                                     device=self.device)
+        st, local = self._where(job.slot)
+        (logits, _), dt = timed_call(self._prefill, st.params, st.pool,
+                                     self._tokens(chunk, st.device), local,
+                                     device=st.device)
         job.next += 1
         n_rows = len(chunk)
         self._m_chunks.inc()
@@ -327,18 +397,18 @@ class ContinuousBatchingEngine:
                 req.logits.append(row)
             if req.max_new == 1:
                 req.t_done = now + dt
-                self._reset(self.pool, job.slot)
+                self._reset(st.pool, local)
                 self._free.append(job.slot)
                 self._free.sort()
                 self._request_done(req, job.slot)
             else:
-                self._activate(self.pool, job.slot, True)
+                self._activate(st.pool, local, True)
                 self._live[job.slot] = req
         return dt
 
     def _decode_once(self, now: float) -> float:
-        (logits, _), dt = timed_call(self._decode, self.params, self.pool,
-                                     device=self.device)
+        outs, dt = timed_call(self._decode_all,
+                              device=[st.device for st in self.stripes])
         # Honest hardware accounting: the weight-stationary pool step
         # pushes ALL n_slots rows through every chip regardless of
         # occupancy — empty slots still cost energy. The useful/dispatched
@@ -353,10 +423,12 @@ class ContinuousBatchingEngine:
         if self.trace is not None:
             self.trace.complete("decode_step", now, dt,
                                 args={"live": n_live})
-        toks = self.pool["tok"][:, 0].cpu().numpy()
+        toks = torch.cat([st.pool["tok"][:, 0].cpu()
+                          for st in self.stripes]).numpy()
         # the decode's logits are the graph's output tensor on the card,
-        # overwritten by the next replay: copied out now
-        rows = logits.cpu().numpy() if self.capture_logits else None
+        # overwritten by the next replay: copied out now, in slot order
+        rows = torch.cat([lg.cpu() for lg, _ in outs]).numpy() \
+            if self.capture_logits else None
         done = []
         for slot, req in self._live.items():
             req.tokens.append(int(toks[slot]))

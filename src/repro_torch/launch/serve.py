@@ -83,18 +83,26 @@ Tensor parallelism (`--cim-mesh auto|off|DxM`): each projection compiles
 one chip per 'model' shard from its local slice (`nn.deploy_cim` with a
 `launch/mesh.Mesh`), placed on the mesh's 'model' device s, and every
 call launches each shard's kernel where its chips lie
-(`nn.sharded_packed_loop`). 'auto' (the default) builds a 'model'-only
-mesh over this process's first M local devices, M the largest power of
-two that divides their count (`launch/mesh.model_mesh`: one card gives
-1x1, an unsharded deploy; 6 cards 1x2); 'off' deploys at the same width
-with every chip on the serving device; 'DxM' asks for an explicit shape
-over the local devices, and a 'data' width above 1 raises (ROADMAP A17).
-Shards on distinct cards are untried (ROADMAP A13). From Python,
-`serve_static` / `serve_traffic(mesh_shape=, mesh=)` take any mesh, one
-that repeats a device included: gemma2-9b at full width deploys eight
-shard chips per layer (`mesh_shape={'model': 8}`,
+(`nn.sharded_packed_loop`). 'auto' (the default) factors this process's
+local devices as the reference does (`launch/mesh.serving_mesh`:
+{'data': n // M, 'model': M}, M the largest power of two dividing n, at
+most 16; one card gives 1x1, 6 cards 3x2); 'off' deploys at the same
+'model' width with every chip on the serving device; 'DxM' asks for that
+shape over the local devices. A 'data' width D above 1 gives each data
+row its own copy of the chips (`nn.row_params`): the static path stripes
+the batch over the rows (the reference's `batch_pspecs` and
+`cache_pspecs(data_axes=("data",))`: each row prefills and decodes its
+batch / D rows, with its own cache, on its first device; a batch that
+does not divide runs whole on row 0, as `fit_pspecs` replicates it), and
+--traffic serves the striped slot pool (`launch/scheduler`). The KV
+cache's head_dim stays whole on its row: the port's 'model' axis splits
+the chips only. Shards and rows on distinct cards are untried (ROADMAP
+A13). From Python, `serve_static` / `serve_traffic(mesh_shape=, mesh=)`
+take any mesh, one that repeats a device included: gemma2-9b at full
+width deploys eight shard chips per layer (`mesh_shape={'model': 8}`,
 `mesh=Mesh([['cuda:0'] * 8])`), one packed launch per projection and
-shard.
+shard, and `Mesh([['cuda:0'] * 2] * 2)` serves two data rows of two
+shards each.
 
 Multi-process scale-out (`launch/distributed`): launched through
 `launch/env` (REPRO_COORDINATOR / REPRO_NUM_PROCESSES / REPRO_PROCESS_ID
@@ -169,33 +177,50 @@ def greedy_decode(params, cfg, prompts, gen: int, device, *,
                   teacher: Optional[torch.Tensor] = None,
                   max_len: Optional[int] = None,
                   memory: Optional[torch.Tensor] = None,
-                  vis_embeds: Optional[torch.Tensor] = None) -> Generation:
+                  vis_embeds: Optional[torch.Tensor] = None,
+                  stripes: Optional[list] = None) -> Generation:
     """Prefill `prompts` (B, S) and decode gen - 1 more tokens greedily.
     teacher: optional (B, >= gen - 1) tokens fed instead of the greedy
     ones (a second run that must follow the first run's path). max_len:
     the cache's length (default S + gen + the arch's vis_patches, as the
     reference sizes it). memory: an encoder-decoder's encoded source, fed
     to the prefill and every decode step; vis_embeds: a VLM's vision
-    prefix, prefilled ahead of the prompt."""
+    prefix, prefilled ahead of the prompt. stripes: the data rows' params
+    (`nn.row_params`); row r prefills and decodes rows r * B/D .. (r + 1)
+    * B/D - 1 of every input with a cache of its own on its params'
+    device, each step enqueued on every row before the logits are
+    gathered on `device` in row order."""
     b, s = prompts.shape
-    cache = arch_serving(cfg, device).init_state(
-        b, max_len or s + gen + cfg.vis_patches)
+    rows = stripes or [params]
+    n = len(rows)
+    if b % n:
+        raise ValueError(f"a batch of {b} does not stripe over {n} rows")
+    m = b // n
+    devs = [p["embed"].device for p in rows] if stripes else [device]
+    caches = [arch_serving(cfg, d).init_state(
+        m, max_len or s + gen + cfg.vis_patches) for d in devs]
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
+
+    def run(step, batch):
+        outs = [step(rows[r], caches[r], {
+            k: v[r * m:(r + 1) * m].to(devs[r]) for k, v in batch.items()})
+            for r in range(n)]
+        caches[:] = [c for _, c in outs]
+        return torch.cat([lg.to(device) for lg, _ in outs])
+
     extra = {} if memory is None else {"memory": memory}
     first = dict(extra, tokens=prompts)
     if vis_embeds is not None:
         first["vis_embeds"] = vis_embeds
-    (logits, cache), t_prefill = timed_call(prefill, params, cache, first,
-                                            device=device)
+    logits, t_prefill = timed_call(run, prefill, first, device=device)
     out, all_logits, step_s = [], [logits], []
     tok = torch.argmax(logits, -1)[:, None]
     out.append(tok)
     for i in range(gen - 1):
         feed = tok if teacher is None else teacher[:, i:i + 1]
-        (logits, cache), dt = timed_call(decode, params, cache,
-                                         dict(extra, tokens=feed),
-                                         device=device)
+        logits, dt = timed_call(run, decode, dict(extra, tokens=feed),
+                                device=device)
         step_s.append(dt)
         all_logits.append(logits)
         tok = torch.argmax(logits, -1)[:, None]
@@ -289,9 +314,22 @@ def serve_static(arch: str = "gemma2-9b", *, smoke: bool = False,
     if vis_embeds is not None:
         vis_embeds = vis_embeds.to(dev)
     out = greedy_decode(params, cfg, prompts, gen, dev, memory=memory,
-                        vis_embeds=vis_embeds)
+                        vis_embeds=vis_embeds,
+                        stripes=data_stripes(params, prompts.shape[0]))
     return ServeResult(cfg, params, prompts, out, deploy_s, memory,
                        vis_embeds)
+
+
+def data_stripes(params, batch: int):
+    """The data rows' params a batch of `batch` stripes over
+    (`nn.row_params`), or None: no data rows, or a batch the row count
+    does not divide (served whole on row 0, as the reference's fit_pspecs
+    replicates it)."""
+    rows = params.get("cim_rows")
+    if rows is None or batch % len(rows):
+        return None
+    from ..models.nn import row_params
+    return [row_params(params, r) for r in range(len(rows))]
 
 
 def _seeded_embeds(seed: int, lead, cfg, device):
@@ -449,16 +487,17 @@ def _print_chip(args, cfg, params, deploy_s, tp: int, rtag: str = ""):
 
 def _cli_mesh(ap, args):
     """(mesh, mesh_shape) of --cim-mesh over this process's distinct local
-    devices: 'auto' the 'model'-only mesh, 'off' no mesh at its width,
-    'DxM' that shape (it must use every local device)."""
+    devices: 'auto' the reference's factoring (`mesh.serving_mesh`), 'off'
+    no mesh at its 'model' width, 'DxM' that shape (it must use every
+    local device)."""
     import re
     from . import mesh as mesh_mod
     kind = torch.device(args.device).type
     if args.cim_mesh == "auto":
-        return mesh_mod.model_mesh(device_type=kind), None
+        return mesh_mod.serving_mesh(device_type=kind), None
     if args.cim_mesh == "off":
-        return None, {"model": mesh_mod.model_mesh(
-            device_type=kind).shape["model"]}
+        return None, {"model": mesh_mod.serving_mesh_shape(
+            device_type=kind)["model"]}
     m = re.fullmatch(r"(\d+)x(\d+)", args.cim_mesh)
     if not m:
         ap.error(f"--cim-mesh must be 'auto', 'off' or 'DxM' (e.g. '1x8'), "
@@ -587,12 +626,12 @@ def main(argv=None):
                     help="ir_drop_alpha for --cim: > 0 plans IR-drop-bounded "
                          "vertical column splits")
     ap.add_argument("--cim-mesh", default="auto",
-                    help="tensor-parallel placement for --cim: 'auto' "
-                         "builds a 'model'-only mesh over the local devices "
-                         "and places each shard's chips on its own device; "
-                         "'off' keeps every chip on the serving device; "
-                         "'DxM' (e.g. '1x8') asks for that (data, model) "
-                         "shape")
+                    help="mesh placement for --cim: 'auto' factors the "
+                         "local devices into (data, model) as the reference "
+                         "does and places each shard's chips on its own "
+                         "device, one copy per data row; 'off' keeps every "
+                         "chip on the serving device; 'DxM' (e.g. '2x4') "
+                         "asks for that (data, model) shape")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--traffic", action="store_true",

@@ -10,11 +10,17 @@ every leaf of the stacked (L, ...) params by autograd, summed in f32 over
 moments. It updates params and optimizer state IN PLACE, leaf by leaf and
 in chunks of ADAMW_CHUNK elements (the reference donates both buffers):
 a tree-at-once update would hold the old and the new f32 moments together,
-34 GB more at qwen2-72b's full width, two layers deep. The sharded
-gradients of the reference's step (grad_spec, data_axes, mesh) wait for
-training on a mesh (ROADMAP A18)."""
+34 GB more at qwen2-72b's full width, two layers deep.
+
+On a mesh (`launch/mesh.Mesh`: `mesh` with `data_axes` and / or a ZeRO
+`grad_spec`) the step places what the reference leaves to GSPMD
+(`_mesh_train_step`): each microbatch striped over the data rows, each
+row's gradients on its own device, summed over the rows in row order,
+and, with `grad_spec`, reduce-scattered so that AdamW runs on each shard
+beside its moment shard."""
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, NamedTuple
 
 import torch
@@ -23,7 +29,7 @@ from ..device import resolve_device
 from ..models import transformer as T
 from ..obs.capturewatch import signature, tensors
 from ..train.noisy import value_and_grad
-from ..train.optimizer import tree_leaves, tree_map
+from ..train.optimizer import tree_leaves, tree_map, tree_unflatten
 
 
 class ArchServing(NamedTuple):
@@ -71,11 +77,20 @@ ADAMW_CHUNK = 1 << 28
 
 
 def _chunks(*ts):
-    """Matching flat chunks of ADAMW_CHUNK elements of same-shape tensors
-    (views of contiguous ones, so an in-place op writes through)."""
-    flat = [t.view(-1) for t in ts]
-    for i in range(0, flat[0].numel(), ADAMW_CHUNK):
-        yield [f[i:i + ADAMW_CHUNK] for f in flat]
+    """Matching chunks of at most ADAMW_CHUNK elements of same-shape
+    tensors, views so that an in-place op writes through: flat chunks of
+    contiguous ones; blocks of leading-dim rows where one is a strided
+    view (a shard of a param or moment cut on an inner dim, which the
+    meshed step updates in place)."""
+    if all(t.is_contiguous() for t in ts):
+        flat = [t.view(-1) for t in ts]
+        for i in range(0, flat[0].numel(), ADAMW_CHUNK):
+            yield [f[i:i + ADAMW_CHUNK] for f in flat]
+        return
+    n0 = ts[0].shape[0]
+    step = max(1, ADAMW_CHUNK // max(ts[0].numel() // max(n0, 1), 1))
+    for i in range(0, n0, step):
+        yield [t[i:i + step] for t in ts]
 
 
 def adamw_init_f32(params):
@@ -114,19 +129,31 @@ def adamw_apply(grads, state, params, lr, b1: float = 0.9, b2: float = 0.999,
 
 def clip_grads_(grads, max_norm: float):
     """`train/optimizer.clip_grads` in place: every gradient scaled by
-    min(1, max_norm / (global norm + 1e-9)). Each leaf's sum of squares is
-    accumulated in f32 and rounded once to its dtype, as the reference's
-    jnp.sum does. Returns the global norm."""
+    min(1, max_norm / (global norm + 1e-9)). Returns the global norm
+    (`_clip_shards_`, each leaf one shard)."""
+    leaves = tree_leaves(grads)
+    return _clip_shards_([[g] for g in leaves], leaves[0].device, max_norm)
+
+
+def _clip_shards_(g_sh, home, max_norm: float = 1.0):
+    """The clip over per-leaf lists of shards: each leaf's sum of squares
+    accumulated in f32 over its shards in index order (each in chunks)
+    and rounded once to its dtype, as the reference's jnp.sum does; the
+    norm on `home`; every shard scaled. Returns the norm."""
     sums = []
-    for g in tree_leaves(grads):
-        acc = torch.zeros((), dtype=torch.float32, device=g.device)
-        for (c,) in _chunks(g.contiguous()):
-            acc += torch.sum(torch.square(c), dtype=torch.float32)
-        sums.append(acc.to(g.dtype))
+    for gs in g_sh:
+        acc = torch.zeros((), dtype=torch.float32, device=home)
+        for g in gs:
+            part = torch.zeros((), dtype=torch.float32, device=g.device)
+            for (c,) in _chunks(g.contiguous()):
+                part += torch.sum(torch.square(c), dtype=torch.float32)
+            acc += part.to(home)
+        sums.append(acc.to(gs[0].dtype))
     gnorm = torch.sqrt(sum(sums))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
-    for g in tree_leaves(grads):
-        g.mul_(scale)
+    for gs in g_sh:
+        for g in gs:
+            g.mul_(scale.to(g.device))
     return gnorm
 
 
@@ -144,12 +171,20 @@ def make_train_step(cfg: T.ArchConfig, lr: float = 1e-4, accum: int = 1,
     """train_step(params, opt_state, batch) -> (params, opt_state, loss,
     gnorm), params and state updated in place. accum > 1 splits the batch
     into `accum` microbatches (rows in order) run one after another, their
-    gradients summed in f32 and divided by accum, as the loss."""
-    if grad_spec is not None or data_axes or mesh is not None \
-            or grad_sync != "micro":
-        raise NotImplementedError(
-            "sharded gradients (grad_spec, data_axes, mesh, grad_sync) "
-            "wait for training on a mesh, ROADMAP A18")
+    gradients summed in f32 and divided by accum, as the loss.
+
+    With `mesh` and `data_axes` and / or `grad_spec` (a spec tree over
+    params, `distributed/sharding.zero_pspecs`) the step runs on the mesh
+    (`_mesh_train_step`); grad_sync "micro" reduce-scatters after each
+    microbatch, "once" after the accumulation."""
+    if grad_sync not in ("micro", "once"):
+        raise ValueError(f"grad_sync is 'micro' or 'once', got {grad_sync!r}")
+    if mesh is None and (grad_spec is not None or data_axes):
+        raise ValueError("grad_spec and data_axes place on a mesh: pass "
+                         "mesh=")
+    if mesh is not None and (grad_spec is not None or data_axes):
+        return _mesh_train_step(cfg, lr, accum, grad_spec, data_axes, mesh,
+                                grad_sync)
 
     def train_step(params, opt_state, batch):
         if accum == 1:
@@ -160,10 +195,7 @@ def make_train_step(cfg: T.ArchConfig, lr: float = 1e-4, accum: int = 1,
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for i in range(accum):
-                mb = {k: x.reshape((accum, x.shape[0] // accum)
-                                   + x.shape[1:])[i]
-                      for k, x in batch.items()}
-                l, g = loss_and_grads(params, mb, cfg)
+                l, g = loss_and_grads(params, _micro(batch, accum, i), cfg)
                 for a, b in zip(tree_leaves(grads), tree_leaves(g)):
                     a.add_(b.to(torch.float32))
                 loss = loss + l
@@ -174,6 +206,204 @@ def make_train_step(cfg: T.ArchConfig, lr: float = 1e-4, accum: int = 1,
         gnorm = clip_grads_(grads, 1.0)
         params, opt_state = adamw_apply(grads, opt_state, params, lr)
         return params, opt_state, loss, gnorm
+    return train_step
+
+
+def _micro(batch, accum: int, i: int):
+    """Microbatch i of `accum`: rows i * n / accum .. (i + 1) * n / accum
+    - 1 of every batch leaf (the reference's (accum, micro, ...)
+    reshape)."""
+    return {k: x.reshape((accum, x.shape[0] // accum) + x.shape[1:])[i]
+            for k, x in batch.items()}
+
+
+def _mesh_train_step(cfg, lr, accum, grad_spec, data_axes, mesh, grad_sync):
+    """The train step on `mesh`, with the reference's arithmetic placed
+    explicitly:
+
+      * rows: the data rows of `mesh.rows(data_axes)` (one, the mesh's
+        first, without data_axes); row r computes on its first 'model'
+        device against a replica of the params (`.to`: the params
+        themselves where that is their device);
+      * each microbatch's rows split into R equal stripes, stripe r to
+        row r (the reference's (accum, micro, ...) placement), which runs
+        `lm_loss` and its gradients there; under cfg.moe_impl "ep" row r's
+        expert-parallel FFN runs on row r's devices of moe.MESH_FOR_EP;
+      * the gradient of a microbatch is the row-order f32 sum of the rows'
+        gradients divided by R (the mean of equal stripes' means), taken
+        per shard of `grad_spec` (a leaf's shard i is `shard_slice(leaf,
+        spec, mesh.shape, spec_indices[i])` on `spec_devices[i]`; without
+        grad_spec one shard, the whole leaf on its own device): the
+        reduce-scatter. grad_sync "micro" adds it into f32 shard
+        accumulators after each microbatch; "once" keeps one full f32
+        accumulator per row and reduce-scatters after the last, the same
+        sums in another order. With accum 1 the result is rounded to the
+        params' dtype, as the reference's unaccumulated gradient is;
+      * the global norm's per-leaf sums of squares add the shards' f32
+        sums in index order; the clip scales every shard;
+      * AdamW (`adamw_apply`, unchanged) runs on each shard with its
+        moment shards on the shard's device, one call per device; a shard
+        that is not a view of the params is copied back into them, which
+        every row's replica copies at the next step.
+
+    With grad_spec the returned state holds the moments as
+    `distributed/sharding.Sharded` leaves (opt_pspecs(grad_spec)),
+    which the next call takes as they are; a plain moment tree is cut at
+    the first call (views, where the shard's device is the moment's)."""
+    from ..distributed.sharding import P, Sharded, shard_slice, \
+        spec_devices, spec_indices
+    from ..models import moe
+    rows = mesh.rows(data_axes or ())
+    n_rows = len(rows)
+    row_devs = [r.devices[0][0] for r in rows]
+    sizes = mesh.shape
+
+    def layouts(params):
+        specs = tree_leaves(grad_spec) if grad_spec is not None \
+            else [None] * len(tree_leaves(params))
+        out = []
+        for p, sp in zip(tree_leaves(params), specs):
+            if sp is None:
+                out.append((P(), ({},), (p.device,)))
+            else:
+                out.append((P(*sp), spec_indices(mesh, sp),
+                            spec_devices(mesh, sp)))
+        return out
+
+    def cut(x, lay):
+        spec, idx, devs = lay
+        return [shard_slice(x, spec, sizes, at).to(dev)
+                for at, dev in zip(idx, devs)]
+
+    def moment_shards(tree, lays):
+        out = []
+        for x, lay in zip(tree_leaves(tree), lays):
+            if isinstance(x, Sharded):
+                if x.spec != lay[0]:
+                    raise ValueError(f"a moment shard's spec {x.spec} is "
+                                     f"not the gradient's {lay[0]}")
+                out.append(list(x.shards))
+            else:
+                out.append(cut(x, lay))
+        return out
+
+    def ep_context(r):
+        if moe.MESH_FOR_EP is None or n_rows == 1:
+            return contextlib.nullcontext()
+        ep_rows = moe.MESH_FOR_EP.rows(data_axes or ())
+        if len(ep_rows) != n_rows:
+            raise ValueError(f"MESH_FOR_EP has {len(ep_rows)} data rows, "
+                             f"the train step {n_rows}")
+        return moe.ep_mesh(ep_rows[r])
+
+    def row_grads(replicas, mb):
+        """Yield (row, loss, grads) for each row's stripe of `mb`."""
+        n = mb["tokens"].shape[0]
+        if n % n_rows:
+            raise ValueError(f"a microbatch of {n} rows does not stripe "
+                             f"over {n_rows} data rows")
+        m = n // n_rows
+        for r in range(n_rows):
+            stripe = {k: v[r * m:(r + 1) * m].to(row_devs[r])
+                      for k, v in mb.items()}
+            with ep_context(r):
+                loss, grads = loss_and_grads(replicas[r], stripe, cfg)
+            yield r, loss, tree_leaves(grads)
+
+    def add_slices(acc, leaves_, lays):
+        """acc (per leaf, per shard, f32 on the shard's device) plus the
+        slices of one row's leaves; None starts it with a copy."""
+        if acc is None:
+            return [[shard_slice(x, lay[0], sizes, at).to(
+                dev, torch.float32, copy=True)
+                for at, dev in zip(lay[1], lay[2])]
+                for x, lay in zip(leaves_, lays)]
+        for shards, x, lay in zip(acc, leaves_, lays):
+            for a, at in zip(shards, lay[1]):
+                a.add_(shard_slice(x, lay[0], sizes, at).to(
+                    a.device, torch.float32))
+        return acc
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        lays = layouts(params)
+        home = leaves[0].device
+        replicas = [tree_map(lambda p, d=d: p.to(d), params)
+                    for d in row_devs]
+        once = grad_sync == "once" and accum > 1
+        g_sh = None                       # per leaf, per shard (f32)
+        acc_rows = [None] * n_rows        # "once": per row, full f32
+        loss = None
+        for i in range(accum):
+            mb = _micro(batch, accum, i) if accum > 1 else batch
+            l_sum, micro = None, None
+            for r, l, g in row_grads(replicas, mb):
+                l = l.to(home, torch.float32)
+                l_sum = l if l_sum is None else l_sum + l
+                if once:
+                    if acc_rows[r] is None:
+                        acc_rows[r] = [x.to(torch.float32, copy=True)
+                                       for x in g]
+                    else:
+                        for a, x in zip(acc_rows[r], g):
+                            a.add_(x.to(torch.float32))
+                else:             # reduce-scatter as the rows come
+                    micro = add_slices(micro, g, lays)
+                del g
+            l_micro = l_sum / n_rows
+            loss = l_micro if loss is None else loss + l_micro
+            if micro is not None:
+                for shards in micro:
+                    for a in shards:
+                        a.div_(n_rows)
+                if g_sh is None:
+                    g_sh = micro
+                else:
+                    for gs, ms in zip(g_sh, micro):
+                        for a, b in zip(gs, ms):
+                            a.add_(b)
+                del micro
+        if once:
+            for r in range(n_rows):
+                g_sh = add_slices(g_sh, acc_rows[r], lays)
+                acc_rows[r] = None
+            for shards in g_sh:
+                for a in shards:
+                    a.div_(n_rows)
+        if accum > 1:
+            loss = loss / accum
+            for gs in g_sh:
+                for a in gs:
+                    a.div_(accum)
+        else:
+            g_sh = [[a.to(p.dtype) for a in gs]
+                    for gs, p in zip(g_sh, leaves)]
+        gnorm = _clip_shards_(g_sh, home)
+        p_sh = [cut(p, lay) for p, lay in zip(leaves, lays)]
+        m_sh = moment_shards(opt_state["m"], lays)
+        v_sh = moment_shards(opt_state["v"], lays)
+        by_dev: Dict[torch.device, list] = {}
+        for li, lay in enumerate(lays):
+            for k, dev in enumerate(lay[2]):
+                by_dev.setdefault(dev, []).append(
+                    (p_sh[li][k], g_sh[li][k], m_sh[li][k], v_sh[li][k]))
+        t = opt_state["t"]
+        for dev, items in by_dev.items():
+            ps, gs, ms, vs = (list(z) for z in zip(*items))
+            adamw_apply(gs, {"m": ms, "v": vs, "t": t.to(dev)}, ps, lr)
+        for p, lay, shards in zip(leaves, lays, p_sh):
+            for at, sh in zip(lay[1], shards):
+                view = shard_slice(p, lay[0], sizes, at)
+                if view.device != sh.device \
+                        or view.data_ptr() != sh.data_ptr():
+                    view.copy_(sh.to(p.device))
+        state = {"m": opt_state["m"], "v": opt_state["v"], "t": t + 1}
+        if grad_spec is not None:
+            for key, sh in (("m", m_sh), ("v", v_sh)):
+                state[key] = tree_unflatten(opt_state[key], [
+                    Sharded(s_, lay[0], mesh, p.shape)
+                    for s_, lay, p in zip(sh, lays, leaves)])
+        return params, state, loss, gnorm
     return train_step
 
 

@@ -20,9 +20,20 @@ Params come from a torch.Generator seeded 0, batch i's tokens (and a
 VLM's or an encoder-decoder's stub frontend embeddings, 0.02 x normal)
 from one seeded 1000 + i; each step's time is taken with CUDA events on
 the card. As in the reference, a resumed run's data stream restarts at
-batch 0 (`data_iter` is made after `resume`, from 0). --production-mesh
-(the reference's multi-host mesh) waits for ROADMAP A18; there are no TPU
+batch 0 (`data_iter` is made after `resume`, from 0). There are no TPU
 XLA flags.
+
+--production-mesh, as in the reference: the params are placed by
+`fit_pspecs(param_pspecs(params))` and the moments by `opt_pspecs` on
+`make_production_mesh()` (16 x 16 ('data', 'model') over the local cards,
+repeated in order to fill it; over the CPU with --device cpu), each leaf
+a `distributed/sharding.Sharded`; the step is `make_train_step(cfg, lr)`
+(no grad_spec, the batch unpinned) and runs on the leaves gathered in
+index order, the updated leaves written back into their blocks. On a
+mesh that repeats a card the blocks are views of one tensor, so neither
+the placement nor the gather copies. Checkpoints save gathered leaves
+and resume through `restore_checkpoint(shardings=)`, which cuts them
+again.
 """
 from __future__ import annotations
 
@@ -37,9 +48,13 @@ from .. import configs
 from ..data import lm_tokens
 from ..device import resolve_device
 from ..distributed.fault import FaultTolerantTrainer
+from ..distributed.sharding import (Sharded, fit_pspecs, gather_tree,
+                                    opt_pspecs, param_pspecs, place,
+                                    scatter_)
 from ..models import transformer as T
 from ..obs.clock import timed_call
 from ..train.optimizer import tree_leaves
+from .mesh import local_devices, make_production_mesh
 from .steps import adamw_init_f32, make_train_step
 
 
@@ -110,20 +125,36 @@ def train_loop(cfg: T.ArchConfig, params, opt, batches: Iterator[dict], *,
     """The reference's driver loop: resume (params, opt) from the latest
     checkpoint in `ckpt_dir`, run steps start .. steps - 1 on the next
     batch of `batches` each, save (async) after every ckpt_every-th step,
-    wait for the last save. Params and opt are updated in place."""
+    wait for the last save. Params and opt are updated in place; where
+    their leaves are `Sharded` (--production-mesh) each step runs on the
+    gathered leaves and writes them back into the blocks."""
     step_fn = make_train_step(cfg, lr=lr)
     dev = tree_leaves(params)[0].device
+    sharded = any(isinstance(x, Sharded)
+                  for x in tree_leaves((params, opt)))
     last = {}
+
+    def step(params, opt, batch):
+        if not sharded:
+            return step_fn(params, opt, batch)
+        gp, go = gather_tree(params), gather_tree(opt)
+        gp, go, loss, gnorm = step_fn(gp, go, batch)
+        for sh, x in zip(tree_leaves((params, opt)), tree_leaves((gp, go))):
+            if isinstance(sh, Sharded):
+                scatter_(sh, x)
+        del gp, go               # gathered copies freed (none when aliased)
+        return params, opt, loss, gnorm
 
     def wrapped(state, batch):
         params, opt = state
-        (params, opt, loss, _), dt = timed_call(step_fn, params, opt, batch,
+        (params, opt, loss, _), dt = timed_call(step, params, opt, batch,
                                                 device=dev)
         last.update(loss=float(loss), s=dt)
         return (params, opt)
 
     trainer = FaultTolerantTrainer(wrapped, ckpt_dir, ckpt_every=ckpt_every)
-    state, start = trainer.resume((params, opt))
+    state, start = trainer.resume(
+        (params, opt), shardings=(params, opt) if sharded else None)
     log(f"starting at step {start}")
     losses, step_s = [], []
     for s in range(start, steps):
@@ -144,10 +175,6 @@ def train_loop(cfg: T.ArchConfig, params, opt, batches: Iterator[dict], *,
 def run(args) -> TrainResult:
     """Build the model and optimizer on the device and train (`main`)."""
     dev = resolve_device(args.device)
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh (the multi-host mesh) "
-                                  "waits for training on a mesh, "
-                                  "ROADMAP A18")
     cfg = train_config(args)
     params = T.init_params(cfg, seed=0, device=dev)
     opt = adamw_init_f32(params)
@@ -156,10 +183,25 @@ def run(args) -> TrainResult:
     print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params / 1e6:.1f}M "
           f"dtype={str(cfg.dtype).removeprefix('torch.')} cim={cfg.cim_mode} "
           f"device={where}")
+    if args.production_mesh:
+        params, opt, mesh = place_on_production_mesh(params, opt, dev)
+        shape = "x".join(str(v) for v in mesh.shape.values())
+        print(f"mesh={shape} {tuple(mesh.axis_names)} over "
+              f"{mesh.n_distinct()} distinct device(s)")
     return train_loop(cfg, params, opt,
                       data_iter(cfg, args.batch, args.seq, dev),
                       steps=args.steps, lr=args.lr, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every)
+
+
+def place_on_production_mesh(params, opt, device):
+    """(params, opt, mesh): params placed by fit_pspecs(param_pspecs) and
+    the moments by opt_pspecs on `make_production_mesh` over the local
+    devices of `device`'s type (module docstring)."""
+    mesh = make_production_mesh(devices=local_devices(device.type))
+    pspec = fit_pspecs(params, param_pspecs(params), mesh)
+    return (place(params, pspec, mesh), place(opt, opt_pspecs(pspec), mesh),
+            mesh)
 
 
 def main(argv=None) -> List[float]:

@@ -58,6 +58,14 @@ and its shard_map executor in one): each shard's kernel launches where
 its chips lie. Routed experts place expert-parallel: expert e on the
 device of shard e // (E / M). At M = 1 every projection is a 'none'
 stack, as in the reference.
+
+Data rows (a mesh whose 'data' width D is above 1): the deploy compiles
+once, as at D = 1, and gives each data row its own copy of the chips —
+every stack placed onto that row's 'model' devices by the same rule
+(`_place_on_row`; a 'none' stack on the row's first device) — under
+params['cim_rows']. `row_params(params, r)` is what row r serves with:
+its chips, and the float params on its first device. On a mesh that
+repeats a device the copies are the same tensors.
 """
 from __future__ import annotations
 
@@ -492,12 +500,73 @@ def _deploy_sharded_stacks(stacked: Dict[str, torch.Tensor],
     return {n: out[n] for n in stacked}
 
 
+def _place_on_row(v, row_mesh):
+    """One '<name>_cim' entry placed on a (1, M) row mesh by the deploy's
+    rule: shard s of a ShardedPackedLayer (or of each layer's) on 'model'
+    device s, routed experts expert-parallel where M > 1 divides E, and
+    every other chip (a 'none' stack) on the row's first device."""
+    dev = row_mesh.devices[0][0]
+    n = row_mesh.shape["model"]
+    if isinstance(v, ShardedPackedLayer):
+        return place_packed_stack(v, row_mesh, v.n_shards)
+    if isinstance(v, cim_api.PackedCIMLayer):
+        return _place_chip(v, dev)
+    if isinstance(v[0], ShardedPackedLayer):
+        return place_packed_stack(v, row_mesh, v[0].n_shards)
+    if isinstance(v[0], list):                      # [L][E] expert chips
+        if n > 1 and len(v[0]) % n == 0:
+            return place_packed_stack(v, row_mesh, n)
+        return [[_place_chip(c, dev) for c in layer] for layer in v]
+    return [_place_chip(c, dev) for c in v]
+
+
+def _with_rows(out, mesh):
+    """`out` with params['cim_rows'] when `mesh` has data rows (module
+    docstring): per row {"device": its first device, "entries": {(key,
+    name): placed entry}} for every '<name>_cim' entry of out['layers']
+    and out['shared_attn']."""
+    if mesh is None or mesh.shape["data"] == 1:
+        return out
+    rows = []
+    for row in mesh.rows(("data",)):
+        entries = {(top, n): _place_on_row(v, row)
+                   for top in ("layers", "shared_attn") if top in out
+                   for n, v in out[top].items() if n.endswith("_cim")}
+        rows.append({"device": row.devices[0][0], "entries": entries})
+    return dict(out, cim_rows=tuple(rows))
+
+
+def row_params(params, r: int):
+    """The params data row r serves with (module docstring): row r's
+    chips in place of each '<name>_cim' entry, every other tensor moved to
+    the row's first device (no copy where it lies there). Without data
+    rows, row 0 is `params` itself."""
+    rows = params.get("cim_rows")
+    if rows is None:
+        if r != 0:
+            raise ValueError(f"params have no data row {r}")
+        return params
+    row = rows[r]
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: (row["entries"][(path[0], k)] if path and
+                        k.endswith("_cim") else walk(v, path + (k,)))
+                    for k, v in tree.items() if k != "cim_rows"}
+        if isinstance(tree, torch.Tensor):
+            return tree.to(row["device"])
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(t, path) for t in tree)
+        return tree
+    return walk(params, ())
+
+
 def _resolve_mesh(arch_cfg, mesh, mesh_shape):
     """The (mesh, mesh_shape) a CIM deploy plans and places with: an
     explicit `mesh` wins, else the arch's `cim_mesh`; `mesh_shape`
     defaults to the mesh's own axis sizes, and one whose 'model' width
-    disagrees with the mesh's raises. A mesh whose 'data' width is above
-    1 raises (`launch/mesh.check_serving_mesh`)."""
+    disagrees with the mesh's raises; so does a mesh serving cannot take
+    (`launch/mesh.check_serving_mesh`)."""
     from ..launch.mesh import check_serving_mesh
     mesh = mesh if mesh is not None else getattr(arch_cfg, "cim_mesh", None)
     if mesh is not None:
@@ -591,7 +660,7 @@ def deploy_transformer_cim(params, arch_cfg, *, mode: str = "ideal",
             new_layers[n + "_cim"] = stack
     out = dict(params)
     out["layers"] = new_layers
-    return verify_deployed(out)
+    return verify_deployed(_with_rows(out, mesh))
 
 
 def is_recurrent_arch(arch_cfg) -> bool:
@@ -679,7 +748,7 @@ def deploy_recurrent_cim(params, arch_cfg, *, mode: str = "ideal",
             generator=gen, mesh=mesh, x_cal=x_cal_shared)
         out["shared_attn"] = dict(sa, **{n + "_cim": v[0]
                                          for n, v in chips.items()})
-    return verify_deployed(out)
+    return verify_deployed(_with_rows(out, mesh))
 
 
 def deploy_rbm_cim(params, ccfg: CIMConfig, v_cal, *, mode: str = "relaxed",

@@ -90,6 +90,12 @@ class ArchConfig:
     # capacity-factor path makes a token's output depend on which other
     # tokens share the batch; launch/scheduler forces this on.
     moe_dropless: bool = False
+    # The reference's mesh knobs: batch_axes names the mesh axes the batch
+    # dim is striped over (the data axes `moe_ffn_ep_shardmap` stripes its
+    # tokens over); moe_impl "ep" takes the explicit expert-parallel FFN
+    # on moe.MESH_FOR_EP (dense_block)
+    batch_axes: Any = None
+    moe_impl: str = "sort"       # sort | ep
     dtype: Any = torch.bfloat16
     tie_embeddings: bool = False
     rope_theta: float = 1e6
@@ -547,6 +553,13 @@ def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
     h2 = rms_norm(x, p["ln2"])
     if "ew_g" in p:                 # MoE FFN (dense and MoE interleave)
         from . import moe
+        # packed serving keeps the sort dispatch: only it drives the
+        # per-expert chips
+        if cfg.moe_impl == "ep" and moe.MESH_FOR_EP is not None \
+                and cfg.cim_mode != "packed":
+            return x + moe.moe_ffn_ep_shardmap(
+                p, h2, cfg, moe.MESH_FOR_EP,
+                data_axes=tuple(cfg.batch_axes or ("data",))), cache
         return x + moe.moe_ffn(p, h2, cfg), cache
     return x + routed_mlp(h2, p, cfg, seed=5), cache
 

@@ -201,11 +201,26 @@ def test_adamw_on_bf16_tree_matches_reference():
 
 
 def test_sharded_step_options_raise():
+    """The mesh options build a meshed step (`_mesh_train_step`); what
+    cannot run raises: grad_spec or data_axes without a mesh, an unknown
+    grad_sync, and a microbatch that does not stripe over the rows."""
+    from repro_torch.launch.mesh import Mesh
     _, tc = _configs()
-    for kw in ({"grad_spec": {}}, {"data_axes": ("data",)},
-               {"mesh": object()}, {"grad_sync": "once"}):
-        with pytest.raises(NotImplementedError, match="A18"):
+    mesh = Mesh([["cpu"]] * 2)
+    for kw in ({"grad_spec": {}}, {"data_axes": ("data",)}):
+        with pytest.raises(ValueError, match="mesh="):
             tsteps.make_train_step(tc, **kw)
+    with pytest.raises(ValueError, match="grad_sync"):
+        tsteps.make_train_step(tc, grad_sync="never")
+    step = tsteps.make_train_step(tc, data_axes=("data",), mesh=mesh,
+                                  grad_sync="once")
+    params = tT.init_params(tc, seed=0, device="cpu")
+    opt = tsteps.adamw_init_f32(params)
+    with pytest.raises(ValueError, match="does not stripe"):
+        step(params, opt, {"tokens": torch.zeros((3, 5), dtype=torch.long)})
+    _, opt, loss, _ = step(params, opt,
+                           {"tokens": torch.zeros((2, 5), dtype=torch.long)})
+    assert np.isfinite(float(loss)) and int(opt["t"]) == 1
 
 
 # ------------------------------------------------------------- checkpoint
@@ -417,12 +432,31 @@ def test_train_driver_smoke_and_resume(tmp_path, monkeypatch):
 
 
 def test_train_driver_raises_without_cuda_or_on_a_mesh(tmp_path):
+    """Without CUDA the train CLI raises. --production-mesh trains on the
+    16 x 16 mesh over the CPU: every leaf a Sharded in its spec's blocks,
+    the losses those of the unmeshed run, and a resume cuts the restored
+    leaves again."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttrain.main(["--smoke", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A18"):
-        ttrain.main(["--smoke", "--device", "cpu", "--production-mesh",
-                     "--ckpt-dir", str(tmp_path)])
+    args = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
+            "--seq", "8", "--ckpt-every", "2"]
+    plain = ttrain.main(args + ["--ckpt-dir", str(tmp_path / "a")])
+    res = ttrain.run(ttrain.parse_args(args + [
+        "--production-mesh", "--ckpt-dir", str(tmp_path / "b")]))
+    np.testing.assert_allclose(res.losses, plain, rtol=1e-6)
+    from repro_torch.distributed.sharding import Sharded, spec_devices
+    leaves = tree_leaves((res.params, res.opt))
+    assert all(isinstance(x, Sharded) for x in leaves)
+    wq = res.params["layers"]["wq"]
+    assert len(wq.shards) == 16 and wq.spec == (None, None, "model")
+    assert all(s.device == d for s, d in zip(
+        wq.shards, spec_devices(wq.mesh, wq.spec)))
+    more = ttrain.run(ttrain.parse_args(args[:-4] + [
+        "--steps", "3", "--ckpt-every", "2", "--production-mesh",
+        "--ckpt-dir", str(tmp_path / "b")]))
+    assert more.start == 2 and len(more.losses) == 1
+    assert isinstance(more.params["layers"]["wq"], Sharded)
 
 
 def test_train_config_and_data():

@@ -409,7 +409,7 @@ def test_frozen_slot_state_unchanged(served):
     keys = _state_keys(tc)
     before = {k: eng.pool[k].clone() for k in keys + ("len", "tok")}
     for _ in range(3):
-        eng._decode(tp, eng.pool)
+        eng.stripes[0].decode(tp, eng.pool)
     for k in keys:
         assert torch.equal(eng.pool[k][:, 0], before[k][:, 0]), k
     main = keys[0]
@@ -447,17 +447,24 @@ def test_deploy_recurrent_rejects_dense_arch():
 
 
 def test_deploy_recurrent_rejects_model_width():
-    """A 'model' width the serving mesh does not have, or a mesh with a
-    'data' width above 1 (ROADMAP A17), is refused."""
+    """A 'model' width the serving mesh does not have is refused. A mesh
+    with two data rows gives each row a copy of the same chips
+    (`nn.row_params`)."""
     from repro_torch.launch.mesh import Mesh
     cfg = tserve.serving_config(RWKV, smoke=True, cim=True)
     params = tT.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(ValueError, match="disagrees with the serving"):
         tnn.deploy_recurrent_cim(params, cfg, mesh_shape={"model": 2},
                                  mesh=Mesh([["cpu"]]))
-    with pytest.raises(NotImplementedError, match="A17"):
-        tnn.deploy_recurrent_cim(params, cfg,
-                                 mesh=Mesh([["cpu"], ["cpu"]]))
+    dp = tnn.deploy_recurrent_cim(params, cfg, mesh=Mesh([["cpu"], ["cpu"]]))
+    assert len(dp["cim_rows"]) == 2
+    for r in range(2):
+        rp = tnn.row_params(dp, r)
+        assert "cim_rows" not in rp
+        for n, v in dp["layers"].items():
+            if n.endswith("_cim"):
+                assert all(torch.equal(a.packed.gd_tiles, b.packed.gd_tiles)
+                           for a, b in zip(v, rp["layers"][n])), n
 
 
 @pytest.mark.parametrize("arch", [RWKV, ZAMBA])

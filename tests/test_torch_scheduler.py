@@ -229,7 +229,7 @@ def test_inactive_slot_state_is_bit_identical_across_steps():
     eng._activate(eng.pool, 1, False)
     snap = {k: v.clone() for k, v in eng.pool.items()}
     for _ in range(3):
-        eng._decode(eng.params, eng.pool)
+        eng.stripes[0].decode(eng.params, eng.pool)
     for k in ("k", "v"):
         assert torch.equal(eng.pool[k][:, 1], snap[k][:, 1]), k
         assert not torch.equal(eng.pool[k][:, 0], snap[k][:, 0]), k
@@ -400,14 +400,22 @@ def test_serve_traffic_cli_writes_obs_files(tmp_path, served):
 
 
 def test_engine_refuses_a_mesh():
-    """A mesh whose 'data' width is above 1 (the striped slot pool,
-    ROADMAP A17) is refused; a 'model'-only mesh is served."""
+    """A mesh serving cannot take (the production mesh's 'pod' axis) and
+    a slot count that does not stripe over the data rows are refused; a
+    'model'-only mesh leaves the pool whole, two data rows stripe it."""
+    from repro_torch.distributed.sharding import Sharded
     from repro_torch.launch.mesh import Mesh
     cfg = tserve.serving_config("gemma2-9b", smoke=True)
-    with pytest.raises(NotImplementedError, match="A17"):
-        S.init_pool(cfg, 2, 8, mesh=Mesh([["cpu"], ["cpu"]]), device="cpu")
+    with pytest.raises(ValueError, match="axes"):
+        S.init_pool(cfg, 2, 8, mesh=Mesh([[["cpu"]], [["cpu"]]],
+                                         ("pod", "data", "model")))
+    with pytest.raises(ValueError, match="do not stripe"):
+        S.init_pool(cfg, 3, 8, mesh=Mesh([["cpu"], ["cpu"]]))
     assert S.init_pool(cfg, 2, 8, mesh=Mesh([["cpu"] * 2]),
                        device="cpu")["len"].shape == (2,)
+    pool = S.init_pool(cfg, 4, 8, mesh=Mesh([["cpu"], ["cpu"]]))
+    assert isinstance(pool["k"], Sharded) and pool["k"].shape[1] == 4
+    assert [s.shape[1] for s in pool["k"].shards] == [2, 2]
 
 
 @pytest.mark.cuda
@@ -432,7 +440,7 @@ def test_graph_replay_equals_eager_on_card():
             eng._activate(eng.pool, 1, False)
         clone = {k: v.clone() for k, v in eng.pool.items()}
         before = dict(LAUNCHES)
-        logits, _ = eng._decode(eng.params, eng.pool)
+        logits, _ = eng.stripes[0].decode(eng.params, eng.pool)
         launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         eager, _ = eng._step(eng.params, clone)
         torch.cuda.synchronize()
@@ -442,6 +450,7 @@ def test_graph_replay_equals_eager_on_card():
         if capture:
             assert eng.pool["len"].tolist() == [65, 33]
         else:
-            assert launched == eng._decode.fun.per_replay
+            assert launched == eng.stripes[0].decode.fun.per_replay
     assert eng.decode_traces() == 1
-    assert sum(eng._decode.fun.per_replay.values()) == 7 * cfg.n_layers
+    assert sum(eng.stripes[0].decode.fun.per_replay.values()) == \
+        7 * cfg.n_layers

@@ -256,14 +256,20 @@ def test_cpu_entry_points_build_on_cpu():
 
 
 def test_deploy_rejects_tensor_parallel_width():
-    """A tensor-parallel width the serving mesh does not have, or a mesh
-    with a 'data' width above 1 (ROADMAP A17), is refused."""
+    """A tensor-parallel width the serving mesh does not have is refused;
+    a mesh with two data rows deploys one chip set and gives each row a
+    copy of it (on one device, the same tensors)."""
     from repro_torch.launch.mesh import Mesh
     cfg = tserve.serving_config("gemma2-9b", smoke=True, cim=True)
     params = tT.init_params(cfg.replace(n_layers=1), seed=0, device="cpu")
     with pytest.raises(ValueError, match="disagrees with the serving"):
         tnn.deploy_transformer_cim(params, cfg, mesh_shape={"model": 2},
                                    mesh=Mesh([["cpu"]]))
-    with pytest.raises(NotImplementedError, match="A17"):
-        tnn.deploy_transformer_cim(params, cfg,
-                                   mesh=Mesh([["cpu"], ["cpu"]]))
+    dp = tnn.deploy_transformer_cim(params, cfg,
+                                    mesh=Mesh([["cpu"], ["cpu"]]))
+    rows = dp["cim_rows"]
+    assert len(rows) == 2
+    for row in rows:
+        assert row["entries"][("layers", "wq_cim")][0].packed.gd_tiles \
+            .data_ptr() == dp["layers"]["wq_cim"][0].packed.gd_tiles \
+            .data_ptr()

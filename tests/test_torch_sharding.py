@@ -204,10 +204,17 @@ def test_mesh_class():
         tmesh.Mesh.over(["cpu"] * 3, {"model": 4})
     with pytest.raises(ValueError):
         tmesh.Mesh([["cpu"], ["cpu", "cpu"]])
-    with pytest.raises(NotImplementedError, match="A14"):
-        tmesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="A17"):
-        tmesh.check_serving_mesh(tmesh.Mesh([["cpu"], ["cpu"]]))
+    prod = tmesh.make_production_mesh(devices=["cpu"])
+    assert prod.shape == {"data": 16, "model": 16}
+    assert prod.n_distinct() == 1 and len(prod.flat()) == 256
+    pods = tmesh.make_production_mesh(multi_pod=True, devices=["cpu"] * 3)
+    assert pods.shape == {"pod": 2, "data": 16, "model": 16}
+    assert tmesh.data_axes(pods) == ("pod", "data")
+    assert pods.device_at({"pod": 1, "data": 2, "model": 3}) == \
+        torch.device("cpu")
+    with pytest.raises(ValueError, match="axes"):
+        tmesh.check_serving_mesh(pods)
+    tmesh.check_serving_mesh(tmesh.Mesh([["cpu"], ["cpu"]]))
     tmesh.check_serving_mesh(m4)
 
 

@@ -373,16 +373,31 @@ def test_mesh_and_mesh_shape_width_disagreement_raises():
         tnn._resolve_mesh(object(), mesh, {"model": 2})
     m, ms = tnn._resolve_mesh(object(), mesh, {"model": 1})
     assert m is mesh and ms["model"] == 1
-    with pytest.raises(NotImplementedError, match="A17"):
-        tnn._resolve_mesh(object(), Mesh([["cpu"], ["cpu"]]), None)
+    m, ms = tnn._resolve_mesh(object(), Mesh([["cpu"], ["cpu"]]), None)
+    assert ms == {"data": 2, "model": 1}
+    with pytest.raises(ValueError, match="axes"):
+        tnn._resolve_mesh(object(), Mesh([[["cpu"]]], ("pod", "data",
+                                                       "model")), None)
 
 
 def test_pool_accepts_a_model_mesh_and_refuses_a_data_mesh():
+    """A 'model'-only mesh leaves the pool whole on the device; a data
+    mesh stripes it (the refusal is gone): stripe r holds slots r * S/D ..
+    (r + 1) * S/D - 1 in the blocks `pool_pspecs` names."""
+    from repro_torch.distributed.sharding import (pool_pspecs, shard_shape,
+                                                  spec_devices)
     cfg = tserve.serving_config(GEMMA, smoke=True)
     pool = S.init_pool(cfg, 2, 8, mesh=Mesh([["cpu"] * 2]), device="cpu")
     assert pool["k"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A17"):
-        S.init_pool(cfg, 2, 8, mesh=Mesh([["cpu"], ["cpu"]]), device="cpu")
+    mesh = Mesh([["cpu"] * 2] * 2)
+    striped = S.init_pool(cfg, 4, 8, mesh=mesh)
+    specs = pool_pspecs(pool)
+    for k, v in striped.items():
+        assert v.spec == specs[k], k
+        assert len(v.shards) == 2 and all(
+            s.shape == shard_shape(v.shape, v.spec, mesh.shape)
+            and s.device == d
+            for s, d in zip(v.shards, spec_devices(mesh, v.spec))), k
 
 
 def test_in_alpha_names_checked_through_sharded_deploy():
@@ -424,13 +439,16 @@ def test_serve_cli_reports_tensor_parallel_width(capsys):
 
 @pytest.mark.parametrize("n_cards", [1, 2, 3, 5, 6, 7, 8, 12])
 def test_auto_mesh_is_model_only(monkeypatch, n_cards):
-    """'auto' on any card count: a 1 x M mesh over the first M cards, M
-    the largest power of two dividing the count, never a 'data' width
-    that the deploy refuses."""
+    """'auto' on any card count factors it as the reference does
+    (`mesh_shape_for`: 12 cards 3 x 4, 6 cards 3 x 2, an odd count n x
+    1) over every card, and the deploy takes it."""
+    from repro.launch import mesh as jmesh
     from repro_torch.launch import mesh as mesh_mod
     monkeypatch.setattr(mesh_mod, "local_devices", lambda kind="cuda": [
         torch.device("cpu")] * n_cards)
-    mesh = mesh_mod.model_mesh()
     m = n_cards & -n_cards
-    assert mesh.shape == {"data": 1, "model": m}
-    tnn._resolve_mesh(object(), mesh, None)
+    want = {"data": n_cards // m, "model": m}
+    assert jmesh.mesh_shape_for(n_cards) == want
+    mesh = mesh_mod.serving_mesh()
+    assert mesh.shape == want and len(mesh.flat()) == n_cards
+    assert tnn._resolve_mesh(object(), mesh, None)[1] == want
