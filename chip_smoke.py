@@ -314,6 +314,30 @@ the final result line:
                 (16 x 16 over cuda:0): every leaf's shards where its spec
                 puts them (views: nothing copied), losses equal within
                 bf16 rounding
+  autotune      `kernels/cim_mvm/autotune.tune` on a full-width gemma2-9b
+                `w_g` (6144 cores, the packed kernel) at M = 4, 16 and 256
+                and on serve-merged's `w_g` (scheduled) at 4 and 256: each
+                route candidate's time (the tuner's default timer), every one
+                bit for bit the default route, the winner, a serving call
+                with the route left open that launches the winner and
+                equals the default; the default's and the winner's time
+                after an L2 flush; then `tune_tiling` on a 3584 x 2048
+                layer at M = 16 on 4096 cores (9 tilings), each re-pack
+                against its own plain version
+  packed-unfused  `fused=False` against `fused=True` on serve-merged's
+                `w_g`, `w_i`, `w_o`, an IR-drop `wq` (2048 cores, 2
+                passes) and the RBM's h->v plan at paper geometry: bit for
+                bit with the valid-column mask (integer counts: every
+                activation but identity), each against its plain version
+                in every activation, both timed at M = 4 and 256
+  dryrun        `launch/dryrun.lower_cell` on gemma2-9b train_4k,
+                prefill_32k, decode_32k and rwkv6-7b long_500k at full
+                config on the 16 x 16 production mesh of meta devices:
+                roofline terms and model_over_hlo per cell; no CUDA memory
+                allocated
+  examples      the four `repro_torch.examples` scripts on the card: their
+                lines, wall seconds beside the card's name and power
+                limit, their kernel launches, the RBM's L2 error falling
   kernels       one line per the contract below, then the result line
 
 Tolerances: every kernel and its plain version must agree bit for bit in
@@ -337,6 +361,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2805,7 +2830,7 @@ def kernels_line(stats):
                         "weight_ms", "sgemm_ms", "fused_ms", "fused_plain_ms",
                         "fused_bound_ms", "fused_host_us", "lstm_ms",
                         "lstm_bound_ms")
-               or k.startswith(("prefill_", "tp_"))},
+               or k.startswith(("prefill_", "tp_", "tuned_", "unfused_"))},
             "ok": not failures})
     return {"kernels": rows}
 
@@ -3999,6 +4024,359 @@ def dp_phases(torch, K, serve, dev, stats):
     free(torch)
 
 
+# ----------------------------------------------- slice 16: the last modules
+
+AUTOTUNE_ROWS = (4, 16, 256)      # the packed layer: split route, edge, walk
+AUTOTUNE_MERGED_ROWS = (4, 256)
+TILING = dict(shape=(3584, 2048), m=16, cores=4096)   # gemma2-9b's wk
+UNFUSED_ROWS = (4, 256)
+UNFUSED_IRDROP = dict(shape=(3584, 4096), cores=2048, alpha=2e-7)
+DRYRUN_CELLS = (("gemma2-9b", "train_4k"), ("gemma2-9b", "prefill_32k"),
+                ("gemma2-9b", "decode_32k"), ("rwkv6-7b", "long_500k"))
+# the kernels each example must launch (the LM example's chipsim datapath
+# is float: no CIM kernel)
+EXAMPLE_KERNELS = {"quickstart": ("cim_mvm",), "lm_cim_serving": (),
+                   "image_recovery_rbm": ("cim_mvm_packed",
+                                          "cim_mvm_transposed"),
+                   "train_cnn_noisy": ("cim_mvm",)}
+
+
+def merged_chip(torch, cim, CIMConfig, CoreSpec, dev, seed):
+    """serve-merged's layer chip: full-width gemma2-9b's seven projections
+    on 3072 cores (w_g, w_i and w_o merged into passes), as the serving
+    deploy plans them (sorted names)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    weights = {n: torch.randn(r, c, generator=gen, device=dev) / r ** 0.5
+               for n, (r, c) in sorted(FULL_LAYER.items())}
+    return cim.compile_chip(weights, CIMConfig(), CoreSpec(n_cores=3072),
+                            "ideal", in_alpha=3.0, generator=gen)
+
+
+@contextlib.contextmanager
+def launched_routes(K):
+    """Record the route of every packed-family launch made inside: "split"
+    or the walk's pinned layout (None: the rule's)."""
+    seen = []
+    walk, split = K.launch_walk, K.launch_split
+
+    def rec_walk(*a, layout=None, **kw):
+        seen.append(("walk", layout))
+        return walk(*a, layout=layout, **kw)
+
+    def rec_split(*a, **kw):
+        seen.append(("split", None))
+        return split(*a, **kw)
+    K.launch_walk, K.launch_split = rec_walk, rec_split
+    try:
+        yield seen
+    finally:
+        K.launch_walk, K.launch_split = walk, split
+
+
+def tune_plan(torch, K, ops, autotune, p, x, label, flush, stats):
+    """autotune.tune on plan p at x (the default timer: CUDA events, best
+    of 3 after a warm-up), every candidate checked bit for bit against the
+    default route inside tune; then a serving call with the route left
+    open takes the winner (its launch recorded) and equals the default
+    route bit for bit; the default and the winner timed after an L2 flush
+    each (median of 20)."""
+    from repro_torch.core.types import CIMConfig
+    cfg = CIMConfig()
+    m = x.shape[0]
+    want = ops.cim_mvm_packed(x, p, cfg, route=K.RULE)
+    check_equal(torch, want, ops.cim_mvm_packed(x, p, cfg, impl="plain"),
+                f"{label} M={m} default route", stats, p.route())
+    winner, timings = autotune.tune(x, p, activation=cfg.activation,
+                                    n_max=cfg.out_mag_levels,
+                                    v_read=cfg.v_read, refresh=True)
+    before = dict(K.LAUNCHES)
+    with launched_routes(K) as seen:
+        got = ops.cim_mvm_packed(x, p, cfg)
+    torch.cuda.synchronize()
+    launches = {k: n - before[k] for k, n in K.LAUNCHES.items()
+                if n != before[k]}
+    stats["launches"].setdefault("autotune-serve", {})
+    for k, n in launches.items():
+        stats["launches"]["autotune-serve"][k] = \
+            stats["launches"]["autotune-serve"].get(k, 0) + n
+    served = seen[0] if len(seen) == 1 else seen
+    if served != (winner.kind, winner.layout):
+        raise AssertionError(f"{label} M={m}: the serving call took {seen}, "
+                             f"the cached winner is {winner}")
+    check_equal(torch, got, want, f"{label} M={m} tuned route", stats,
+                p.route())
+    default_ms = median_ms(torch, lambda: ops.cim_mvm_packed(
+        x, p, cfg, route=K.RULE), 20, flush)
+    tuned_ms = median_ms(torch, lambda: ops.cim_mvm_packed(x, p, cfg), 20,
+                         flush)
+    row = {"plan": label, "kernel": p.route(), "m": m,
+           "candidates_ms": {str(r): t for r, t in timings.items()},
+           "winner": str(winner), "all_bit_equal": True,
+           "served_route": str(winner), "launches": launches,
+           "default_ms": default_ms, "tuned_ms": tuned_ms}
+    emit({"phase": "autotune-shape", **row})
+    return row
+
+
+@phase("autotune")
+def autotune_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats,
+                   merged):
+    from repro_torch.core.conductance import weights_to_conductances
+    from repro_torch.kernels.cim_mvm import autotune
+    autotune.clear()
+    gen = torch.Generator(dev).manual_seed(21)
+    flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB > L2
+    r, c = FULL_LAYER["w_g"]
+    w = torch.randn(r, c, generator=gen, device=dev) / r ** 0.5
+    p = cim.compile_chip({"w_g": w}, CIMConfig(), CoreSpec(n_cores=6144),
+                         "ideal", in_alpha=3.0,
+                         generator=gen).layers["w_g"].packed
+    del w
+    if p.route() != "cim_mvm_packed":
+        raise AssertionError(f"w_g routes to {p.route()}")
+    rows = []
+    for m in AUTOTUNE_ROWS:
+        x = torch.randint(-7, 8, (m, r), generator=gen,
+                          device=dev).to(torch.float32)
+        rows.append(tune_plan(torch, K, ops, autotune, p, x,
+                              "w_g 6144 cores", flush, stats))
+    del p
+    pm = merged.layers["w_g"].packed
+    if pm.route() != "cim_mvm_scheduled":
+        raise AssertionError(f"merged w_g routes to {pm.route()}")
+    for m in AUTOTUNE_MERGED_ROWS:
+        x = torch.randint(-7, 8, (m, r), generator=gen,
+                          device=dev).to(torch.float32)
+        rows.append(tune_plan(torch, K, ops, autotune, pm, x,
+                              "w_g merged 3072 cores", flush, stats))
+    # plan-time re-tiling of one layer, on a chip with cores enough for
+    # every halving of the core caps
+    tr, tc = TILING["shape"]
+    cfg = CIMConfig()
+    cond = weights_to_conductances(
+        torch.randn(tr, tc, generator=gen, device=dev) / tr ** 0.5,
+        cfg.device)
+    gd, gs = cond.g_pos - cond.g_neg, cond.g_pos + cond.g_neg
+    spec = CoreSpec(n_cores=TILING["cores"])
+    x = torch.randint(-7, 8, (TILING["m"], tr), generator=gen,
+                      device=dev).to(torch.float32)
+    cands = autotune.tiling_candidates(tr, tc, spec)
+    if len(cands) < 3:
+        raise AssertionError(f"only {len(cands)} tiling candidates")
+    winner, timings = autotune.tune_tiling(
+        x, gd, gsum=gs, v_decr=0.002, activation=cfg.activation,
+        n_max=cfg.out_mag_levels, v_read=cfg.v_read, spec=spec,
+        refresh=True)
+    for bk, bn in cands:
+        rp = autotune.retile(gd, bk, bn, gsum=gs, v_decr=0.002)
+        check_equal(torch, ops.cim_mvm_packed(x, rp, cfg),
+                    ops.cim_mvm_packed(x, rp, cfg, impl="plain"),
+                    f"retile {bk}x{bn} M={TILING['m']}", stats, rp.route())
+    tiling = {"layer": [tr, tc], "m": TILING["m"], "cores": spec.n_cores,
+              "candidates_ms": {f"{bk}x{bn}": t
+                                for (bk, bn), t in timings.items()},
+              "winner": f"{winner[0]}x{winner[1]}",
+              "each_equal_to_its_plain_version": True}
+    emit({"phase": "autotune-tiling", **tiling})
+    autotune.clear()
+    stats["time"].setdefault("cim_mvm_packed", {})["tuned_ms"] = {
+        r_["m"]: r_["tuned_ms"] for r_ in rows if "6144" in r_["plan"]}
+    stats["time"].setdefault("cim_mvm_scheduled", {})["tuned_ms"] = {
+        r_["m"]: r_["tuned_ms"] for r_ in rows if "merged" in r_["plan"]}
+    return {"plans": len(rows), "tiling_candidates": len(cands),
+            "winners": {f"{r_['plan']} M={r_['m']}": r_["winner"]
+                        for r_ in rows},
+            "tiling_winner": tiling["winner"]}
+
+
+def unfused_plan(torch, ops, p, x, label, flush, stats):
+    """fused=False against fused=True on plan p at x: bit for bit with the
+    valid-column mask as the weight (integer counts, fold_norm=False) in
+    every activation but identity (the raw charge, not a count), each
+    against its own plain version with the plan's denorm and with the
+    mask in every activation; both timed (median of 20 after an L2
+    flush)."""
+    import dataclasses
+    from repro_torch.core.types import CIMConfig
+    kernel = p.route(True)
+    mask = dataclasses.replace(
+        p, denorm_tiles=(p.inv_norm_tiles > 0).to(torch.float32))
+    for plan in (p, mask):
+        for act in ALL_ACTIVATIONS:
+            cfg = CIMConfig(activation=act)
+            kw = dict(seed=SEED, scheduled=True)
+            a = ops.cim_mvm_packed(x, plan, cfg, fused=False, **kw)
+            check_equal(torch, a, ops.cim_mvm_packed(
+                x, plan, cfg, fused=False, impl="plain", **kw),
+                f"{label} unfused M={x.shape[0]} {act}", stats, kernel)
+            b = ops.cim_mvm_packed(x, plan, cfg, **kw)
+            check_equal(torch, b, ops.cim_mvm_packed(
+                x, plan, cfg, impl="plain", **kw),
+                f"{label} fused M={x.shape[0]} {act}", stats, kernel)
+            if plan is mask and act != "identity":
+                # counts are integers, so any grouping of their sum is
+                # exact; the identity epilogue passes the raw charge on
+                check_equal(torch, a, b, f"{label} unfused vs fused "
+                            f"M={x.shape[0]} {act}", stats, kernel)
+    cfg = CIMConfig()
+    t = {}
+    for fused in (True, False, False, True):
+        run = lambda: ops.cim_mvm_packed(x, p, cfg, scheduled=True,
+                                         fused=fused)
+        run()
+        t.setdefault(fused, []).append(median_ms(torch, run, 20, flush))
+    row = {"plan": label, "kernel": kernel, "m": x.shape[0],
+           "slots": p.n_tiles, "passes": p.n_passes,
+           "fused_runs": sum(1 for c in p.out_col if c >= 0),
+           "fused_ms": t[True], "unfused_ms": t[False],
+           "bit_equal_on_counts": True}
+    emit({"phase": "unfused-shape", **row})
+    return row
+
+
+@phase("packed-unfused")
+def packed_unfused_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev,
+                         stats, merged):
+    from repro_torch.core.types import NonIdealityConfig
+    gen = torch.Generator(dev).manual_seed(22)
+    flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB > L2
+    ir_r, ir_c = UNFUSED_IRDROP["shape"]
+    ir_cfg = CIMConfig(nonideal=NonIdealityConfig(
+        ir_drop_alpha=UNFUSED_IRDROP["alpha"]))
+    ir = cim.compile_chip(
+        {"wq": torch.randn(ir_r, ir_c, generator=gen, device=dev)
+         / ir_r ** 0.5}, ir_cfg, CoreSpec(n_cores=UNFUSED_IRDROP["cores"]),
+        "ideal", in_alpha=3.0, generator=gen).layers["wq"].packed
+    plans = [(f"merged {n}", merged.layers[n].packed)
+             for n in ("w_g", "w_i", "w_o")]
+    plans += [("ir-drop wq", ir),
+              ("rbm bwd 784+10 x 120", rbm_bwd_plan(torch, dev, gen, 794,
+                                                    120, False))]
+    reset_launches(K)
+    rows = []
+    for label, p in plans:
+        if p.route(True) == "cim_mvm_packed" or (
+                p.n_passes < 2 and not p.transpose):
+            raise AssertionError(f"{label}: {p.n_passes} passes, route "
+                                 f"{p.route()}")
+        for m in UNFUSED_ROWS:
+            if p.transpose:
+                x = torch.randint(0, 2, (m, p.n_rows), generator=gen,
+                                  device=dev).to(torch.float32)
+            else:
+                x = torch.randint(-7, 8, (m, p.n_rows), generator=gen,
+                                  device=dev).to(torch.float32)
+            rows.append(unfused_plan(torch, ops, p, x, label, flush, stats))
+    stats["launches"]["packed-unfused"] = {k: n for k, n in
+                                           K.LAUNCHES.items() if n}
+    for kernel in ("cim_mvm_scheduled", "cim_mvm_transposed"):
+        stats["time"].setdefault(kernel, {})["unfused_ms"] = {
+            f"{r_['plan']} M={r_['m']}": r_["unfused_ms"]
+            for r_ in rows if r_["kernel"] == kernel}
+        stats["time"][kernel]["unfused_fused_ms"] = {
+            f"{r_['plan']} M={r_['m']}": r_["fused_ms"]
+            for r_ in rows if r_["kernel"] == kernel}
+    return {"plans": len(plans), "shapes": len(rows),
+            "launches": stats["launches"]["packed-unfused"]}
+
+
+@phase("dryrun")
+def dryrun_phase(torch):
+    """launch/dryrun.lower_cell on DRYRUN_CELLS at full config on the
+    16 x 16 production mesh of meta devices: each record's roofline terms
+    and model_over_hlo; no CUDA memory allocated while they run."""
+    from repro_torch.launch import dryrun
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec, _ = dryrun.lower_cell(arch, shape, multi_pod=False)
+        roof = rec["roofline"]
+        line = {"arch": arch, "shape": shape, "mesh": rec["mesh"],
+                "layer_pair": rec["layer_pair"], "accum": rec["accum"],
+                "fsdp": rec["fsdp"],
+                "hlo_flops_per_dev": rec["hlo_flops_per_dev"],
+                "hlo_bytes_per_dev": rec["hlo_bytes_per_dev"],
+                "collective_bytes_per_dev": rec["collective_bytes_per_dev"],
+                "memory": rec["memory"],
+                "model_over_hlo": rec["model_over_hlo"],
+                **{k: roof[k] for k in ("compute_s", "memory_s",
+                                        "collective_s", "dominant",
+                                        "roofline_fraction")},
+                "seconds": time.perf_counter() - t0}
+        emit({"phase": "dryrun-cell", **line})
+        cells.append(line)
+        if not all(math.isfinite(roof[k]) for k in
+                   ("compute_s", "memory_s", "collective_s")):
+            raise AssertionError(f"{arch} {shape}: non-finite roofline")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    if after != before or peak != before:
+        raise AssertionError(f"the dry run allocated CUDA memory: {before} "
+                             f"B before, {after} after, peak {peak}")
+    return {"cells": len(cells), "cuda_bytes_allocated": peak - before,
+            "model_over_hlo": {f"{c['arch']} {c['shape']}":
+                               c["model_over_hlo"] for c in cells}}
+
+
+@phase("examples")
+def examples_phase(torch, K, stats):
+    """The four example scripts on the card (`python -m
+    repro_torch.examples.<name>`'s main, in this process): their printed
+    lines forwarded, wall seconds beside the card's name and power limit,
+    each one's kernel launches (each example that programs a chip must
+    launch its kernels), the RBM's L2 error falling."""
+    import importlib
+    import re
+    out = {}
+    for name, kernels in EXAMPLE_KERNELS.items():
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        reset_launches(K)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            module.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in K.LAUNCHES.items() if n}
+        stats["launches"][f"example-{name}"] = launches
+        lines = buf.getvalue().splitlines()
+        emit({"phase": "example", "name": name, "lines": lines,
+              "wall_s": wall, "launches": launches,
+              "nvidia_smi": stats["smi"]})
+        missing = [k for k in kernels if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{name} launched no {missing}")
+        if name == "image_recovery_rbm":
+            errs = [re.search(r"L2 error ([0-9.]+) -> ([0-9.]+)", ln)
+                    for ln in lines]
+            errs = [(float(e[1]), float(e[2])) for e in errs if e]
+            if len(errs) != 2 or any(b >= a for a, b in errs):
+                raise AssertionError(f"the RBM's L2 error did not fall: "
+                                     f"{errs}")
+        out[name] = {"wall_s": wall, "lines": len(lines)}
+    return {"examples": out}
+
+
+def module_phases(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats):
+    """The phases of the last modules: autotune and packed-unfused on one
+    serve-merged chip, then the dry run and the examples."""
+    merged = merged_chip(torch, cim, CIMConfig, CoreSpec, dev, 20)
+    autotune_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats,
+                   merged)
+    free(torch)
+    packed_unfused_phase(torch, K, ops, cim, CIMConfig, CoreSpec, dev,
+                         stats, merged)
+    del merged
+    free(torch)
+    dryrun_phase(torch)
+    examples_phase(torch, K, stats)
+    free(torch)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -4065,6 +4443,8 @@ def main() -> int:
     tp_phases(torch, K, ops, serve, dev, stats)
     free(torch)
     dp_phases(torch, K, serve, dev, stats)
+    free(torch)
+    module_phases(torch, K, ops, cim, CIMConfig, CoreSpec, dev, stats)
 
     emit(kernels_line(stats))
     if failures or info is None:

@@ -314,6 +314,31 @@ class PackedPlan:
                 "the tile-grid kernel cannot serialize merged cores")
         return "cim_mvm_scheduled" if scheduled else "cim_mvm_packed"
 
+    def run_layout(self, fused: bool = True):
+        """(run_start, col_run_start, col_runs, n_run_ranks, n_run_len): the
+        run tables the scheduled and transposed kernels walk and their
+        plain version's loop bounds. fused=False gives the reference's
+        per-slot partial baseline (out_slot = range(T), out_col =
+        col_block): each slot its own run, a column block's runs in slot
+        order, each summed from zero and folded in run order; idle slots
+        stay idle runs."""
+        if fused:
+            return (self.run_start, self.col_run_start, self.col_runs,
+                    self.n_run_ranks, self.n_run_len)
+        return self._unfused_layout
+
+    @functools.cached_property
+    def _unfused_layout(self):
+        out_col = [c if self.out_col[r] >= 0 else -1
+                   for c, r in zip(self.col_block, self.out_slot)]
+        live = [c for c in out_col if c >= 0]
+        tables = run_tables(range(self.n_tiles), out_col, self.n_col_blocks)
+        dev = self.gd_tiles.device
+        return (*(torch.tensor(t, dtype=torch.int32, device=dev)
+                  for t in tables),
+                max(collections.Counter(live).values()) if live else 0,
+                1 if live else 0)
+
     @functools.cached_property
     def n_ranks(self) -> int:
         """The most tiles one output column block holds (the row-split
@@ -628,7 +653,7 @@ def pack_tiles_transposed(tiles: Sequence[Tile], packed: PackedPlan, *,
 
 
 def multicore_mvm_packed(x, packed: PackedPlan, cfg=None, *, seed: int = 0,
-                         scheduled=None, fused: bool = True,
+                         bm=None, scheduled=None, fused: bool = True,
                          impl: str = "auto"):
     """A whole layer's tile plan in ONE kernel launch (the packed,
     scheduled or transposed kernel, by the plan; `scheduled` forces the
@@ -641,14 +666,15 @@ def multicore_mvm_packed(x, packed: PackedPlan, cfg=None, *, seed: int = 0,
     slot order. On the card the split route (packed and scheduled plans,
     M <= 16) reads any float x; the walk (M > 16, and every transposed
     launch) reads x as int8, so there x must hold integers |x| <= 127 and
-    anything else raises. fused=False (the per-slot partial baseline)
-    raises: not ported (ROADMAP A10). impl="plain" forces the plain
-    version."""
+    anything else raises. fused=False runs the per-slot partial baseline
+    (`PackedPlan.run_layout`; bit for bit the fused sums on integer
+    counts); bm keys the stochastic neuron's draws (`ops.packed_call`).
+    impl="plain" forces the plain version."""
     from ..kernels.cim_mvm import kernel as K
     from ..kernels.cim_mvm.ops import cim_mvm_packed, packed_call
     if cfg is not None:
-        return cim_mvm_packed(x, packed, cfg, seed=seed, scheduled=scheduled,
-                              fused=fused, impl=impl)
+        return cim_mvm_packed(x, packed, cfg, seed=seed, bm=bm,
+                              scheduled=scheduled, fused=fused, impl=impl)
     walk = packed.transpose or not K.split_route(x.shape[0])
     if impl != "plain" and x.device.type == "cuda" and walk and not bool(
             ((x == torch.round(x)) & (x.abs() <= 127)).all()):
@@ -656,7 +682,7 @@ def multicore_mvm_packed(x, packed: PackedPlan, cfg=None, *, seed: int = 0,
             f"the walk ({x.shape[0]} rows, plan '{packed.layer}') reads x "
             "as int8: an exact matmul there takes integers |x| <= 127")
     return packed_call(x, packed, activation="identity", n_max=1,
-                       v_read=1.0, seed=seed, scheduled=scheduled,
+                       v_read=1.0, seed=seed, bm=bm, scheduled=scheduled,
                        fused=fused, impl=impl)
 
 

@@ -52,6 +52,11 @@ def quantize_to_int(x, alpha, bits: int, signed: bool = True):
     return xi, scale
 
 
+def dequantize(x_int, scale):
+    """x ~= x_int * scale in float32 (the inverse of `quantize_to_int`)."""
+    return x_int.to(torch.float32) * scale
+
+
 def int_bit_planes(x_int, mag_bits: int):
     """Decompose signed ints into ternary bit-plane pulses (paper Methods).
 

@@ -37,9 +37,12 @@ stage, layer, tile/slot and invariant, before anything launches.
                                    transposed kernels) and live_slots (the
                                    split route's term blocks) match
                                    out_slot / out_col
+            route                  a pinned route the plan's kernel
+                                   cannot take at the batch
             shared-memory          one CUDA block of each route the plan
-                                   launches — the walk at the tiling it
-                                   picks for the batch (transposed: the
+                                   launches (or of a pinned route) — the
+                                   walk at the tiling it picks for the
+                                   batch (transposed: the
                                    walk over the stored tile's column
                                    axis, its only route), and for a
                                    forward plan the split route of a
@@ -97,6 +100,11 @@ from ..kernels.cim_mvm.kernel import (SMEM_LIMIT, SPLIT_CHUNK_ROWS,
 
 # the largest batch block the serving path launches (prefill of 4 x 64)
 _DEFAULT_BM = 256
+# The reference's per-grid-step VMEM budget has no meaning on the card: the
+# name stands for the limit that takes its place, the shared memory one
+# Hopper block can use (`kernel.SMEM_LIMIT`, bytes), which the
+# `shared-memory` invariant checks.
+DEFAULT_VMEM_BUDGET = SMEM_LIMIT
 _GD_GRID_INV = 2.0 ** 23     # gd elements are integer multiples of 2^-23
 _IN_MAX_LIMIT = 127          # the largest |x| any CIMConfig allows (8 bits)
 
@@ -244,12 +252,14 @@ def _ints(t):
 
 
 def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
-                 layer: Optional[str] = None) -> None:
+                 route=None, layer: Optional[str] = None) -> None:
     """Verify a stage-5 PackedPlan's static index maps, tensor shapes,
     kernel tables and its kernel's shared memory.
 
     bm: batch rows the shared-memory check assumes; None takes the
-    largest batch block the serving path launches.
+    largest batch block the serving path launches. route: a pinned launch
+    route (`kernel.Route`, what the autotuner sweeps): the shared-memory
+    check then takes that route at bm rows instead of the rule's routes.
     """
     name = layer if layer is not None else packed.layer
     T = packed.n_tiles
@@ -435,20 +445,30 @@ def check_packed(packed: PackedPlan, *, bm: Optional[int] = None,
     kernel = packed.route()
     split = kernel in SPLIT_KERNELS
     rows = _DEFAULT_BM if bm is None else max(int(bm), 1)
-    batches = {rows, SPLIT_ROWS[-1]} if split else {rows}
-    for m in sorted(batches):
-        if split and split_route(m):
-            route, bm_eff = "split route", split_rows(m)
+    if route is None or route.kind == "rule":
+        batches = {rows, SPLIT_ROWS[-1]} if split else {rows}
+        launches = [(m, split and split_route(m), None)
+                    for m in sorted(batches)]
+    else:
+        if route.kind == "split" and (not split or not split_route(rows)):
+            raise ChipVerifyError(
+                "pack", "route",
+                f"{kernel} has no split route at {rows} rows", layer=name)
+        launches = [(rows, route.kind == "split", route.layout)]
+    for m, on_split, layout in launches:
+        if on_split:
+            what, bm_eff = "split route", split_rows(m)
             need = split_shared_bytes(bm_eff, packed.bk, packed.bn)
         else:
-            route = "walk"
+            what = "walk"
             geo = walk_geometry(m, packed.bk, packed.bn,
-                                packed.n_col_blocks, trans=packed.transpose)
+                                packed.n_col_blocks, trans=packed.transpose,
+                                layout=layout)
             bm_eff, need = geo.bm, walk_shared_bytes(geo)
         if need > SMEM_LIMIT:
             raise ChipVerifyError(
                 "pack", "shared-memory",
-                f"one CUDA block of {kernel} ({route}) needs {need} bytes of "
+                f"one CUDA block of {kernel} ({what}) needs {need} bytes of "
                 f"shared memory at {bm_eff} rows but a Hopper block has "
                 f"{SMEM_LIMIT}", layer=name)
     if split and packed.bn > SPLIT_THREADS:

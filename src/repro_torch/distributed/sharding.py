@@ -33,14 +33,85 @@ block i is `shard_slice(x, spec, mesh.shape, spec_indices(mesh,
 spec)[i])` on `spec_devices(mesh, spec)[i]`, a view when that device is
 x's own (so a mesh that repeats a device copies nothing). `Sharded.gather`
 puts the blocks back together in index order.
+
+`collective_tally` counts the bytes of the port's explicit exchanges
+while it is open (`launch/dryrun.py` reads it): each exchange site calls
+`tally(kind, nbytes)` with the bytes one device receives in it, under the
+reference's collective names — the meshed train step's replica copies and
+ZeRO reduce-scatter (`launch/steps._mesh_train_step`), its ordered row
+sums of the loss and the gradient norm, the expert-parallel all-to-all
+(`models/moe.moe_ffn_ep_shardmap`), `gather` / `scatter_` of a `Sharded`
+tensor and the row-parallel chips' ordered fold
+(`models/nn.sharded_packed_loop`). What is tallied inside `microbatch()`
+(a train step's microbatch loop) is also kept apart, so a count of one
+microbatch extends to accum of them. Closed, a tally is one test of a
+global.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+class Tally:
+    """Bytes per device of each collective kind and the exchanges'
+    "count": `total` over the block, `micro` the share made inside
+    `microbatch()`."""
+
+    def __init__(self):
+        self.total = dict.fromkeys(COLLECTIVES + ("count",), 0)
+        self.micro = dict.fromkeys(COLLECTIVES + ("count",), 0)
+        self.in_micro = False
+
+
+_TALLY: Optional[Tally] = None
+
+
+@contextlib.contextmanager
+def collective_tally():
+    """Yield a `Tally` of the exchanges made while the block runs."""
+    global _TALLY
+    old, _TALLY = _TALLY, Tally()
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = old
+
+
+@contextlib.contextmanager
+def microbatch():
+    """Mark the exchanges of one microbatch of a train step's loop."""
+    if _TALLY is None:
+        yield
+        return
+    old, _TALLY.in_micro = _TALLY.in_micro, True
+    try:
+        yield
+    finally:
+        _TALLY.in_micro = old
+
+
+def tally(kind: str, nbytes: int, count: int = 1) -> None:
+    """Count an exchange of `nbytes` bytes per device of `kind` (one of
+    COLLECTIVES) in the open `collective_tally`, if any."""
+    if _TALLY is None:
+        return
+    for d in (_TALLY.total, _TALLY.micro) if _TALLY.in_micro \
+            else (_TALLY.total,):
+        d[kind] += int(nbytes)
+        d["count"] += count
+
+
+def nbytes(shape, dtype) -> int:
+    """Bytes of a tensor of `shape` and `dtype`."""
+    return math.prod(shape) * dtype.itemsize
 
 
 class P:
@@ -376,6 +447,8 @@ def gather(sh: Sharded, device=None):
     each block copied into its place in index order, or, where the blocks
     are views of one tensor on that device, that tensor (no copy)."""
     dev = torch.device(device) if device is not None else sh.device
+    if len(sh.shards) > 1:
+        tally("all-gather", nbytes(sh.shape, sh.dtype))
     whole = _aliased_whole(sh, dev)
     if whole is not None:
         return whole
@@ -391,6 +464,8 @@ def scatter_(sh: Sharded, x) -> Sharded:
     of x copied into its shard, skipped where the shard is that block
     already: a gather that copied nothing). Returns sh."""
     sizes = _axis_sizes(sh.mesh)
+    if len(sh.shards) > 1:
+        tally("collective-permute", nbytes(sh.shards[0].shape, sh.dtype))
     for s, at in zip(sh.shards, spec_indices(sh.mesh, sh.spec)):
         v = shard_slice(x, sh.spec, sizes, at)
         if v.device != s.device or v.data_ptr() != s.data_ptr():

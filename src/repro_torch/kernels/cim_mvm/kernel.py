@@ -42,8 +42,8 @@ or the valid-column mask (inv_norm > 0) for stochastic comparator bits.
 The stochastic neuron draws `hash_uniform` (kernels/prng.py) at the
 reference's coordinates: row r % bm_ref, column inside the tile's output
 block, salts (seed, r // bm_ref, j) with j the slot (the stack position
-for the transposed kernel) and bm_ref = min(256, M), the reference's
-default batch block.
+for the transposed kernel) and bm_ref = min(bm, M) for the caller's batch
+block bm (default HASH_BM = 256, the reference's default).
 
 The packed and scheduled kernels have two routes on the card, picked from
 the batch rows M by `split_route`: at decode (M up to SPLIT_ROWS[-1]) the
@@ -56,7 +56,9 @@ items of up to 64 rows x 64 columns of one output column block
 (`walk_geometry`), walks that block's tiles in that order with the tile
 dots on the FP64 tensor cores. The transposed kernel takes the walk at
 every M, with the stored tile read on its column axis (its TRANS flag).
-Both routes are the function of `cim_runs_plain`, bit for bit.
+Both routes are the function of `cim_runs_plain`, bit for bit. A caller
+may pin the route and the walk's item layout (`Route`: what
+`autotune.tune` sweeps); a pinned route changes no output.
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel (`csrc/*.cu`) for a CUDA tensor, or raises — nothing falls back.
@@ -70,7 +72,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -132,6 +134,37 @@ def split_route(m: int) -> bool:
     `route-edge`): on a full-width gemma2-9b layer the split route beats
     the walk at every batch it runs, 4 and 16 rows."""
     return m <= SPLIT_ROWS[-1]
+
+
+class Route(NamedTuple):
+    """A launch route of the packed kernels: kind "split" (the term pass
+    and the fold, M <= 16; packed and scheduled kernels), "walk" with its
+    item layout (an index into WALK_ITEMS; None: the one `walk_geometry`
+    picks), or "rule" (`RULE`: the route and layout the rules pick, as
+    route=None does)."""
+    kind: str
+    layout: Optional[int] = None
+
+    def __str__(self):
+        if self.kind != "walk":
+            return self.kind
+        if self.layout is None:
+            return "walk"
+        return "walk %dx%d" % WALK_ITEMS[self.layout]
+
+
+RULE = Route("rule")
+
+
+def _takes_split(kernel: str, m: int, route: Optional[Route]) -> bool:
+    """Whether a launch takes the split route: by rule, or as pinned."""
+    if route is None or route.kind == "rule":
+        return kernel in SPLIT_KERNELS and split_route(m)
+    if route.kind not in ("split", "walk"):
+        raise ValueError(f"unknown route kind {route.kind!r}")
+    if route.kind == "split" and kernel not in SPLIT_KERNELS:
+        raise ValueError(f"{kernel} has no split route")
+    return route.kind == "split"
 
 
 def split_rows(m: int) -> int:
@@ -206,7 +239,8 @@ def walk_shared_bytes(g: WalkGeometry) -> int:
 
 
 def walk_geometry(m: int, bk: int, bn: int, n_cb: int, *,
-                  trans: bool = False, n_sm: int = None) -> WalkGeometry:
+                  trans: bool = False, n_sm: int = None,
+                  layout: Optional[int] = None) -> WalkGeometry:
     """The walk's tiling of an m-row launch over a plan of tiles that
     contract bk inputs into bn outputs (stored (bk, bn); transposed, trans,
     stored (bn, bk)) and n_cb output column blocks, on a card of n_sm SMs
@@ -216,7 +250,8 @@ def walk_geometry(m: int, bk: int, bn: int, n_cb: int, *,
     the smallest. A stage holds kc = min(128, bk rounded up to 16) of the
     contraction; transposed, where the stored rows are off the 16-byte
     grid (bk % 4; no tensor copy), one stage holds all of it (bk <= 256);
-    the ring has the layout's WALK_STAGES stages."""
+    the ring has the layout's WALK_STAGES stages. layout pins the item
+    (an index into WALK_ITEMS) instead of the rule."""
     if not (m >= 1 and bk >= 1 and bn >= 1 and n_cb >= 1):
         raise ValueError(f"no walk geometry for m={m}, bk={bk}, bn={bn}, "
                          f"n_cb={n_cb}")
@@ -229,14 +264,26 @@ def walk_geometry(m: int, bk: int, bn: int, n_cb: int, *,
                              f"16-byte grid, the plan has {bk}")
         kc = _round16(bk)
     cands = []
-    for layout, (bm, bc) in enumerate(WALK_ITEMS):
-        if bm > 32 and m <= 32:
+    for lay, (bm, bc) in enumerate(WALK_ITEMS):
+        if layout is None and bm > 32 and m <= 32:
             continue
         n_rbk, n_strips = _cdiv(m, bm), _cdiv(bn, bc)
-        cands.append(WalkGeometry(layout, bm, bc, n_rbk, n_strips, kc,
-                                  WALK_STAGES[layout],
+        cands.append(WalkGeometry(lay, bm, bc, n_rbk, n_strips, kc,
+                                  WALK_STAGES[lay],
                                   n_rbk * n_strips * n_cb, int(trans)))
+    if layout is not None:
+        if not 0 <= layout < len(WALK_ITEMS):
+            raise ValueError(f"no walk layout {layout}: there are "
+                             f"{len(WALK_ITEMS)}")
+        return cands[layout]
     return next((g for g in cands if g.n_items >= n_sm), cands[-1])
+
+
+def walk_layouts(m: int):
+    """The walk's item layouts that fit an m-row launch: every one above
+    32 rows, the 32-row items at or below (`walk_geometry`'s rule)."""
+    return tuple(lay for lay, (bm, _) in enumerate(WALK_ITEMS)
+                 if not (bm > 32 and m <= 32))
 
 
 # ------------------------------------------- single-matrix kernel geometry
@@ -532,10 +579,11 @@ def _dot(xb, gd_tiles, in_index, slot, stack, transpose: bool):
     return torch.bmm(xb[in_index[slot].long()], g).to(torch.float32)
 
 
-def _uniform(q_shape, m: int, slot_salt, seed: int, device):
+def _uniform(q_shape, m: int, slot_salt, seed: int, device,
+             bm: int = HASH_BM):
     """The stochastic draws of one (n_cb, M, bn) step at the reference's
-    hash coordinates (see the module docstring)."""
-    bm = min(HASH_BM, m)
+    hash coordinates for batch block bm (see the module docstring)."""
+    bm = min(bm, m)
     rows = torch.arange(m, device=device)[None, :, None]
     cols = torch.arange(q_shape[-1], device=device)[None, None, :]
     bits = hash_bits_at(rows % bm, cols, seed, rows // bm,
@@ -544,13 +592,13 @@ def _uniform(q_shape, m: int, slot_salt, seed: int, device):
 
 
 def _term(q, inv, den, vd, salt, *, activation: str, n_max: int,
-          seed: int):
+          seed: int, bm: int = HASH_BM):
     """counts * weight of n tile steps: q (n, M, w), inv / den (n, 1, w),
     vd and the hash's tile salts (n,). The stochastic bit is weighted by
     the valid-column mask (inv > 0), every other count by den."""
     vd = vd[:, None, None]
     if activation == "stochastic":
-        u = _uniform(q.shape, q.shape[1], salt, seed, q.device)
+        u = _uniform(q.shape, q.shape[1], salt, seed, q.device, bm)
         return _epilogue(q, vd, activation, n_max, u) \
             * (inv > 0).to(torch.float32)
     return _epilogue(q, vd, activation, n_max) * den
@@ -560,13 +608,14 @@ def cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
                    in_index, run_start, col_run_start, col_runs, *,
                    tile_index=None, n_run_ranks: int, n_run_len: int,
                    activation: str, n_max: int, v_read: float,
-                   seed: int = 0):
+                   seed: int = 0, bm: int = HASH_BM):
     """The plain PyTorch version of all three kernels: vectorised over
     output column blocks, looping over run rank and slot rank, so each
     block sums every run's slots from zero in slot order and folds the
     runs in run order, as the kernels do. tile_index (transposed plans):
     slot -> stack position, the tile is read transposed and j of the hash
-    is its stack position. Returns (M, n_col_blocks * out_block)."""
+    is its stack position; bm the stochastic neuron's hash block. Returns
+    (M, n_col_blocks * out_block)."""
     m = x.shape[0]
     transpose = tile_index is not None
     _, rows_s, cols_s = gd_tiles.shape
@@ -587,7 +636,7 @@ def cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
         term = _term(q, inv_norm_tiles[slot], denorm_tiles[slot],
                      v_decr_tiles[slot],
                      tile_index[slot] if transpose else slot,
-                     activation=activation, n_max=n_max, seed=seed)
+                     activation=activation, n_max=n_max, seed=seed, bm=bm)
         part = torch.where(valid[:, None, None], part + term, part)
         if s == n_run_len - 1:
             total = torch.where(run_valid[:, None, None], total + part,
@@ -597,7 +646,8 @@ def cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
 
 def cim_terms_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
                     in_index, live_slots=None, *, activation: str,
-                    n_max: int, v_read: float, seed: int = 0):
+                    n_max: int, v_read: float, seed: int = 0,
+                    bm: int = HASH_BM):
     """The plain version of the split route's term pass (forward plans):
     terms[t] = counts * weight of tile t for every live slot t (None: every
     slot), each tile dot in FP64 rounded once to f32 as the kernels do.
@@ -615,7 +665,7 @@ def cim_terms_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
             * inv_norm_tiles[live]
         terms[live] = _term(q, inv_norm_tiles[live], denorm_tiles[live],
                             v_decr_tiles[live], live, activation=activation,
-                            n_max=n_max, seed=seed)
+                            n_max=n_max, seed=seed, bm=bm)
     return terms
 
 
@@ -645,7 +695,7 @@ def boundary_counts(x, gd_tiles, inv_norm_tiles, v_decr_tiles, in_index,
                     run_start, col_run_start, col_runs, *, tile_index=None,
                     n_run_ranks: int, n_run_len: int, v_read: float,
                     activation: str = "none", n_max: int = 127,
-                    seed: int = 0):
+                    seed: int = 0, bm: int = HASH_BM):
     """For each output element, how many of its tiles sit where two
     correct f32 executions of the same dot may decide differently.
 
@@ -679,7 +729,7 @@ def boundary_counts(x, gd_tiles, inv_norm_tiles, v_decr_tiles, in_index,
             * v_read * inv.abs()
         if activation == "stochastic":
             salt = tile_index[slot] if transpose else slot
-            u = _uniform(q.shape, m, salt, seed, x.device).double()
+            u = _uniform(q.shape, m, salt, seed, x.device, bm).double()
             noise = (u * 2.0 - 1.0) * (vd * n_max)
             near = (q + noise).abs() <= band + 2 * u32 * noise.abs()
         else:
@@ -870,14 +920,15 @@ def _ptr(t):
 
 @functools.lru_cache(maxsize=None)
 def _walk_plan(kernel: str, m: int, bk: int, bn: int, n_cb: int,
-               index: int):
+               index: int, layout: Optional[int] = None):
     """walk_launch_geometry on card `index`, memoized: it depends on the
-    shape alone."""
+    shape and the pinned layout alone."""
     lib = load()[kernel]
     with torch.cuda.device(index):
         n_sm = torch.cuda.get_device_properties(index).multi_processor_count
         g = walk_geometry(m, bk, bn, n_cb, n_sm=n_sm,
-                          trans=kernel == "cim_mvm_transposed")
+                          trans=kernel == "cim_mvm_transposed",
+                          layout=layout)
         blocks = getattr(lib, f"{kernel}_occupancy")(ctypes.byref(g))
     if blocks < 1:
         raise RuntimeError(f"{kernel}'s walk cannot launch geometry "
@@ -886,22 +937,23 @@ def _walk_plan(kernel: str, m: int, bk: int, bn: int, n_cb: int,
 
 
 def walk_launch_geometry(kernel: str, m: int, bk: int, bn: int, n_cb: int,
-                         device):
+                         device, layout: Optional[int] = None):
     """The walk's tiling and persistent grid for an m-row launch of
     `kernel` over a plan of tiles contracting bk inputs into bn outputs
     and n_cb column blocks on CUDA `device`: `walk_geometry` for the
     card's SMs (transposed for the transposed kernel), the grid the
     runtime's resident blocks per SM times the SMs, at most one block per
-    item."""
+    item. layout pins the item layout (None: the rule's)."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    return _walk_plan(kernel, m, bk, bn, n_cb, index)
+    return _walk_plan(kernel, m, bk, bn, n_cb, index, layout)
 
 
 def launch_walk(kernel: str, x, gd_tiles, tile_tensors, index_tensors,
                 n_cb: int, in_w: int, out_w: int, *, activation, n_max,
-                v_read, seed):
+                v_read, seed, bm: int = HASH_BM,
+                layout: Optional[int] = None):
     """Check the plan's tensors, allocate the output and launch `kernel`'s
     walk once on the current stream (the transposed kernel's only route;
     the packed and scheduled kernels' above the split route's edge, and
@@ -910,7 +962,8 @@ def launch_walk(kernel: str, x, gd_tiles, tile_tensors, index_tensors,
     point's order (packed: row_index, col_start; scheduled: row_index,
     run_start, col_run_start, col_runs; transposed: in_index, tile_index,
     run_start, col_run_start, col_runs); in_w / out_w: a tile's inputs
-    and outputs (transposed: its stored columns and rows)."""
+    and outputs (transposed: its stored columns and rows); bm the
+    stochastic neuron's hash block; layout pins the walk's item layout."""
     if x.device.type != "cuda":
         raise ValueError(f"no {kernel} kernel for device {x.device}")
     _check_plan(x, gd_tiles, tile_tensors, index_tensors, out_w)
@@ -922,8 +975,9 @@ def launch_walk(kernel: str, x, gd_tiles, tile_tensors, index_tensors,
         return out
     with torch.cuda.device(dev):    # a shard's chip may lie on another card
         lib = load()[kernel]
-        epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
-        g, grid = walk_launch_geometry(kernel, m, in_w, out_w, n_cb, dev)
+        epi = _epilogue_args(activation, n_max, v_read, seed, min(bm, m))
+        g, grid = walk_launch_geometry(kernel, m, in_w, out_w, n_cb, dev,
+                                       layout)
         if kernel == "cim_mvm_transposed":
             row_index, tile_slot, *runs = index_tensors
         else:
@@ -949,7 +1003,7 @@ def launch_walk(kernel: str, x, gd_tiles, tile_tensors, index_tensors,
 
 def launch_split(kernel: str, x, gd_tiles, tile_tensors, row_index,
                  run_tables, live_slots, n_cb: int, *, activation, n_max,
-                 v_read, seed):
+                 v_read, seed, bm: int = HASH_BM):
     """Check the plan's tensors, allocate the term scratch and the output,
     and launch `kernel`'s split route (M <= 16) on the current stream: the
     term pass over the live slots (live_slots None: every slot), then the
@@ -972,7 +1026,7 @@ def launch_split(kernel: str, x, gd_tiles, tile_tensors, row_index,
         return out
     terms = torch.empty((n_tiles, m, bn), dtype=f32, device=dev)
     n_live = n_tiles if live_slots is None else live_slots.numel()
-    epi = _epilogue_args(activation, n_max, v_read, seed, min(HASH_BM, m))
+    epi = _epilogue_args(activation, n_max, v_read, seed, min(bm, m))
     with torch.cuda.device(dev):    # a shard's chip may lie on another card
         err = getattr(lib, f"{kernel}_split_launch")(
             x.data_ptr(), m, k, gd_tiles.data_ptr(), inv.data_ptr(),
@@ -989,7 +1043,8 @@ def launch_split(kernel: str, x, gd_tiles, tile_tensors, row_index,
 def cim_mvm_packed(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
                    row_index, col_start, *, n_row_blocks: int, n_ranks: int,
                    activation: str = "none", n_max: int = 127,
-                   v_read: float = 0.5, seed: int = 0, impl: str = "auto"):
+                   v_read: float = 0.5, seed: int = 0, bm: int = HASH_BM,
+                   route: Optional[Route] = None, impl: str = "auto"):
     """Whole-layer packed CIM MVM of a single-pass plan: ONE launch (the
     split route's two kernels at M <= 16, the walk above).
 
@@ -998,7 +1053,9 @@ def cim_mvm_packed(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
     row_index: (T,) int32 input block per slot; col_start: (n_cb + 1,)
     int32 CSR offsets of each output column block's slots. n_row_blocks /
     n_ranks: static plan geometry (input blocks; most tiles in one column
-    block). seed: the stochastic neuron's salt. Returns (M, n_cb * bn).
+    block). seed / bm: the stochastic neuron's salt and hash block. route:
+    pins the launch route (None: `split_route`'s rule). Returns (M, n_cb
+    * bn).
 
     impl: "auto" runs the plain version on a CPU tensor and launches the
     kernel on a CUDA tensor; "plain" forces the plain version (on-card
@@ -1018,19 +1075,21 @@ def cim_mvm_packed(x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
             x, gd_tiles, inv_norm_tiles, denorm_tiles, v_decr_tiles,
             row_index, col_start, ar, ar[:-1], n_run_ranks=1,
             n_run_len=n_ranks, activation=activation, n_max=n_max,
-            v_read=v_read, seed=seed)
+            v_read=v_read, seed=seed, bm=bm)
     _, bk, bn = gd_tiles.shape
     if x.shape[1] > n_row_blocks * bk:
         raise ValueError(f"x has {x.shape[1]} features, the plan covers "
                          f"{n_row_blocks * bk}")
-    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed)
+    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed,
+              bm=bm)
     tiles = (inv_norm_tiles, denorm_tiles, v_decr_tiles)
     n_cb = col_start.shape[0] - 1
-    if split_route(x.shape[0]):
+    if _takes_split("cim_mvm_packed", x.shape[0], route):
         return launch_split("cim_mvm_packed", x, gd_tiles, tiles, row_index,
                             (col_start, None, None), None, n_cb, **kw)
     return launch_walk("cim_mvm_packed", x, gd_tiles, tiles,
-                       (row_index, col_start), n_cb, bk, bn, **kw)
+                       (row_index, col_start), n_cb, bk, bn,
+                       layout=route and route.layout, **kw)
 
 
 def cim_mvm_scheduled(x, gd_tiles, inv_norm_tiles, denorm_tiles,
@@ -1038,6 +1097,7 @@ def cim_mvm_scheduled(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                       col_runs, live_slots, *, n_run_ranks: int,
                       n_run_len: int, activation: str = "none",
                       n_max: int = 127, v_read: float = 0.5, seed: int = 0,
+                      bm: int = HASH_BM, route: Optional[Route] = None,
                       impl: str = "auto"):
     """Whole-layer scheduled CIM MVM of a merged-core plan: ONE launch (the
     split route's two kernels at M <= 16, the walk above).
@@ -1048,10 +1108,12 @@ def cim_mvm_scheduled(x, gd_tiles, inv_norm_tiles, denorm_tiles,
     in run order; live_slots: the slots of live runs, in slot order (the
     split route's term blocks). n_run_ranks / n_run_len: the most live
     runs of one column block and the most slots of one run (the plain
-    version's loops). Returns (M, n_cb * bn)."""
+    version's loops). bm and route as `cim_mvm_packed`. Returns (M, n_cb *
+    bn)."""
     _check_args(activation, impl)
     tables = (run_start, col_run_start, col_runs)
-    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed)
+    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed,
+              bm=bm)
     if impl == "plain" or x.device.type == "cpu":
         return cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                               v_decr_tiles, row_index, *tables,
@@ -1060,11 +1122,12 @@ def cim_mvm_scheduled(x, gd_tiles, inv_norm_tiles, denorm_tiles,
     _, bk, bn = gd_tiles.shape
     tiles = (inv_norm_tiles, denorm_tiles, v_decr_tiles)
     n_cb = col_run_start.shape[0] - 1
-    if split_route(x.shape[0]):
+    if _takes_split("cim_mvm_scheduled", x.shape[0], route):
         return launch_split("cim_mvm_scheduled", x, gd_tiles, tiles,
                             row_index, tables, live_slots, n_cb, **kw)
     return launch_walk("cim_mvm_scheduled", x, gd_tiles, tiles,
-                       (row_index, *tables), n_cb, bk, bn, **kw)
+                       (row_index, *tables), n_cb, bk, bn,
+                       layout=route and route.layout, **kw)
 
 
 def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
@@ -1072,6 +1135,7 @@ def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                        col_run_start, col_runs, *, n_run_ranks: int,
                        n_run_len: int, activation: str = "none",
                        n_max: int = 127, v_read: float = 0.5, seed: int = 0,
+                       bm: int = HASH_BM, route: Optional[Route] = None,
                        impl: str = "auto"):
     """Whole-layer transpose-direction CIM MVM: ONE launch of the walk over
     the shared forward stack gd_tiles (T, bk_f, bn_f), never copied or
@@ -1080,21 +1144,25 @@ def cim_mvm_transposed(x, gd_tiles, inv_norm_tiles, denorm_tiles,
     x: (M, K') over the forward COLUMNS; inv_norm_tiles / denorm_tiles:
     (T, 1, bk_f) per-row tensors in this direction's slot order; in_index:
     (T,) forward column block per slot; tile_index: (T,) slot -> stack
-    position; run tables as `cim_mvm_scheduled`, over forward row blocks.
-    Returns (M, n_cb * bk_f)."""
+    position; run tables as `cim_mvm_scheduled`, over forward row blocks;
+    bm as `cim_mvm_packed`, route a walk layout (the walk is the only
+    route). Returns (M, n_cb * bk_f)."""
     _check_args(activation, impl)
     tables = (run_start, col_run_start, col_runs)
-    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed)
+    kw = dict(activation=activation, n_max=n_max, v_read=v_read, seed=seed,
+              bm=bm)
     if impl == "plain" or x.device.type == "cpu":
         return cim_runs_plain(x, gd_tiles, inv_norm_tiles, denorm_tiles,
                               v_decr_tiles, in_index, *tables,
                               tile_index=tile_index, n_run_ranks=n_run_ranks,
                               n_run_len=n_run_len, **kw)
+    _takes_split("cim_mvm_transposed", x.shape[0], route)
     _, bk_f, bn_f = gd_tiles.shape
     return launch_walk("cim_mvm_transposed", x, gd_tiles,
                        (inv_norm_tiles, denorm_tiles, v_decr_tiles),
                        (in_index, tile_index, *tables),
-                       col_run_start.shape[0] - 1, bn_f, bk_f, **kw)
+                       col_run_start.shape[0] - 1, bn_f, bk_f,
+                       layout=route and route.layout, **kw)
 
 
 @functools.lru_cache(maxsize=None)

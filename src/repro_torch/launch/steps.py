@@ -249,9 +249,15 @@ def _mesh_train_step(cfg, lr, accum, grad_spec, data_axes, mesh, grad_sync):
     With grad_spec the returned state holds the moments as
     `distributed/sharding.Sharded` leaves (opt_pspecs(grad_spec)),
     which the next call takes as they are; a plain moment tree is cut at
-    the first call (views, where the shard's device is the moment's)."""
-    from ..distributed.sharding import P, Sharded, shard_slice, \
-        spec_devices, spec_indices
+    the first call (views, where the shard's device is the moment's).
+
+    The exchanges are tallied (`distributed/sharding.collective_tally`,
+    bytes one device receives): the replicas and the write-back of the
+    updated shards as all-gathers, each microbatch's reduce-scatter (an
+    all-reduce without grad_spec), the loss's and the norm's row sums as
+    all-reduces."""
+    from ..distributed.sharding import P, Sharded, microbatch, nbytes, \
+        shard_shape, shard_slice, spec_devices, spec_indices, tally
     from ..models import moe
     rows = mesh.rows(data_axes or ())
     n_rows = len(rows)
@@ -310,6 +316,13 @@ def _mesh_train_step(cfg, lr, accum, grad_spec, data_axes, mesh, grad_sync):
                 loss, grads = loss_and_grads(replicas[r], stripe, cfg)
             yield r, loss, tree_leaves(grads)
 
+    def exchange(leaves_, lays):
+        """Tally one reduce-scatter of the rows' f32 gradients."""
+        shard = sum(nbytes(shard_shape(x.shape, lay[0], sizes),
+                           torch.float32) for x, lay in zip(leaves_, lays))
+        tally("reduce-scatter" if grad_spec is not None else "all-reduce",
+              shard, len(leaves_))
+
     def add_slices(acc, leaves_, lays):
         """acc (per leaf, per shard, f32 on the shard's device) plus the
         slices of one row's leaves; None starts it with a copy."""
@@ -330,6 +343,9 @@ def _mesh_train_step(cfg, lr, accum, grad_spec, data_axes, mesh, grad_sync):
         home = leaves[0].device
         replicas = [tree_map(lambda p, d=d: p.to(d), params)
                     for d in row_devs]
+        whole = sum(nbytes(p.shape, p.dtype) for p in leaves)
+        if n_rows > 1:
+            tally("all-gather", whole, len(leaves))
         once = grad_sync == "once" and accum > 1
         g_sh = None                       # per leaf, per shard (f32)
         acc_rows = [None] * n_rows        # "once": per row, full f32
@@ -337,33 +353,38 @@ def _mesh_train_step(cfg, lr, accum, grad_spec, data_axes, mesh, grad_sync):
         for i in range(accum):
             mb = _micro(batch, accum, i) if accum > 1 else batch
             l_sum, micro = None, None
-            for r, l, g in row_grads(replicas, mb):
-                l = l.to(home, torch.float32)
-                l_sum = l if l_sum is None else l_sum + l
-                if once:
-                    if acc_rows[r] is None:
-                        acc_rows[r] = [x.to(torch.float32, copy=True)
-                                       for x in g]
+            with microbatch():
+                for r, l, g in row_grads(replicas, mb):
+                    l = l.to(home, torch.float32)
+                    l_sum = l if l_sum is None else l_sum + l
+                    if once:
+                        if acc_rows[r] is None:
+                            acc_rows[r] = [x.to(torch.float32, copy=True)
+                                           for x in g]
+                        else:
+                            for a, x in zip(acc_rows[r], g):
+                                a.add_(x.to(torch.float32))
+                    else:             # reduce-scatter as the rows come
+                        micro = add_slices(micro, g, lays)
+                    del g
+                l_micro = l_sum / n_rows
+                loss = l_micro if loss is None else loss + l_micro
+                if n_rows > 1:
+                    tally("all-reduce", 4)
+                if micro is not None:
+                    exchange(leaves, lays)
+                    for shards in micro:
+                        for a in shards:
+                            a.div_(n_rows)
+                    if g_sh is None:
+                        g_sh = micro
                     else:
-                        for a, x in zip(acc_rows[r], g):
-                            a.add_(x.to(torch.float32))
-                else:             # reduce-scatter as the rows come
-                    micro = add_slices(micro, g, lays)
-                del g
-            l_micro = l_sum / n_rows
-            loss = l_micro if loss is None else loss + l_micro
-            if micro is not None:
-                for shards in micro:
-                    for a in shards:
-                        a.div_(n_rows)
-                if g_sh is None:
-                    g_sh = micro
-                else:
-                    for gs, ms in zip(g_sh, micro):
-                        for a, b in zip(gs, ms):
-                            a.add_(b)
-                del micro
+                        for gs, ms in zip(g_sh, micro):
+                            for a, b in zip(gs, ms):
+                                a.add_(b)
+                    del micro
         if once:
+            exchange(leaves, lays)
             for r in range(n_rows):
                 g_sh = add_slices(g_sh, acc_rows[r], lays)
                 acc_rows[r] = None
@@ -379,6 +400,8 @@ def _mesh_train_step(cfg, lr, accum, grad_spec, data_axes, mesh, grad_sync):
             g_sh = [[a.to(p.dtype) for a in gs]
                     for gs, p in zip(g_sh, leaves)]
         gnorm = _clip_shards_(g_sh, home)
+        if grad_spec is not None:
+            tally("all-reduce", 4 * len(leaves), len(leaves))
         p_sh = [cut(p, lay) for p, lay in zip(leaves, lays)]
         m_sh = moment_shards(opt_state["m"], lays)
         v_sh = moment_shards(opt_state["v"], lays)
@@ -391,6 +414,8 @@ def _mesh_train_step(cfg, lr, accum, grad_spec, data_axes, mesh, grad_sync):
         for dev, items in by_dev.items():
             ps, gs, ms, vs = (list(z) for z in zip(*items))
             adamw_apply(gs, {"m": ms, "v": vs, "t": t.to(dev)}, ps, lr)
+        if grad_spec is not None:
+            tally("all-gather", whole, len(leaves))
         for p, lay, shards in zip(leaves, lays, p_sh):
             for at, sh in zip(lay[1], shards):
                 view = shard_slice(p, lay[0], sizes, at)

@@ -39,13 +39,14 @@ import torch
 import torch.nn.functional as F
 
 
-def layer_params(gen: torch.Generator, cfg, n_layers: int) -> Dict:
+def layer_params(gen: torch.Generator, cfg, n_layers: int,
+                 device=None) -> Dict:
     """Per-layer weights stacked over `n_layers`, in the reference's layout
     (expand factor 2; in_proj gives z, x, B, C and dt)."""
     d = cfg.d_model
     d_in = 2 * d
     n_heads = d_in // cfg.ssm_head
-    dev, dtype = gen.device, cfg.dtype
+    dev, dtype = device or gen.device, cfg.dtype
 
     def s(*sh):
         w = torch.randn((n_layers, *sh), generator=gen, device=dev)

@@ -305,6 +305,10 @@ def moe_ffn_ep_shardmap(p: Dict, x, cfg, mesh, capacity_factor: float = 1.25,
                 stats["dropped_send"] = stats.get("dropped_send", 0) + int(
                     (~meta[3]).sum())
         results = []
+        if r == 0:      # one device's share of the two exchanges
+            from ..distributed.sharding import tally
+            tally("all-to-all", sends[0].numel() * sends[0].element_size()
+                  + sends[0].numel() // (d + 2) * d * x.element_size(), 2)
         for j, dev in enumerate(devs):
             recv = torch.stack([sd_[j].to(dev) for sd_ in sends])
             ew = [p[n][j * e_local:(j + 1) * e_local].to(dev)

@@ -82,6 +82,7 @@ from ..core.noise import weight_noise
 from ..core.quant import pact_quantize
 from ..core.types import CIMConfig, CoreSpec, NonIdealityConfig
 from ..core.verify import verify_deployed
+from ..distributed import sharding
 
 # ---------------------------------------------------------------- init utils
 
@@ -378,7 +379,10 @@ def sharded_packed_loop(spl: ShardedPackedLayer, x, ccfg: CIMConfig, *,
     if spl.n_shards == 1:
         return outs[0]
     if spl.partition == "col":
+        sharding.tally("all-gather", outs[0].numel() * spl.n_shards
+                       * outs[0].element_size())
         return torch.cat(outs, dim=-1)
+    sharding.tally("all-reduce", outs[0].numel() * outs[0].element_size())
     return _ordered_fold(outs)
 
 

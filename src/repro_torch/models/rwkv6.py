@@ -41,13 +41,14 @@ HEAD = 64          # rwkv6 head size
 LORA = 32          # decay lora rank
 
 
-def layer_params(gen: torch.Generator, cfg, n_layers: int) -> Dict:
+def layer_params(gen: torch.Generator, cfg, n_layers: int,
+                 device=None) -> Dict:
     """Per-layer weights stacked over `n_layers`, in the reference's layout:
     projections normal / sqrt(fan_in), the token-shift mixes 0.5, the decay
     base and the bonus u zero."""
     d = cfg.d_model
     h = d // HEAD
-    dev, dtype = gen.device, cfg.dtype
+    dev, dtype = device or gen.device, cfg.dtype
 
     def s(*sh):
         w = torch.randn((n_layers, *sh), generator=gen, device=dev)

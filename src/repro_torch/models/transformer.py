@@ -357,17 +357,17 @@ def routed_mlp(x, p, cfg: ArchConfig, *, seed: int = 5):
 # ------------------------------------------------------------ param init
 
 def _dense_layer_params(gen: torch.Generator, cfg: ArchConfig, n_layers: int,
-                        xattn: bool = False):
+                        xattn: bool = False, device=None):
     """Per-layer weights stacked over `n_layers`: normal / sqrt(fan_in).
     xattn: an encoder-decoder's decoder layers also carry cross-attention
     (xln, xwq, xwk, xwv, xwo); qkv_bias adds the zero-initialised float
     biases bq, bk, bv. MoE layers (n_experts > 0) carry the router, the
     routed experts' (L, E, in, out) stacks and, with shared experts, their
     fused SwiGLU (width d_expert * n_shared_experts) in place of the
-    MLP."""
+    MLP. device: where they are made (default: the generator's)."""
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     d, f = cfg.d_model, cfg.d_ff
-    dev, dtype = gen.device, cfg.dtype
+    dev, dtype = device or gen.device, cfg.dtype
 
     def s(*sh):
         w = torch.randn((n_layers, *sh), generator=gen, device=dev)
@@ -428,9 +428,12 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Dict:
     attention block, unstacked, under 'shared_attn'; an encoder-decoder
     its encoder stack under 'enc_layers' with its final norm 'ln_enc'
     (and cross-attention in every decoder layer); a VLM 'vis_proj'
-    (vis_patches, d), kept for the reference's layout."""
+    (vis_patches, d), kept for the reference's layout. On the `meta`
+    device (shapes and dtypes only, nothing allocated) the draws come from
+    a CPU generator that draws nothing."""
     device = resolve_device(device)
-    gen = torch.Generator(device).manual_seed(seed)
+    gen = torch.Generator("cpu" if device.type == "meta" else device
+                          ).manual_seed(seed)
     params = {
         "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                               device=device) * 0.02).to(cfg.dtype),
@@ -442,10 +445,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Dict:
                              * 0.02).to(cfg.dtype)
     rec = _recurrent(cfg)
     if rec is not None:
-        params["layers"] = rec.layer_params(gen, cfg, cfg.n_layers)
+        params["layers"] = rec.layer_params(gen, cfg, cfg.n_layers, device)
         if cfg.hybrid_attn_every > 0:       # zamba2's one shared block
             params["shared_attn"] = {
-                k: v[0] for k, v in _dense_layer_params(gen, cfg, 1).items()}
+                k: v[0] for k, v in _dense_layer_params(
+                    gen, cfg, 1, device=device).items()}
         return params
     if cfg.n_experts > 0 and cfg.moe_every > 1:
         if cfg.moe_every != 2:
@@ -453,13 +457,15 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None) -> Dict:
                              "(moe_every=2) is supported")
         n = cfg.n_layers // 2
         params["dense_layers"] = _dense_layer_params(
-            gen, cfg.replace(n_experts=0), n)
-        params["layers"] = _dense_layer_params(gen, cfg, n)
+            gen, cfg.replace(n_experts=0), n, device=device)
+        params["layers"] = _dense_layer_params(gen, cfg, n, device=device)
         return params
     params["layers"] = _dense_layer_params(gen, cfg, cfg.n_layers,
-                                           xattn=cfg.enc_layers > 0)
+                                           xattn=cfg.enc_layers > 0,
+                                           device=device)
     if cfg.enc_layers > 0:
-        params["enc_layers"] = _dense_layer_params(gen, cfg, cfg.enc_layers)
+        params["enc_layers"] = _dense_layer_params(gen, cfg, cfg.enc_layers,
+                                                   device=device)
         params["ln_enc"] = torch.ones((cfg.d_model,), dtype=cfg.dtype,
                                       device=device)
     if cfg.vis_patches > 0:

@@ -133,8 +133,8 @@ def test_cpu_wrapper_runs_plain_without_launching():
 
 def test_unported_plans_and_modes_raise():
     """Routing refuses what the reference refuses (a multi-pass plan on
-    the tile-grid kernel) and what the port leaves out (the per-slot
-    `fused=False` baseline, ROADMAP A10)."""
+    the tile-grid kernel), an input of the wrong width and an unknown
+    activation."""
     from repro_torch.core.mapping import schedule_tiles
     tiles = plan_layers([MatrixReq("m", 200, 70)]).tiles_for("m")
     single = pack_tiles(tiles, torch.ones(200, 70))
@@ -148,9 +148,6 @@ def test_unported_plans_and_modes_raise():
     with pytest.raises(ValueError, match="passes"):
         ops.packed_call(torch.ones(2, 200), multi, activation="none",
                         n_max=127, v_read=0.5, scheduled=False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ops.packed_call(torch.ones(2, 200), single, activation="none",
-                        n_max=127, v_read=0.5, fused=False)
     with pytest.raises(ValueError, match="features"):
         ops.packed_call(torch.ones(2, 199), single, activation="none",
                         n_max=127, v_read=0.5)

@@ -87,10 +87,11 @@ def _reference(width):
     stream = _stream(jc.vocab)
     ref_reqs = [Request(rid=i, prompt=p, max_new=g)
                 for i, (p, g) in enumerate(stream)]
-    ContinuousBatchingEngine(jc, ref, n_slots=SLOTS, max_len=MAX_LEN,
-                             chunk=CHUNK, capture_logits=True).run(
-        ref_reqs, realtime=False)
+    ref_stats = ContinuousBatchingEngine(
+        jc, ref, n_slots=SLOTS, max_len=MAX_LEN, chunk=CHUNK,
+        capture_logits=True).run(ref_reqs, realtime=False)
     return {"params": params, "ref": ref, "prompts": prompts,
+            "ref_stats": ref_stats,
             "ref_tokens": np.asarray(jnp.concatenate(toks, axis=1)),
             "ref_logits": [np.asarray(x) for x in ref_logits],
             "stream": stream, "ref_reqs": ref_reqs}
@@ -135,7 +136,8 @@ def served(request, references):
     stats = eng.run(reqs, realtime=False)
     return {"width": width, "names": names, "ref": ref, "mesh": mesh,
             "ref_tokens": r["ref_tokens"], "ref_logits": r["ref_logits"],
-            "ref_reqs": r["ref_reqs"], "tparams": tparams, "tcfg": tcfg,
+            "ref_reqs": r["ref_reqs"], "ref_stats": r["ref_stats"],
+            "tparams": tparams, "tcfg": tcfg,
             "stripes": stripes, "out": out, "reqs": reqs, "eng": eng,
             "stats": stats}
 
@@ -201,6 +203,18 @@ def test_striped_pool_logits_allclose(served):
             np.testing.assert_allclose(a, np.asarray(b), rtol=0,
                                        atol=LOGIT_ATOL,
                                        err_msg=f"rid {r.rid} token {i}")
+
+
+@pytest.mark.parametrize("key", ["mvm_dispatches", "energy_pj",
+                                 "pj_per_token", "utilization"])
+def test_striped_pool_chip_energy_equals_reference(served, key):
+    """The striped pool's chip meter counts row 0's chips once (the other
+    rows' copies in params['cim_rows'] are not metered again), so its
+    dispatches, energy, energy per token and utilization equal the
+    reference's pool served whole, and so does every request's energy."""
+    assert served["stats"][key] == served["ref_stats"][key]
+    for r, q in zip(served["reqs"], served["ref_reqs"]):
+        assert r.energy_pj == q.energy_pj, f"rid {r.rid}"
 
 
 def test_striped_pool_one_decode_step_per_stripe(served):

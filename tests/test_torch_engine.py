@@ -308,11 +308,27 @@ def test_multicore_mvm_packed_cim_datapath_matches_reference():
     assert np.all(np.abs(got - want) <= tol)
 
 
-def test_multicore_mvm_packed_refuses_the_unfused_baseline():
+@pytest.mark.parametrize("plan", ["merged", "transposed"])
+def test_multicore_mvm_packed_unfused_matches_reference(plan):
+    """fused=False (the per-slot partial baseline) against the reference's
+    fused=False, bit for bit on integer x (|x| <= 7) and weights on the
+    2^-12 grid, and against the port's fused result."""
+    import dataclasses
+    import jax.numpy as jnp
+    from repro.core import mapping as jmap
     _, plans = _raw_plans()
-    pt = packed_to_torch(plans["merged"][0])
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcore.multicore_mvm_packed(torch.zeros(2, 200), pt, fused=False)
+    pj, _, transpose = plans[plan]
+    pj = dataclasses.replace(
+        pj, gd_tiles=jnp.round(pj.gd_tiles * 2.0 ** 12) / 2.0 ** 12)
+    x = np.random.default_rng(9).integers(
+        -7, 8, (6, 500 if transpose else 200)).astype(np.float32)
+    pt = packed_to_torch(pj)
+    got = to_numpy(tcore.multicore_mvm_packed(to_torch(x), pt, fused=False))
+    want = np.asarray(jmap.multicore_mvm_packed(jnp.asarray(x), pj,
+                                                fused=False))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, to_numpy(tcore.multicore_mvm_packed(to_torch(x), pt)))
 
 
 @pytest.mark.parametrize("plan", ["single-pass", "merged"])

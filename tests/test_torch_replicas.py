@@ -40,7 +40,8 @@ def _cmd(out_dir: Path, tag: str):
             "48", "--gen", "6", "--rate", "100",
             "--results-out", str(out_dir / f"{tag}_{{rank}}.npz"),
             "--summary-out", str(out_dir / f"{tag}_summary.json"),
-            "--metrics-out", str(out_dir / f"{tag}_metrics.json")]
+            "--metrics-out", str(out_dir / f"{tag}_metrics.json"),
+            "--trace-out", str(out_dir / f"{tag}_trace.json")]
 
 
 def _run(cmd, n):
@@ -99,3 +100,22 @@ def test_rank0_writes_the_merged_summary(runs):
     assert "fleet[" not in ranks[1].stdout
     solo = json.loads((out / "solo_summary.json").read_text())
     assert solo["requests"] == N_REQ and "ranks" not in solo
+
+
+@pytest.mark.parametrize("tag,ranks", [("solo", 0), ("group", 2)])
+def test_exports_pass_check_obs(runs, tag, ranks):
+    """tools/check_obs.py, run as it is, on the solo run's exports and on
+    rank 0's merged 2-rank metrics (--expect-ranks 2): the metrics schema,
+    the one-decode-compilation contract per rank, exact chip-energy
+    reconciliation per series, and the trace schema."""
+    import subprocess
+    out, _, _ = runs
+    cmd = [sys.executable, str(REPO / "tools" / "check_obs.py"),
+           "--metrics", str(out / f"{tag}_metrics.json"),
+           "--trace", str(out / f"{tag}_trace.json")]
+    if ranks:
+        cmd += ["--expect-ranks", str(ranks)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert "chip series reconcile exactly" in proc.stdout
+    assert "decode trace contract holds" in proc.stdout
