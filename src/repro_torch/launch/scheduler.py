@@ -68,10 +68,11 @@ from ..device import resolve_device
 from ..kernels.build import LAUNCHES
 from ..models import transformer as T
 from ..obs import JitWatcher, MetricsRegistry, TraceBuffer
+from ..obs import trace as obs_trace
 from ..obs.chipmeter import ChipMeter
 from ..obs.clock import now as clock_now
 from ..obs.clock import timed_call
-from ..obs.trace import ENGINE_PID, REQUEST_PID
+from ..obs.trace import ENGINE_PID, REQUEST_PID, span
 from .steps import (CapturedStep, make_decode_step, make_pool_decode_step,
                     make_prefill_step, make_slot_prefill_step)
 
@@ -235,7 +236,9 @@ class ContinuousBatchingEngine:
         self._rows_useful = 0                  # token rows that reached a req
         self._rows_dispatched = 0              # rows pushed through the chips
         # Telemetry is always collected into a private registry unless the
-        # caller supplies a shared one; the trace buffer is opt-in.
+        # caller supplies a shared one; the trace buffer is opt-in. Host
+        # spans (`obs/trace`) go to that buffer, or to the process buffer
+        # while a torch.profiler session records (`_spans`).
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.trace = trace
         self.chipmeter = ChipMeter.from_params(
@@ -280,6 +283,12 @@ class ContinuousBatchingEngine:
         """Each stripe's decode compilations (one per stripe)."""
         return [st.decode.traces for st in self.stripes]
 
+    def _spans(self):
+        """Makes this call's span buffer active (`obs/trace.engine_buffer`):
+        the handed trace buffer, else the process buffer while a profiler
+        records, else none (spans off)."""
+        return obs_trace.activate(obs_trace.engine_buffer(self.trace))
+
     def _where(self, slot: int):
         """(stripe, slot within it) of a pool slot."""
         st = self.stripes[slot // self._per_stripe]
@@ -321,12 +330,14 @@ class ContinuousBatchingEngine:
     def _admit(self, req: Request) -> None:
         assert len(req.prompt) + req.max_new <= self.max_len, \
             f"request {req.rid} would overflow the slot (max_len)"
-        slot = self._free.pop(0)
-        assert slot not in self._live, "slot double-assign"
-        st, local = self._where(slot)
-        self._reset(st.pool, local)
-        self._jobs.append(_PrefillJob(slot, req, self._chunks(req.prompt)))
-        self._m_admitted.inc()
+        with self._spans(), span("serve.admit", rid=req.rid):
+            slot = self._free.pop(0)
+            assert slot not in self._live, "slot double-assign"
+            st, local = self._where(slot)
+            self._reset(st.pool, local)
+            self._jobs.append(_PrefillJob(slot, req,
+                                          self._chunks(req.prompt)))
+            self._m_admitted.inc()
 
     def _request_done(self, req: Request, slot: int) -> None:
         """Telemetry at a request's last token: latency histograms, its
@@ -363,14 +374,32 @@ class ContinuousBatchingEngine:
         """Run ONE chunk of the oldest in-flight prefill; returns step
         seconds. On the final chunk the slot goes live (its first token was
         seeded into pool['tok'] by the chunk step)."""
+        t_host = clock_now()
         job = self._jobs[0]
         chunk = job.chunks[job.next]
-        st, local = self._where(job.slot)
-        (logits, _), dt = timed_call(self._prefill, st.params, st.pool,
-                                     self._tokens(chunk, st.device), local,
-                                     device=st.device)
-        job.next += 1
         n_rows = len(chunk)
+        with self._spans() as buf, span(
+                "serve.prefill", rid=job.req.rid, slot=job.slot,
+                rows=n_rows) as sp:
+            st, local = self._where(job.slot)
+            (logits, _), dt = timed_call(
+                self._prefill, st.params, st.pool,
+                self._tokens(chunk, st.device), local, device=st.device,
+                spans=("serve.prefill.enqueue", "serve.prefill.wait"))
+            sp.set(device_s=dt)
+            with span("serve.prefill.sample"):
+                if buf is not None:
+                    buf.resolve()
+                self._chunk_done(job, st, local, n_rows, logits, now, dt,
+                                 clock_now() - t_host)
+        return dt
+
+    def _chunk_done(self, job: _PrefillJob, st, local: int, n_rows: int,
+                    logits, now: float, dt: float, host_s: float) -> None:
+        """After a chunk's step: its telemetry and, on the final chunk, the
+        first token and the slot's activation (or, at max_new = 1, its
+        eviction)."""
+        job.next += 1
         self._m_chunks.inc()
         self._m_tok_pre.inc(n_rows)
         self._h_chunk.observe(dt)
@@ -379,41 +408,61 @@ class ContinuousBatchingEngine:
         self._rows_dispatched += n_rows
         if self.trace is not None:
             args = {"slot": job.slot, "rid": job.req.rid, "rows": n_rows,
-                    "chunk": job.next, "of": len(job.chunks)}
-            self.trace.complete("prefill_chunk", now, dt, args=args)
-            self.trace.complete("prefill_chunk", now, dt, pid=REQUEST_PID,
-                                tid=job.req.rid, args=args)
-        if job.next == len(job.chunks):
-            self._jobs.popleft()
-            req = job.req
-            row = logits[0].cpu().numpy()
-            req.tokens.append(int(np.argmax(row)))
-            req.token_lat.append(dt)
-            self._m_tok_gen.inc()
-            self._h_tok.observe(dt)
-            req.t_first = now + dt - req.arrival
-            self._h_ttft.observe(req.t_first)
-            if self.capture_logits:
-                req.logits.append(row)
-            if req.max_new == 1:
-                req.t_done = now + dt
-                self._reset(st.pool, local)
-                self._free.append(job.slot)
-                self._free.sort()
-                self._request_done(req, job.slot)
-            else:
-                self._activate(st.pool, local, True)
-                self._live[job.slot] = req
-        return dt
+                    "chunk": job.next, "of": len(job.chunks),
+                    "device_s": dt}
+            self.trace.complete("prefill_chunk", now, host_s, args=args)
+            self.trace.complete("prefill_chunk", now, host_s,
+                                pid=REQUEST_PID, tid=job.req.rid, args=args)
+        if job.next < len(job.chunks):
+            return
+        self._jobs.popleft()
+        req = job.req
+        row = logits[0].cpu().numpy()
+        req.tokens.append(int(np.argmax(row)))
+        req.token_lat.append(dt)
+        self._m_tok_gen.inc()
+        self._h_tok.observe(dt)
+        req.t_first = now + dt - req.arrival
+        self._h_ttft.observe(req.t_first)
+        if self.capture_logits:
+            req.logits.append(row)
+        if req.max_new == 1:
+            req.t_done = now + dt
+            self._reset(st.pool, local)
+            self._free.append(job.slot)
+            self._free.sort()
+            self._request_done(req, job.slot)
+        else:
+            self._activate(st.pool, local, True)
+            self._live[job.slot] = req
 
     def _decode_once(self, now: float) -> float:
-        outs, dt = timed_call(self._decode_all,
-                              device=[st.device for st in self.stripes])
+        t_host = clock_now()
+        n_live = len(self._live)
+        with self._spans() as buf, span("serve.decode", live=n_live) as sp:
+            outs, dt = timed_call(
+                self._decode_all, device=[st.device for st in self.stripes],
+                spans=("serve.decode.call", "serve.decode.wait"))
+            sp.set(device_s=dt)
+            with span("serve.decode.emit"):
+                if buf is not None:
+                    buf.resolve()
+                done = self._emit(outs, now, dt, n_live,
+                                  clock_now() - t_host)
+            with span("serve.decode.evict"):
+                for slot in done:
+                    self._finish(slot, now + dt)
+        return dt
+
+    def _emit(self, outs, now: float, dt: float, n_live: int,
+              host_s: float) -> List[int]:
+        """After a decode step: its telemetry, and each live request's new
+        token (copied out of the pool); returns the slots whose requests
+        are done."""
         # Honest hardware accounting: the weight-stationary pool step
         # pushes ALL n_slots rows through every chip regardless of
         # occupancy — empty slots still cost energy. The useful/dispatched
         # ratio surfaces as the run's `utilization`.
-        n_live = len(self._live)
         self._m_steps.inc()
         self._m_tok_gen.inc(n_live)
         self._h_decode.observe(dt)
@@ -421,8 +470,8 @@ class ContinuousBatchingEngine:
         self._rows_useful += n_live
         self._rows_dispatched += self.n_slots
         if self.trace is not None:
-            self.trace.complete("decode_step", now, dt,
-                                args={"live": n_live})
+            self.trace.complete("decode_step", now, host_s,
+                                args={"live": n_live, "device_s": dt})
         toks = torch.cat([st.pool["tok"][:, 0].cpu()
                           for st in self.stripes]).numpy()
         # the decode's logits are the graph's output tensor on the card,
@@ -437,13 +486,12 @@ class ContinuousBatchingEngine:
             if self.capture_logits:
                 req.logits.append(rows[slot])
             if self.trace is not None:
-                self.trace.complete("decode", now, dt, pid=REQUEST_PID,
-                                    tid=req.rid, args={"slot": slot})
+                self.trace.complete("decode", now, host_s, pid=REQUEST_PID,
+                                    tid=req.rid,
+                                    args={"slot": slot, "device_s": dt})
             if len(req.tokens) >= req.max_new:
                 done.append(slot)
-        for slot in done:
-            self._finish(slot, now + dt)
-        return dt
+        return done
 
     # -------------------------------------------------------------- serving
 
@@ -464,6 +512,8 @@ class ContinuousBatchingEngine:
             self.trace.name_process(REQUEST_PID, "requests")
         pending = deque(sorted(requests, key=lambda r: (r.arrival, r.rid)))
         t0 = clock_now()
+        if self.trace is not None:
+            self.trace.anchor(t0)
         occ_last = (-1, -1, -1)
         while pending or self._jobs or self._live:
             now = clock_now() - t0
@@ -496,7 +546,8 @@ class ContinuousBatchingEngine:
                 if pending and realtime:
                     wait = pending[0].arrival - (clock_now() - t0)
                     if wait > 0:
-                        time.sleep(min(wait, 0.05))
+                        with self._spans(), span("serve.idle"):
+                            time.sleep(min(wait, 0.05))
         wall = clock_now() - t0
         self._g_occ.set(0)
         self._g_queue.set(0)

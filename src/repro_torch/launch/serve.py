@@ -416,8 +416,11 @@ def _add_obs_flags(ap):
                     help="write the metrics registry in Prometheus text "
                          "exposition format at exit")
     ap.add_argument("--trace-out", default="",
-                    help="write per-request span timelines as Chrome "
-                         "trace-event JSON (open in Perfetto) at exit")
+                    help="write per-request span timelines and the "
+                         "engine's host spans (per call, per layer, the "
+                         "MoE FFN's phases) as Chrome trace-event JSON at "
+                         "exit, ts on the Unix clock: it overlays a "
+                         "torch.profiler Chrome export in Perfetto")
     ap.add_argument("--summary-out", default="",
                     help="write the run's summary stats as JSON")
     ap.add_argument("--strict-jit", action="store_true",

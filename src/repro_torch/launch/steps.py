@@ -28,6 +28,7 @@ import torch
 from ..device import resolve_device
 from ..models import transformer as T
 from ..obs.capturewatch import signature, tensors
+from ..obs.trace import span
 from ..train.noisy import value_and_grad
 from ..train.optimizer import tree_leaves, tree_map, tree_unflatten
 
@@ -546,7 +547,9 @@ class CapturedStep:
     `kernels/build.py`) count wrapper calls, and a replay makes none: the
     capture's increments are taken back (captured, not launched) and each
     replay adds them (`per_replay`). `_cache_size()` is the number of
-    captures, the compilations `obs.capturewatch` counts."""
+    captures, the compilations `obs.capturewatch` counts. The key's walk
+    over the inputs and the replay are the host spans "step.key" and
+    "step.replay" (`obs/trace.span`)."""
 
     def __init__(self, fun, counters: Dict[str, int]):
         self.fun = fun
@@ -558,16 +561,18 @@ class CapturedStep:
         return len(self._graphs)
 
     def __call__(self, *args):
-        ts = [t for _, t in tensors(args)]
-        dev = ts[0].device if ts else None
-        if dev is None or dev.type != "cuda":
-            raise ValueError(f"a captured step runs on CUDA tensors, not "
-                             f"on {dev}")
-        key = signature(args) + tuple(t.data_ptr() for t in ts)
+        with span("step.key"):
+            ts = [t for _, t in tensors(args)]
+            dev = ts[0].device if ts else None
+            if dev is None or dev.type != "cuda":
+                raise ValueError(f"a captured step runs on CUDA tensors, "
+                                 f"not on {dev}")
+            key = signature(args) + tuple(t.data_ptr() for t in ts)
         if key not in self._graphs:
             return self._capture(key, args, dev)
         graph, out, per_replay = self._graphs[key]
-        graph.replay()
+        with span("step.replay"):
+            graph.replay()
         for k, n in per_replay.items():
             self.counters[k] += n
         return out

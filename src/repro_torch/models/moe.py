@@ -40,6 +40,14 @@ divides E, deploy places the expert chips expert-parallel
 1), and `_expert_matmul` launches each expert where its chip lies, with
 the same seeds and order as on one device.
 
+Where an engine call has a span buffer active (`obs/trace.span`),
+`moe_ffn` records its phases as host spans: "moe.router", "moe.dispatch",
+"moe.experts", "moe.combine" and "moe.shared". "moe.experts" carries the
+routed rows of each expert (`routed_rows`: the routes sorted to it, all
+kept when dropless), taken from the dispatch's group starts, which stay
+on the device until the engine's synchronize (`TraceBuffer.resolve`):
+recording adds no synchronize. With no buffer active nothing is kept.
+
 `moe_ffn_ep_shardmap` is the reference's explicit expert parallelism
 (float only, for training): on a `launch/mesh.Mesh`, each (data, model)
 device routes its own tokens, sends each route to the device that owns
@@ -57,6 +65,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..obs.trace import span
 
 # The mesh `moe_ffn_ep_shardmap` runs on when cfg.moe_impl == "ep" (set by
 # the launcher, as in the reference; `ep_mesh` sets it for a block of code)
@@ -129,6 +139,12 @@ def _combine(contrib, order, t: int, k: int):
     return y2
 
 
+def routed_rows(start, routes: int):
+    """Rows routed to each expert from the group starts of the routes
+    sorted by expert (`start`, one per expert) and their number."""
+    return [b - a for a, b in zip(start, list(start[1:]) + [routes])]
+
+
 def moe_ffn(p: Dict, x, cfg, capacity_factor: float = 1.25):
     """x: (B, S, d) -> (B, S, d). Sort-based capacity-padded dispatch
     (module docstring)."""
@@ -139,47 +155,57 @@ def moe_ffn(p: Dict, x, cfg, capacity_factor: float = 1.25):
     dev = x.device
     x2 = x.reshape(t, d)
 
-    gate, idx = _router(x2, p["router"], k)             # (T, k)
-    flat_e = idx.reshape(-1)                            # (T*k,)
-    flat_g = gate.reshape(-1)
-    flat_t = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
+    with span("moe.router"):
+        gate, idx = _router(x2, p["router"], k)         # (T, k)
+    with span("moe.dispatch"):
+        flat_e = idx.reshape(-1)                        # (T*k,)
+        flat_g = gate.reshape(-1)
+        flat_t = torch.arange(t, device=dev)[:, None].expand(t, k) \
+            .reshape(-1)
 
-    order = torch.argsort(flat_e, stable=True)          # stable by expert
-    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+        order = torch.argsort(flat_e, stable=True)      # stable by expert
+        se, st, sg = flat_e[order], flat_t[order], flat_g[order]
 
-    cap = capacity(t, cfg, capacity_factor)
-    # position of each sorted slot within its expert group
-    start = torch.searchsorted(se, torch.arange(e, device=dev), side="left")
-    pos_in_e = torch.arange(t * k, device=dev) - start[se]
-    keep = pos_in_e < cap                               # capacity drop
+        cap = capacity(t, cfg, capacity_factor)
+        # position of each sorted slot within its expert group
+        start = torch.searchsorted(se, torch.arange(e, device=dev),
+                                   side="left")
+        pos_in_e = torch.arange(t * k, device=dev) - start[se]
+        keep = pos_in_e < cap                           # capacity drop
 
-    # gather the routes into (E, cap, d); dropped ones to the dump row
-    slot = torch.where(keep, se * cap + pos_in_e, e * cap)
-    xe = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
-    xe[slot] = x2[st]
-    xe = xe[:-1].reshape(e, cap, d)
+        # gather the routes into (E, cap, d); dropped ones to the dump row
+        slot = torch.where(keep, se * cap + pos_in_e, e * cap)
+        xe = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
+        xe[slot] = x2[st]
+        xe = xe[:-1].reshape(e, cap, d)
 
     # the experts: one launch per expert chip and projection when packed
-    h = F.silu(_expert_matmul(p, "ew_g", xe, cfg, seed=11)) \
-        * _expert_matmul(p, "ew_i", xe, cfg, seed=211)
-    ye = _expert_matmul(p, "ew_o", h, cfg, seed=411)    # (E, cap, d)
+    with span("moe.experts") as sp:
+        if sp:
+            sp.defer("routed_rows", start,
+                     lambda v: routed_rows(v, t * k))
+        h = F.silu(_expert_matmul(p, "ew_g", xe, cfg, seed=11)) \
+            * _expert_matmul(p, "ew_i", xe, cfg, seed=211)
+        ye = _expert_matmul(p, "ew_o", h, cfg, seed=411)    # (E, cap, d)
 
     # combine: each token's k contributions in sorted-slot order
     # (ascending expert id), summed from zeros
-    ye_flat = ye.reshape(e * cap, d)
-    contrib = ye_flat[torch.where(keep, se * cap + pos_in_e, 0)] \
-        * (sg * keep)[:, None].to(x.dtype)
-    y2 = _combine(contrib, order, t, k)
+    with span("moe.combine"):
+        ye_flat = ye.reshape(e * cap, d)
+        contrib = ye_flat[torch.where(keep, se * cap + pos_in_e, 0)] \
+            * (sg * keep)[:, None].to(x.dtype)
+        y2 = _combine(contrib, order, t, k)
 
-    if cfg.n_shared_experts > 0 and cfg.cim_mode == "packed":
-        hs = F.silu(routed_linear(x2, p, "sw_g", cfg, seed=611)) \
-            * routed_linear(x2, p, "sw_i", cfg, seed=612)
-        y2 = y2 + routed_linear(hs, p, "sw_o", cfg, seed=613)
-    elif cfg.n_shared_experts > 0:
-        # the noisy / chipsim training modes keep the shared experts' float
-        # matmuls, as the reference does
-        hs = F.silu(x2 @ p["sw_g"]) * (x2 @ p["sw_i"])
-        y2 = y2 + hs @ p["sw_o"]
+    with span("moe.shared"):
+        if cfg.n_shared_experts > 0 and cfg.cim_mode == "packed":
+            hs = F.silu(routed_linear(x2, p, "sw_g", cfg, seed=611)) \
+                * routed_linear(x2, p, "sw_i", cfg, seed=612)
+            y2 = y2 + routed_linear(hs, p, "sw_o", cfg, seed=613)
+        elif cfg.n_shared_experts > 0:
+            # the noisy / chipsim training modes keep the shared experts'
+            # float matmuls, as the reference does
+            hs = F.silu(x2 @ p["sw_g"]) * (x2 @ p["sw_i"])
+            y2 = y2 + hs @ p["sw_o"]
     return y2.reshape(b, s, d)
 
 

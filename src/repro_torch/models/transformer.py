@@ -38,6 +38,12 @@ its own chip. The training modes "noisy" (weight noise) and "chipsim"
 the reference; `lm_loss` is the teacher-forced loss they train on, and
 every family's `lm_forward` is differentiable (the recurrent families'
 in-place state writes sit in their prefill / decode paths only).
+
+Where an engine call has a span buffer active (`obs/trace.span`), the
+serve path's dense and MoE blocks record host spans: "layer" {i} with
+"attn.qkv", "attn.core", "attn.wo" and "mlp" (an MoE layer's FFN spans
+are `moe_ffn`'s), and "unembed". Inside a captured decode graph no
+Python runs at replay, so only eager steps show them.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..obs.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -519,41 +526,45 @@ def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
     frozen slot's cache stays bit for bit as it was."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    h = rms_norm(x, p["ln1"])
-    q = routed_linear(h, p, "wq", cfg, seed=1).reshape(b, s, nh, hd)
-    k = routed_linear(h, p, "wk", cfg, seed=2).reshape(b, s, nkv, hd)
-    v = routed_linear(h, p, "wv", cfg, seed=3).reshape(b, s, nkv, hd)
-    if cfg.qkv_bias:
-        q = q + p["bq"].reshape(nh, hd)
-        k = k + p["bk"].reshape(nkv, hd)
-        v = v + p["bv"].reshape(nkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    with span("attn.qkv"):
+        h = rms_norm(x, p["ln1"])
+        q = routed_linear(h, p, "wq", cfg, seed=1).reshape(b, s, nh, hd)
+        k = routed_linear(h, p, "wk", cfg, seed=2).reshape(b, s, nkv, hd)
+        v = routed_linear(h, p, "wv", cfg, seed=3).reshape(b, s, nkv, hd)
+        if cfg.qkv_bias:
+            q = q + p["bq"].reshape(nh, hd)
+            k = k + p["bk"].reshape(nkv, hd)
+            v = v + p["bv"].reshape(nkv, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     window = _window(cfg, layer_idx)
 
-    if cache is not None:
-        ck, cv = cache
-        if isinstance(cache_len, torch.Tensor):
-            sidx = cache_len[:, None] + torch.arange(s, device=x.device)
-            bidx = torch.arange(b, device=x.device)[:, None]
-            if write_mask is not None:
-                keep = write_mask[:, None, None, None]
-                k = torch.where(keep, k, ck[bidx, sidx])
-                v = torch.where(keep, v, cv[bidx, sidx])
-            ck[bidx, sidx] = k
-            cv[bidx, sidx] = v
+    with span("attn.core"):
+        if cache is not None:
+            ck, cv = cache
+            if isinstance(cache_len, torch.Tensor):
+                sidx = cache_len[:, None] + torch.arange(s, device=x.device)
+                bidx = torch.arange(b, device=x.device)[:, None]
+                if write_mask is not None:
+                    keep = write_mask[:, None, None, None]
+                    k = torch.where(keep, k, ck[bidx, sidx])
+                    v = torch.where(keep, v, cv[bidx, sidx])
+                ck[bidx, sidx] = k
+                cv[bidx, sidx] = v
+            else:
+                ck[:, cache_len:cache_len + s] = k
+                cv[:, cache_len:cache_len + s] = v
+            kv_pos = torch.arange(ck.shape[1], device=x.device)
+            attn = attention(q, ck, cv, causal=True, q_pos=positions,
+                             kv_pos=kv_pos, window=window,
+                             softcap=cfg.attn_softcap, kv_len=cache_len + s)
         else:
-            ck[:, cache_len:cache_len + s] = k
-            cv[:, cache_len:cache_len + s] = v
-        kv_pos = torch.arange(ck.shape[1], device=x.device)
-        attn = attention(q, ck, cv, causal=True, q_pos=positions,
-                         kv_pos=kv_pos, window=window,
-                         softcap=cfg.attn_softcap, kv_len=cache_len + s)
-    else:
-        attn = attention(q, k, v, causal=True, q_pos=positions,
-                         kv_pos=positions, window=window,
-                         softcap=cfg.attn_softcap)
-    x = x + routed_linear(attn.reshape(b, s, nh * hd), p, "wo", cfg, seed=4)
+            attn = attention(q, k, v, causal=True, q_pos=positions,
+                             kv_pos=positions, window=window,
+                             softcap=cfg.attn_softcap)
+    with span("attn.wo"):
+        x = x + routed_linear(attn.reshape(b, s, nh * hd), p, "wo", cfg,
+                              seed=4)
     if memory is not None:
         x = x + _cross_attn(p, x, memory, cfg)
     h2 = rms_norm(x, p["ln2"])
@@ -567,7 +578,8 @@ def dense_block(p, x, cfg: ArchConfig, *, positions, layer_idx: int,
                 p, h2, cfg, moe.MESH_FOR_EP,
                 data_axes=tuple(cfg.batch_axes or ("data",))), cache
         return x + moe.moe_ffn(p, h2, cfg), cache
-    return x + routed_mlp(h2, p, cfg, seed=5), cache
+    with span("mlp"):
+        return x + routed_mlp(h2, p, cfg, seed=5), cache
 
 
 def _cross_attn(p, x, memory, cfg: ArchConfig):
@@ -711,14 +723,16 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, write_mask=None,
     positions = pos[:, None] + ar[None] if isinstance(pos, torch.Tensor) \
         else pos + ar
     for li in range(cfg.n_layers):
-        x, _ = dense_block(layer_params(params, li), x, cfg,
-                           positions=positions, layer_idx=li,
-                           cache=(cache["k"][li], cache["v"][li]),
-                           cache_len=pos, write_mask=write_mask,
-                           memory=memory)
-    x = rms_norm(x, params["ln_f"])
-    logits = _softcap((x[:, -1] @ _unembed(params, cfg)).to(torch.float32),
-                      cfg.final_softcap)
+        with span("layer", i=li):
+            x, _ = dense_block(layer_params(params, li), x, cfg,
+                               positions=positions, layer_idx=li,
+                               cache=(cache["k"][li], cache["v"][li]),
+                               cache_len=pos, write_mask=write_mask,
+                               memory=memory)
+    with span("unembed"):
+        x = rms_norm(x, params["ln_f"])
+        logits = _softcap((x[:, -1] @ _unembed(params, cfg)).to(
+            torch.float32), cfg.final_softcap)
     return logits, {"k": cache["k"], "v": cache["v"],
                     "len": pos + tokens.shape[1]}
 

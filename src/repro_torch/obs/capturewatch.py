@@ -18,7 +18,8 @@ hard assertion: `strict=True` raises `JitRetraceError` when an entry
 passes its budget, and `seal()` after warmup makes any later compilation
 raise, naming the entry point. A new signature raises before its call
 runs; a function's own cache is read after the call, as the reference
-reads jit's.
+reads jit's. The signature's walk is the host span "step.key"
+(`obs/trace.span`).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from . import clock
+from .trace import span
 
 
 class JitRetraceError(RuntimeError):
@@ -83,7 +85,8 @@ class WatchedStep:
         t0 = clock.now()
         own = getattr(self.fun, "_cache_size", None)
         if own is None:          # a new signature raises before it runs
-            self._seen.add(signature(args, self.static_argnums))
+            with span("step.key"):
+                self._seen.add(signature(args, self.static_argnums))
             self._check(len(self._seen))
         out = self.fun(*args)
         self.calls += 1

@@ -9,6 +9,13 @@ floats). The chip meters are built from each package's own deployment of
 the same smoke gemma2-9b params (the reference's stacked pytree, the
 port's per-layer lists) and must agree entry for entry and in every
 energy figure; the meter's energy is an exact product of integer counts.
+
+The port's host spans (`obs/trace.span`, no reference counterpart): a
+smoke MoE engine served under a CPU torch.profiler session records the
+span tree into the process buffer, on the profiler's Unix clock, with
+the routed rows per expert; nothing is recorded without a profiler or a
+handed buffer; the profiler's own events hold no span; tokens are bitwise
+the same with spans on and off.
 """
 import json
 
@@ -28,6 +35,7 @@ from repro.obs.jitwatch import JitWatcher as JJitWatcher
 from repro_torch.core import energy as tenergy
 from repro_torch.obs import (JitWatcher, MetricsRegistry, TraceBuffer,
                              dict_to_prometheus, merge_registries)
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.chipmeter import ChipMeter
 
 
@@ -270,3 +278,208 @@ def test_watcher_ledger_and_metric_names_equal_reference():
                             if e["name"] != "jit_compile_s"]
         assert keep(dm) == keep(dr), kind
     assert json.loads(rm.to_json()).keys() == json.loads(rr.to_json()).keys()
+
+
+# ------------------------------------------------------------ host spans
+
+SPAN_LENS, SPAN_GENS = [20, 12, 9], [3, 4, 1]
+
+
+def _span_engine(**kw):
+    """A float smoke deepseek engine (2 MoE layers, 8 experts, top-2) and
+    its three requests (chunks of 8 rows; one request of a single
+    token)."""
+    from repro_torch.launch import scheduler as S
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as tT
+    cfg = tserve.serving_config("deepseek-moe-16b", smoke=True)
+    params = tT.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    reqs = [S.Request(rid=i, prompt=rng.integers(0, cfg.vocab, (n,))
+                      .astype(np.int32), max_new=g)
+            for i, (n, g) in enumerate(zip(SPAN_LENS, SPAN_GENS))]
+    eng = S.ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=32,
+                                     chunk=8, capture_logits=True, **kw)
+    return eng, reqs
+
+
+def _x_spans(buf):
+    return sorted((e for e in buf.events
+                   if e["ph"] == "X" and e.get("cat") == "span"),
+                  key=lambda e: (e["ts"], -e["dur"]))
+
+
+def _within(events, parent):
+    end = parent["ts"] + parent["dur"]
+    return [e for e in events if e is not parent
+            and parent["ts"] <= e["ts"] and e["ts"] + e["dur"] <= end]
+
+
+@pytest.fixture(scope="module")
+def profiled_run():
+    """The engine served once under a CPU profiler session, the prefill
+    calls wrapped in a record_function range of the test's own, and the
+    router's top-k experts of every MoE layer run while spans record."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe as tmoe
+    obs_trace._PROFILED = None
+    eng, reqs = _span_engine()
+    real, router = eng._prefill_one_chunk, tmoe._router
+    routed = []
+
+    def probed(now):
+        with record_function("test.probe"):
+            return real(now)
+
+    def routes(x2, router_w, top_k):
+        gate, idx = router(x2, router_w, top_k)
+        if obs_trace._ACTIVE is not None:
+            routed.append(idx.clone())
+        return gate, idx
+
+    eng._prefill_one_chunk = probed
+    tmoe._router = routes
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with record_function("test.warm"):   # the profiler's first range
+                pass                             # pays ~1 ms of its set-up
+            eng.run(reqs, realtime=False)
+    finally:
+        tmoe._router = router
+    buf = obs_trace.profiled()
+    obs_trace._PROFILED = None
+    return {"eng": eng, "reqs": reqs, "prof": prof, "buf": buf,
+            "routed": routed}
+
+
+def test_spans_record_the_engine_tree(profiled_run):
+    """Each serve.prefill holds one .enqueue, .wait and .sample, and a
+    layer span per layer, each holding the five moe.* spans; each
+    moe.experts carries the routed rows, rows x top_k in all and per
+    expert what the router chose; each
+    serve.decode holds .call, .wait, .emit and .evict."""
+    eng, buf = profiled_run["eng"], profiled_run["buf"]
+    events = _x_spans(buf)
+    prefills = [e for e in events if e["name"] == "serve.prefill"]
+    assert len(prefills) == sum(-(-n // 8) for n in SPAN_LENS)
+    moe = ["moe.combine", "moe.dispatch", "moe.experts", "moe.router",
+           "moe.shared"]
+    for pre in prefills:
+        kids = _within(events, pre)
+        for part in ("enqueue", "wait", "sample"):
+            assert [e["name"] for e in kids].count(
+                f"serve.prefill.{part}") == 1
+        layers = [e for e in kids if e["name"] == "layer"]
+        assert [e["args"]["i"] for e in layers] == \
+            list(range(eng.cfg.n_layers))
+        for lay in layers:
+            inner = _within(events, lay)
+            assert sorted(e["name"] for e in inner
+                          if e["name"].startswith("moe.")) == moe
+            assert {"attn.qkv", "attn.core", "attn.wo"} <= \
+                {e["name"] for e in inner}
+            rows = [e["args"]["routed_rows"] for e in inner
+                    if e["name"] == "moe.experts"][0]
+            assert len(rows) == eng.cfg.n_experts
+            assert sum(rows) == pre["args"]["rows"] * eng.cfg.top_k
+        assert pre["args"]["device_s"] > 0
+    # each moe.experts span's counts are the router's top-k of that call,
+    # expert by expert (spans close, and are stored, in call order)
+    experts = [e["args"]["routed_rows"] for e in buf.events
+               if e["name"] == "moe.experts"]
+    routed = profiled_run["routed"]
+    assert len(experts) == len(routed) >= len(prefills) * eng.cfg.n_layers
+    for rows, idx in zip(experts, routed):
+        assert rows == torch.bincount(idx.reshape(-1),
+                                      minlength=eng.cfg.n_experts).tolist()
+    decodes = [e for e in events if e["name"] == "serve.decode"]
+    assert decodes
+    for dec in decodes:
+        names = [e["name"] for e in _within(events, dec)]
+        for part in ("call", "wait", "emit", "evict"):
+            assert names.count(f"serve.decode.{part}") == 1
+    assert sum(e["name"] == "serve.admit" for e in events) == \
+        len(SPAN_LENS)
+
+
+def test_profiler_events_hold_no_span_name(profiled_run):
+    """Spans add no event to the profiler (a record_function range would
+    be mirrored onto the device timeline)."""
+    span_names = {e["name"] for e in _x_spans(profiled_run["buf"])}
+    prof_names = {e.name for e in profiled_run["prof"].events()}
+    assert "test.probe" in prof_names
+    assert not span_names & prof_names
+
+
+def test_span_ts_is_on_the_profilers_clock(profiled_run):
+    """An exported serve.prefill `ts` lies within 1 ms of the start of the
+    record_function range wrapped around the same engine call, in
+    kineto's own events (Unix ns)."""
+    kin = sorted(e.start_ns() for e in
+                 profiled_run["prof"].profiler.kineto_results.events()
+                 if e.name() == "test.probe")
+    doc = profiled_run["buf"].to_dict()["traceEvents"]
+    ts = sorted(e["ts"] for e in doc if e["name"] == "serve.prefill")
+    assert len(kin) == len(ts)
+    for k, t in zip(kin, ts):
+        assert abs(t - k / 1e3) < 1e3
+
+
+def test_no_span_without_profiler_or_buffer(monkeypatch):
+    """No profiler, no handed buffer: nothing is recorded and no buffer is
+    left active."""
+    monkeypatch.setattr(obs_trace, "_PROFILED", None)
+    eng, reqs = _span_engine()
+    eng.run(reqs, realtime=False)
+    assert obs_trace.profiled() is None and obs_trace._ACTIVE is None
+    assert not obs_trace.span("layer", i=0)
+
+
+def test_tokens_bitwise_equal_with_spans_on_and_off(profiled_run):
+    eng, reqs = _span_engine()
+    eng.run(reqs, realtime=False)
+    for a, b in zip(reqs, profiled_run["reqs"]):
+        assert a.tokens == b.tokens
+        for x, y in zip(a.logits, b.logits):
+            assert np.array_equal(x, y)
+
+
+def test_handed_buffer_slices_host_time_with_device_seconds(monkeypatch):
+    """A handed buffer (`serve --trace-out`): the spans go to it, its `ts`
+    is on the Unix clock, and each engine step slice lasts from the host's
+    start of the step to its end with the step's seconds in `device_s`,
+    whose sums are the histograms' sums."""
+    buf = TraceBuffer()
+    monkeypatch.setattr(obs_trace, "_PROFILED", None)
+    eng, reqs = _span_engine(trace=buf)
+    eng.run(reqs, realtime=False)
+    assert obs_trace.profiled() is None
+    doc = buf.to_dict()["traceEvents"]
+    assert any(e["name"] == "serve.prefill" for e in doc)
+    assert min(e["ts"] for e in doc if e["ph"] != "M") > 1e15
+    for name, hist in (("prefill_chunk", "serve_prefill_chunk_s"),
+                       ("decode_step", "serve_decode_step_s")):
+        steps = [e for e in buf.events if e["name"] == name and e["tid"] == 0
+                 and e["pid"] == obs_trace.ENGINE_PID]
+        assert steps
+        assert sum(e["args"]["device_s"] for e in steps) == \
+            pytest.approx(eng.metrics.get(hist).sum(), rel=1e-12)
+        for e in steps:
+            assert e["args"]["dur_s"] >= e["args"]["device_s"]
+
+
+def test_span_defer_resolves_after_the_step():
+    """A deferred tensor lands in its span's args at `resolve`, not
+    before; the null span ignores it."""
+    buf = TraceBuffer()
+    t = torch.tensor([0, 2, 2, 5])
+    with obs_trace.activate(buf):
+        with obs_trace.span("moe.experts") as sp:
+            sp.defer("routed_rows", t, lambda v: [b - a for a, b in
+                                                  zip(v, v[1:] + [7])])
+        assert "routed_rows" not in buf.events[-1]["args"]
+        buf.resolve()
+    assert buf.events[-1]["args"]["routed_rows"] == [2, 0, 3, 2]
+    assert obs_trace._ACTIVE is None
+    obs_trace.span("x").defer("k", t)
