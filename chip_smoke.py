@@ -233,11 +233,19 @@ the final result line:
                 query, and 256 queries with a 4096-key window, against
                 the dense formula in float64 (ATTN_ATOL), its time beside
                 one scaled_dot_product_attention call
+  attention     the dense path's attention kernel (kernels/attention) at
+                ATTN_SHAPES (granite-20b's and deepseek-moe-16b's decode at
+                16 slots and 256-row chunks, qwen2-72b's GQA decode,
+                gemma2-9b's local layer), f32: against the plain path
+                (ATTN_TOL), the median of 20 launches with L2 flushed
+                beside its bound, the plain path's ms and one
+                scaled_dot_product_attention call on the repeated KV
   train-lm      `launch/train.py` at qwen2-72b's full width (2 of 80
                 layers, bf16 params, f32 moments), batch 8 x 128, 6 steps
                 under --cim off and then noisy: losses finite, the modes'
-                step-0 losses different, no CIM launch, the state on the
-                card; median step ms (CUDA events), forward / backward /
+                step-0 losses different, no CIM launch, the attention
+                kernel once a layer and step, the state on the card;
+                median step ms (CUDA events), forward / backward /
                 optimizer ms and the noise draws, peak GB, tokens/s and
                 model TFLOP/s (6 x matmul weights x tokens per step)
   train-lm-parity  one make_train_step on the card against the CPU from
@@ -515,12 +523,17 @@ SOURCES = {k: f"src/repro_torch/kernels/{v}"
                          "cim_mvm/csrc/cim_mvm_transposed.cu"),
                         ("cim_mvm", "cim_mvm/csrc/cim_mvm.cu"),
                         ("noisy_matmul",
-                         "noisy_matmul/csrc/noisy_matmul.cu"))}
+                         "noisy_matmul/csrc/noisy_matmul.cu"),
+                        ("gqa_attention",
+                         "attention/csrc/gqa_attention.cu"))}
 REPLACES = {"cim_mvm_packed": "src/repro/kernels/cim_mvm/kernel.py:238",
             "cim_mvm_scheduled": "src/repro/kernels/cim_mvm/kernel.py:351",
             "cim_mvm_transposed": "src/repro/kernels/cim_mvm/kernel.py:466",
             "cim_mvm": "src/repro/kernels/cim_mvm/kernel.py:161",
-            "noisy_matmul": "src/repro/kernels/noisy_matmul/kernel.py:44"}
+            "noisy_matmul": "src/repro/kernels/noisy_matmul/kernel.py:44",
+            # the reference's attention is plain jnp: no Pallas kernel
+            "gqa_attention": "none (src/repro/models/transformer.py's "
+                             "attention, plain jnp)"}
 FP32_FLOPS_PER_S = 67e12         # H100 SXM FP32 peak (CUDA cores, no TF32)
 CNN_BATCH, CNN_CAL = 256, 32     # images per inference; calibration images
 # every chip matrix of the two CNNs at batch 256: (rows M of the im2col'd
@@ -607,6 +620,31 @@ TRAIN_PARAM_ATOL = 1e-6
 # zero (the MoE's routed experts take gradients mostly under 1e-4 of it)
 TRAIN_GRAD_FLOOR = 1e-6
 
+# the float glue's attention kernel (`kernels/attention`), counted in
+# LAUNCHES beside the CIM kernels: one launch a `transformer.attention` call
+ATTN = "gqa_attention"
+# the attention phase's shapes: name -> (B, Sq, H, Hkv, D, Sk, fill,
+# window, softcap); every slot filled to `fill`, its rows ending there
+# (granite-20b and deepseek-moe-16b as the chat cells run them, the chat
+# mix's median fill beside the full slot; qwen2-72b's GQA; gemma2-9b's
+# local layer with its softcap)
+ATTN_SHAPES = {
+    "granite decode 4096": (16, 1, 48, 1, 128, 4096, 4096, 0, 0.0),
+    "granite decode 1400": (16, 1, 48, 1, 128, 4096, 1400, 0, 0.0),
+    "granite chunk at 1000": (1, 256, 48, 1, 128, 4096, 1256, 0, 0.0),
+    "granite chunk at 3840": (1, 256, 48, 1, 128, 4096, 4096, 0, 0.0),
+    "deepseek decode 4096": (16, 1, 16, 16, 128, 4096, 4096, 0, 0.0),
+    "deepseek decode 1400": (16, 1, 16, 16, 128, 4096, 1400, 0, 0.0),
+    "deepseek chunk at 3840": (1, 256, 16, 16, 128, 4096, 4096, 0, 0.0),
+    "qwen2 decode 4096": (16, 1, 64, 8, 128, 4096, 4096, 0, 0.0),
+    "gemma2 local chunk at 7936": (1, 256, 16, 8, 256, 8192, 8192, 4096,
+                                   50.0),
+}
+# the kernels line's row for the attention kernel reads this shape
+ATTN_ROW = "granite decode 4096"
+# |kernel - plain| over sum_k p_k |v_k| in f32 (tests/test_torch_attention)
+ATTN_TOL = 2.0 ** -19
+
 failures = []
 
 
@@ -673,6 +711,16 @@ def host_us(torch, fn, reps=20):
     return dt / reps * 1e6
 
 
+def attention_calls(cfg):
+    """`transformer.attention` calls in one pass of `cfg`'s decoder: one a
+    layer, zamba2's shared block once a group, none for RWKV."""
+    if cfg.rwkv:
+        return 0
+    if cfg.hybrid_attn_every > 0:
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
+
+
 def reset_launches(K):
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
@@ -708,7 +756,7 @@ def build_phase(K, stopwatch):
                           for k, v in libs.items()},
             "ptxas": {k: ptxas_kernels(build.ptxas_log(libs[k]))
                       for k in (*K.SPLIT_KERNELS, "cim_mvm_transposed",
-                                "noisy_matmul")}}
+                                "noisy_matmul", "gqa_attention")}}
 
 
 def ptxas_kernels(log):
@@ -721,7 +769,7 @@ def ptxas_kernels(log):
     out = {}
     for block in log.read_text().split("Compiling entry function")[1:]:
         mangled = block.split("'")[1]
-        ident = re.search(r"\d+((?:cim|noisy)_[a-z_]+)", mangled)
+        ident = re.search(r"\d+((?:cim|noisy|gqa)_[a-z_]+)", mangled)
         args = re.findall(r"L[ib](\d+)E", mangled)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1237,11 +1285,14 @@ def chips_of(c):
 def token_launches(K, cfg, routes, arch):
     """Launches per kernel for one token through the model: `routes` per
     layer, and an arch's chips outside the stack (SHARED_ROUTES: zamba2's
-    shared block, once per group)."""
+    shared block, once per group); the attention kernel once per
+    `transformer.attention` call (`attention_calls`)."""
     shared = SHARED_ROUTES.get(arch, {})
     runs = cfg.n_layers // cfg.hybrid_attn_every if shared else 0
-    return {k: routes.get(k, 0) * cfg.n_layers + shared.get(k, 0) * runs
-            for k in K.LAUNCHES}
+    out = {k: routes.get(k, 0) * cfg.n_layers + shared.get(k, 0) * runs
+           for k in K.LAUNCHES}
+    out[ATTN] = attention_calls(cfg)
+    return out
 
 
 def chip_routes(chips):
@@ -1280,6 +1331,8 @@ def serve_and_check(torch, K, ops, serve, dev, stats, path, conf, routes,
     calls = conf["gen"] + (res.vis_embeds is not None)
     want = {k: n * calls for k, n in
             token_launches(K, res.cfg, routes, arch).items()}
+    if res.memory is not None:           # the encoder, once: its layers
+        want[ATTN] += res.cfg.enc_layers
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, the path needs "
                              f"{want}")
@@ -1374,6 +1427,11 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, the path needs "
                              f"{want} ({runs} executions)")
+    # the attention kernel once a layer (zamba2: a group) and replay
+    attn = decode.fun.per_replay.get(ATTN, 0)
+    if attn != per_token[ATTN]:
+        raise AssertionError(f"{path}: {attn} attention launches a replay, "
+                             f"the path needs {per_token[ATTN]}")
     m = eng.metrics
     chunks = int(m.value("serve_prefill_chunks"))
     steps = int(m.value("serve_decode_steps"))
@@ -1420,7 +1478,8 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
                                      "rerun's tokens or logits differ")
         del plain
         extra["plain_rerun"] = "equal"
-    times = traffic_times(torch, eng, dev, per_exec)
+    # the profiler counts the CIM kernels' device launches
+    times = traffic_times(torch, eng, dev, per_exec - per_token[ATTN])
     if full:
         # the static baseline at equal load: the same requests in arrival
         # order, in lockstep batches of `slots`, left-padded, realtime
@@ -1450,6 +1509,7 @@ def traffic_path(torch, K, serve, dev, stats, path, conf, routes,
            "launches": launches,
            "packed_launches_per_execution": per_token["cim_mvm_packed"],
            "launches_per_replay": decode.fun.per_replay,
+           "attention_launches_per_replay": attn,
            "moe_dropless": eng.cfg.moe_dropless,
            "replay_vs_eager": replay, "alone_max_abs_logit_err": alone_err,
            **times, **extra,
@@ -2802,14 +2862,19 @@ def kernels_line(stats):
                           "N 14336, both kernels (weight_ms, sgemm_ms: "
                           "each one's device time in the call; "
                           "matmul_only_ms: torch.matmul on the "
-                          "materialised noisy weight, no noise drawn)"}
+                          "materialised noisy weight, no noise drawn)",
+          "gqa_attention": f"granite-20b's decode attention, {ATTN_ROW}: 16 "
+                           "slots of 4096 keys, all full, f32 (max_abs_err: "
+                           "the worst of ATTN_SHAPES against the plain path; "
+                           "the attention phase's line has every shape)"}
     at["cim_mvm_packed"] += ("; tp_layer: serve-tp's layer at 'model' width "
                              "8, its 56 launches at M = 4 and 256")
     main_path = {"cim_mvm_packed": "serve",
                  "cim_mvm_scheduled": "serve-merged",
                  "cim_mvm_transposed": "recover-digital",
                  "cim_mvm": "cnn7-relaxed",
-                 "noisy_matmul": "noisy-matmul"}
+                 "noisy_matmul": "noisy-matmul",
+                 "gqa_attention": "serve-granite"}
     paths = stats["launches"]
     rows = []
     for kernel in SOURCES:
@@ -2823,7 +2888,7 @@ def kernels_line(stats):
             "max_abs_err": stats["err"].get(kernel),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
-            "library_ms": None, "walk_ms": t.get("walk_ms"),
+            "library_ms": t.get("library_ms"), "walk_ms": t.get("walk_ms"),
             "at": at[kernel],
             **{k: v for k, v in t.items()
                if k in ("device_ms", "bwd_ms", "matmul_only_ms",
@@ -3010,6 +3075,114 @@ def attention_long_phase(torch, dev):
     return out
 
 
+def attention_bound_ms(torch, AK, q_pos, kv_len, b, h, hkv, d, sk,
+                       window, elem):
+    """The least time of one attention call on the card: each (slot, KV
+    head)'s K and V up to its rows' last key and q and the output read or
+    written once, at 3.35 TB/s, or the two FP64 dot products of every row
+    over its keys, 4 D flops a key, at 67 TFLOP/s; the larger."""
+    lo, hi = AK.row_ranges(q_pos, sk, causal=True, window=window,
+                           kv_len=kv_len)
+    lo, hi = lo.expand(b, -1), hi.expand(b, -1)
+    keys = int((hi.amax(1) - lo.amin(1)).sum()) * hkv
+    sq = q_pos.shape[-1]
+    nbytes = (2 * keys * d + 2 * b * sq * h * d) * elem
+    flops = 4 * d * int((hi - lo).sum()) * h
+    return max(nbytes / 3.35e12, flops / 67e12) * 1e3, nbytes, flops
+
+
+@phase("attention")
+def attention_phase(torch, dev, stats):
+    """The attention kernel (`kernels/attention`) at ATTN_SHAPES in f32:
+    against the plain path (ATTN_TOL), its median of 20 launches with L2
+    flushed beside its bound (`attention_bound_ms`), the plain path's ms
+    (median of 5) and one `scaled_dot_product_attention` call on the
+    repeated KV with a boolean mask (`library_ms`, which the port never
+    calls); each call one launch; on DMMA also the values pass's other
+    mode (`other_mode_ms`: split or whole, not the one `whole_splits`
+    picks). The ATTN_ROW shape's times, and the
+    worst max |err|, go to the kernels line's row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.models import transformer as T
+    flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB > L2
+    gen = torch.Generator(dev).manual_seed(29)
+    out = {}
+    for name, (b, sq, h, hkv, d, sk, fill, window, cap) in \
+            ATTN_SHAPES.items():
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev)
+        k = torch.randn((b, sk, hkv, d), generator=gen, device=dev)
+        v = torch.randn((b, sk, hkv, d), generator=gen, device=dev)
+        kv_len = torch.full((b,), fill, dtype=torch.int32, device=dev)
+        q_pos = (kv_len - sq).long()[:, None] + torch.arange(sq, device=dev)
+        kv_pos = torch.arange(sk, device=dev)
+        kw = dict(causal=True, q_pos=q_pos, window=window, softcap=cap,
+                  kv_len=kv_len)
+        before = AK.LAUNCHES[ATTN]
+        got = AK.gqa_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if AK.LAUNCHES[ATTN] != before + 1:
+            raise AssertionError(f"{name}: {AK.LAUNCHES[ATTN] - before} "
+                                 "launches, not 1")
+        plain = lambda: T._dense_attention(q, k, v, kv_pos=kv_pos, **kw)
+        want = plain()
+        mag = T._dense_attention(q, k, v.abs(), kv_pos=kv_pos, **kw)
+        err = float(((got - want).abs() / mag.clamp_min(1e-30)).max())
+        equal = float((got == want).float().mean())
+        stats["err"][ATTN] = max(stats["err"].get(ATTN, 0.0),
+                                 float((got - want).abs().max()))
+        if err > ATTN_TOL:
+            raise AssertionError(f"{name}: kernel vs plain {err} > "
+                                 f"{ATTN_TOL}")
+        del want, mag
+        ms = median_ms(torch, lambda: AK.gqa_attention(q, k, v, **kw), 20,
+                       flush)
+        rep = h // hkv
+        whole = AK.whole_splits(b * hkv, rep * sq, torch.cuda
+                                .get_device_properties(dev)
+                                .multi_processor_count)
+        other_ms = None
+        if AK.mma_route(rep * sq):       # the values pass's other mode
+            other = lambda: AK._attention(q, k, v, True, q_pos, window, cap,
+                                          kv_len, mma=True, whole=not whole)
+            if not torch.equal(other(), got):
+                raise AssertionError(f"{name}: the values pass's modes "
+                                     "differ")
+            other_ms = median_ms(torch, other, 20, flush)
+        plain_ms = median_ms(torch, plain, 5, flush)
+        bound, nbytes, flops = attention_bound_ms(
+            torch, AK, q_pos, kv_len, b, h, hkv, d, sk, window, 4)
+        free(torch)
+        kr, vr = (torch.repeat_interleave(t, rep, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        dist = q_pos[:, :, None] - kv_pos[None, None, :]
+        mask = (dist >= 0) & (kv_pos[None, None, :] < kv_len[:, None, None])
+        if window > 0:
+            mask &= dist < window
+        qt = q.transpose(1, 2)
+        lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kr, vr, attn_mask=mask[:, None]), 5, flush)
+        out[name] = {"shape": {"batch": b, "sq": sq, "heads": h,
+                               "kv_heads": hkv, "head_dim": d, "kv": sk,
+                               "fill": fill, "window": window,
+                               "softcap": cap},
+                     "route": "dmma" if AK.mma_route(rep * sq) else "fma",
+                     "whole_splits": whole, "other_mode_ms": other_ms,
+                     "ms": ms, "bound_ms": bound,
+                     "bound_share": bound / ms,
+                     "bound_by": "bytes" if nbytes / 3.35e12 >= flops / 67e12
+                     else "operations",
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "max_rel_err_vs_plain": err,
+                     "equal_share_vs_plain": equal}
+        del q, k, v, kr, vr, mask, qt, got
+        free(torch)
+    stats["time"][ATTN] = {k: out[ATTN_ROW][k] for k in
+                           ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")}
+    return out
+
+
 NOISY_SEEDS = {"wq": 1, "wk": 2, "wv": 3, "wo": 4, "w_g": 5, "w_i": 6,
                "w_o": 7}                 # cim_linear's call-site seeds
 
@@ -3072,8 +3245,9 @@ def train_lm_phase(torch, K, dev, stats):
     params and f32 moments, batch 8 x 128 tokens, 6 steps, under --cim
     off and then noisy (no checkpoint: --ckpt-every past --steps). Every
     loss finite, the two modes' step-0 losses different, no CIM kernel
-    launched (the reference's training reaches none), every leaf of the
-    state on the card after the last step. Then TRAIN_LM_SPLIT_REPS more
+    launched (the reference's training reaches none), the attention
+    kernel once a layer and step (its backward is the plain path's), every
+    leaf of the state on the card after the last step. Then TRAIN_LM_SPLIT_REPS more
     steps timed piece by piece (`lm_step_split`) and, under noisy, the
     forward's noise draws alone."""
     import math
@@ -3092,9 +3266,13 @@ def train_lm_phase(torch, K, dev, stats):
             launches = dict(K.LAUNCHES)  # ... and ends here
             peak = torch.cuda.max_memory_allocated() / 1e9
         stats["launches"][f"train-lm-{mode}"] = launches
-        if any(launches.values()):
-            raise AssertionError(f"train-lm {mode}: CIM launches {launches}"
-                                 "; the training path has none")
+        cfg = train.train_config(args)
+        want = dict.fromkeys(K.LAUNCHES, 0)
+        want[ATTN] = attention_calls(cfg) * args.steps
+        if launches != want:
+            raise AssertionError(f"train-lm {mode}: launches {launches}, "
+                                 f"the path needs {want} (no CIM kernel; "
+                                 "the attention kernel's forward)")
         if len(res.losses) != args.steps or not all(
                 math.isfinite(x) for x in res.losses):
             raise AssertionError(f"train-lm {mode}: losses {res.losses}")
@@ -3103,7 +3281,6 @@ def train_lm_phase(torch, K, dev, stats):
         if off:
             raise AssertionError(f"train-lm {mode}: {off} state leaves "
                                  "off the card")
-        cfg = train.train_config(args)
         batch = next(train.data_iter(cfg, args.batch, args.seq, dev))
         split = [lm_step_split(torch, cfg, res.params, res.opt, batch,
                                args.lr) for _ in range(TRAIN_LM_SPLIT_REPS)]
@@ -3661,6 +3838,7 @@ def serve_dp_phase(torch, K, serve, dev, stats):
     want = dict.fromkeys(K.LAUNCHES, 0)
     want["cim_mvm_packed"] = DP["data"] * DP_PER_LAYER * c["n_layers"] \
         * c["gen"]
+    want[ATTN] = DP["data"] * attention_calls(res.cfg) * c["gen"]
     if launches != want:
         raise AssertionError(f"serve-dp: launches {launches}, the path "
                              f"needs {want}")
@@ -3712,13 +3890,16 @@ def pool_dp_phase(torch, K, serve, dev, stats, deployed):
         raise AssertionError(f"pool-dp: captures per stripe "
                              f"{eng.stripe_traces()}, the contract is 1")
     per_exec = DP_PER_LAYER * cfg.n_layers
+    attn = attention_calls(cfg)
     for s in eng.stripes:
-        if sum(s.decode.fun.per_replay.values()) != per_exec:
+        if sum(s.decode.fun.per_replay.values()) != per_exec + attn:
             raise AssertionError(f"pool-dp: a stripe's capture holds "
-                                 f"{s.decode.fun.per_replay}, not {per_exec}")
+                                 f"{s.decode.fun.per_replay}, not "
+                                 f"{per_exec} + {attn}")
     runs = eng._prefill.calls + sum(s.decode.calls for s in eng.stripes)
     want = dict.fromkeys(K.LAUNCHES, 0)
     want["cim_mvm_packed"] = per_exec * runs
+    want[ATTN] = attn * runs
     if launches != want:
         raise AssertionError(f"pool-dp: launches {launches}, the path needs "
                              f"{want} ({runs} executions)")
@@ -4433,6 +4614,7 @@ def main() -> int:
     batch_invariance_phase(torch, dev)
     arch_phases(torch, K, ops, serve, dev, stats, ARCH_PATHS)
     attention_long_phase(torch, dev)
+    attention_phase(torch, dev, stats)
     for queue in ("profile", "profile_cnn", "profile_moe", "profile_rec"):
         stats[queue].clear()
     free(torch)

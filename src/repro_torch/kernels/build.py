@@ -29,6 +29,7 @@ SOURCES = {
     "cim_mvm_transposed": "cim_mvm/csrc/cim_mvm_transposed.cu",
     "cim_mvm": "cim_mvm/csrc/cim_mvm.cu",
     "noisy_matmul": "noisy_matmul/csrc/noisy_matmul.cu",
+    "gqa_attention": "attention/csrc/gqa_attention.cu",
 }
 HEADERS = ("csrc/hash_prng.cuh", "cim_mvm/csrc/cim_epilogue.cuh",
            "cim_mvm/csrc/bulk_copy.cuh", "cim_mvm/csrc/cim_split.cuh",

@@ -30,8 +30,11 @@ Correctness: a request served through the pool returns the greedy tokens
 of the same request served alone through the static path, with logits
 within rounding: every per-row computation (the packed CIM projections
 with static PACT alphas, norms, softmax) is independent of which other
-slots are occupied, but attention's batched products and the chunked
-prefill may round in another order. For MoE archs the engine forces
+slots are occupied. On the card attention's rows are too: its kernel
+(`kernels/attention`) sums each row at fixed key splits in a fixed order,
+so a row's bits do not depend on the batch, the live slots or where a
+chunk boundary falls; on the CPU the plain path's batched float64
+products may round in another order. For MoE archs the engine forces
 dropless dispatch (`moe_dropless`, as the reference's engine does): with
 capacity-factor dispatch co-batched requests would compete for expert
 capacity, and a request's tokens would depend on its neighbours. The

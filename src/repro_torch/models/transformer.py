@@ -29,6 +29,15 @@ share the call (a slot served in a pool of 4 or alone, a prompt
 prefilled whole or in chunks), and a last-bit difference can move a
 4-bit chip input by a level.
 
+On CUDA tensors the dense attention path is one hand-written kernel
+(`kernels/attention`, `csrc/gqa_attention.cu`): each KV head read once
+for its query group, the same float64 dot products and f32 softmax (its
+sum in torch.softmax's order: the plain path's bits), the keys past a
+row's fill skipped, a row's bits independent of the batch and the
+chunking. Its backward (LM training) differentiates the plain
+`_dense_attention` recomputed at the same inputs; CPU tensors take the
+plain path.
+
 Every projection can route through the NeuRRAM CIM path (`cim_linear`):
 with cim_mode="packed" and a deployed '<name>_cim' entry
 (models/nn.deploy_transformer_cim), the projection runs on its compiled
@@ -285,14 +294,60 @@ def _expand_mask(mask):
 ATTN_CHUNK = 4096
 
 
+class _KernelAttention(torch.autograd.Function):
+    """The GQA kernel (`kernels/attention`) as a differentiable call: its
+    forward launches the kernel; its backward recomputes the plain
+    `_dense_attention` at the same inputs and differentiates that (the
+    kernel has no backward; its forward is the plain path's to the bit
+    where `softmax_order` is PyTorch's). `kw` holds the call's keywords."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        from ..kernels.attention import kernel as attn_kernel
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v)
+        return attn_kernel.gqa_attention(
+            q, k, v, causal=kw["causal"], q_pos=kw["q_pos"],
+            window=kw["window"], softcap=kw["softcap"], kv_len=kw["kv_len"])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = _dense_attention(*ins, **ctx.kw)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], grad))
+        return (*(next(grads) if t.requires_grad else None for t in ins),
+                None)
+
+
 def attention(q, k, v, *, causal: bool, q_pos, kv_pos, window: int = 0,
               softcap: float = 0.0, kv_len=None):
-    """q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D) — GQA via head repetition. Short
-    KV: dense softmax over the whole KV; long KV: `_chunked_attention`."""
+    """q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D). Long KV: `_chunked_attention`.
+    Short KV on CUDA tensors: the GQA kernel (`_KernelAttention`), with
+    the keys at positions 0 .. Sk - 1 as every caller's kv_pos; on the
+    CPU the plain `_dense_attention`."""
     if k.shape[1] > 2 * ATTN_CHUNK:
         return _chunked_attention(q, k, v, causal=causal, q_pos=q_pos,
                                   kv_pos=kv_pos, window=window,
                                   softcap=softcap, kv_len=kv_len)
+    kw = dict(causal=causal, q_pos=q_pos, kv_pos=kv_pos, window=window,
+              softcap=softcap, kv_len=kv_len)
+    if not q.is_cuda:
+        return _dense_attention(q, k, v, **kw)
+    if tuple(kv_pos.shape) != (k.shape[1],):
+        raise ValueError(f"kv_pos has shape {tuple(kv_pos.shape)}, not "
+                         f"({k.shape[1]},)")
+    return _KernelAttention.apply(q, k, v, kw)
+
+
+def _dense_attention(q, k, v, *, causal: bool, q_pos, kv_pos, window: int,
+                     softcap: float, kv_len):
+    """The plain dense path (the kernel's plain version): GQA via head
+    repetition, float64 dot products rounded once, the f32 softmax over
+    the whole KV under the boolean mask."""
     rep = q.shape[2] // k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
     kf = torch.repeat_interleave(k, rep, dim=2)
